@@ -1,0 +1,66 @@
+"""Unified pose-detection model: BlazeFace backbone + grafted pose heads.
+
+Port of headpose_tpu/models/unified.py.  Output contract:
+  scores     (B, 896)        — cls_front (512) ++ cls_back (384) logits
+  loc        (B, 896, 16)    — raw [sx, sy, w, h, 6x(kx, ky)] per anchor
+  pose_front (B, 16, 16, 3)  — yaw/pitch/roll map over the 16x16 grid
+  pose_back  (B, 8, 8, 3)    — yaw/pitch/roll map over the 8x8 grid
+plus reference_outputs() reshaping to the 6-tensor signature of the
+reference's unified H5.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from ..utils.device import resolve_device
+from .blazeface import BLAZEFACE_FRONT, BlazeFace, BlazeFaceNet
+from .heads import MLPHead, MLPHeadNet
+
+__all__ = ["UnifiedPoseModel", "UnifiedPoseNet"]
+
+
+@dataclasses.dataclass(frozen=True)
+class UnifiedPoseModel:
+    """BlazeFace + two pose-regression heads (the spec)."""
+
+    backbone: BlazeFace = BLAZEFACE_FRONT
+    head88: MLPHead | None = None  # pose head consuming feat88 (16x16x88)
+    head96: MLPHead | None = None  # pose head consuming feat96 (8x8x96)
+
+
+class UnifiedPoseNet(nn.Module):
+    """The network of one `UnifiedPoseModel` spec, one forward."""
+
+    def __init__(self, spec: UnifiedPoseModel, *,
+                 device: str | torch.device | None = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.spec = spec
+        self.backbone = BlazeFaceNet(spec.backbone, device=device)
+        self.head88 = (MLPHeadNet(spec.head88, device=device)
+                       if spec.head88 is not None else None)
+        self.head96 = (MLPHeadNet(spec.head96, device=device)
+                       if spec.head96 is not None else None)
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        out = self.backbone(x)
+        if self.head88 is not None:
+            out["pose_front"] = self.head88(out["feat88"])
+        if self.head96 is not None:
+            out["pose_back"] = self.head96(out["feat96"])
+        return out
+
+    def reference_outputs(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """The 6-output signature of the reference unified H5
+        (cls_front, cls_back, loc_front, loc_back, pose_front, pose_back)."""
+        out = self(x)
+        B = x.shape[0]
+        scores, loc = out["scores"], out["loc"]
+        return (scores[:, :512].reshape(B, 512, 1),
+                scores[:, 512:].reshape(B, 384, 1),
+                loc[:, :512].reshape(B, 512, 16),
+                loc[:, 512:].reshape(B, 384, 16),
+                out["pose_front"], out["pose_back"])

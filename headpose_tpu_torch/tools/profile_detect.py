@@ -1,0 +1,87 @@
+"""Where the time of FaceDetector.detect goes on the card.
+
+Usage:  python -m headpose_tpu_torch.tools.profile_detect [--batch 128]
+
+Runs the flagship's detect on parity-corpus frames under torch.profiler and
+prints one JSON object: the wall time of the profiled window, the device's
+busy time (the union of its kernel intervals) and idle share, and the
+kernels that take the most device time, grouped by name.  Needs a CUDA
+device; it fails without one.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+
+def _busy_us(events) -> float:
+    """Length of the union of the device kernels' [start, end) intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--batch", type=int, default=128)
+    parser.add_argument("--iters", type=int, default=10)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_detect: no CUDA device is available")
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..pretrained import flagship_detector
+
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    imgs = np.load(os.path.join(repo, "tests", "golden",
+                                "parity_corpus.npz"))["imgs"]
+    imgs = np.resize(imgs, (args.batch, *imgs.shape[1:]))
+    det = flagship_detector()
+    for _ in range(3):
+        det.detect(imgs).trim()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            det.detect(imgs).trim()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_us(kernels)
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        t = by_name.setdefault(e.name, [0.0, 0])
+        t[0] += e.time_range.end - e.time_range.start
+        t[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    print(json.dumps({
+        "batch": args.batch, "iters": args.iters,
+        "card": torch.cuda.get_device_name(0),
+        "wall_ms_per_detect": wall_us / args.iters / 1e3,
+        "device_busy_ms_per_detect": busy / args.iters / 1e3,
+        "device_idle_share": 1.0 - busy / wall_us,
+        "kernels_per_detect": len(kernels) / args.iters,
+        "top_kernels": [{"name": n[:120], "ms_per_detect": t / args.iters / 1e3,
+                         "calls_per_detect": c / args.iters}
+                        for n, (t, c) in top]}))
+
+
+if __name__ == "__main__":
+    main()

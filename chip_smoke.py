@@ -3,27 +3,38 @@
 
 Usage, from the root of the repository:  python3 chip_smoke.py
 
-It drives the port's main path, FaceDetector.detect, on the card and exits
-non-zero on any failure (no phase catches its own failure).  It imports
-torch, numpy and the port: never jax, nor the headpose_tpu package.  Every
-line it prints is one JSON object, except the nvidia-smi line:
+It drives the port's two paths on the card, FaceDetector.detect (cuDNN
+network + the postprocess kernel) and FaceDetector.detect_fused (the fused
+backbone and pose-head kernels + the postprocess kernel), and exits non-zero
+on any failure (no phase catches its own failure).  It imports torch, numpy
+and the port: never jax, nor the headpose_tpu package.  Every line it prints
+is one JSON object, except the nvidia-smi line:
 
   device   the card (name, power limit), torch and CUDA versions;
-  kernels  per kernel: builds it from csrc/ with nvcc, holds it against its
-           plain PyTorch twin on the card, bit for bit, over fuzz cases;
-           times it (CUDA events) at the main path's shapes;
-  parity   flagship_detector() on the 112 parity-corpus images against the
-           reference detections (set agreement 1.0, pose p99 and max
-           < 0.1 deg) and on e2e_production.npz; the kernel's launch count
-           is reset just before these detect calls and must grow;
+  build    every kernel library built from csrc/ with nvcc, one nvcc per
+           source, all started together; ptxas's registers and smem;
+  kernels  per kernel: holds it against its plain PyTorch version on the
+           card over a set of cases (postprocess_nms bit for bit;
+           backbone_forward at rtol 1e-4 / atol 1e-5; mlp_head_forward at
+           rtol = atol = 1e-5) and times it (CUDA events) at the main
+           path's shapes beside its plain version and a library yardstick;
+  parity   flagship_detector().detect on the 112 parity-corpus images
+           against the reference detections (set agreement 1.0, pose p99
+           and max < 0.1 deg) and on e2e_production.npz; every launch count
+           is reset just before these detect calls and read just after;
   stress   the 108-image stress corpus per axis (set agreement 1.0, pose
            max < 0.1 deg), the reference's truncation order at the 100-face
            cap, and its uncapped >100-survivor sets at max_faces=256;
   best     best_detector() on 8 corpus images: the flagship's detections;
+  fused    detect_fused through the same parity and stress gates, and
+           best_detector().detect_fused against its own detect on 8 corpus
+           images; every launch count is reset just before and read just
+           after, and each of the three kernels must have launched; then
+           the B=128 network stage of both paths (CUDA events);
   timing   detect wall time at B=1 and B=128 (host clock around a
            synchronised call) and the per-stage split at B=128;
-  then the {"kernels": [...]} summary, the nvidia-smi line, and last
-  {"ok": true, "device": {...}}.
+  then the {"kernels": [...]} summary (launches from the fused phase), the
+  nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -31,6 +42,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -43,6 +55,8 @@ H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores
 PARITY_BUDGET_DEG = 0.1
 IOU_MATCH = 0.5
 FIELDS = ("boxes", "keypoints", "scores", "poses", "valid")
+BACKBONE_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_pallas.py:83-86
+HEAD_TOL = dict(rtol=1e-5, atol=1e-5)       # degrees, another sum order
 
 
 def emit(obj) -> None:
@@ -126,17 +140,87 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def wrappers() -> dict:
+    """Each kernel's wrapper; its `launches` counts the kernel's launches."""
+    from headpose_tpu_torch.ops.kernels import (backbone_forward,
+                                                mlp_head_forward,
+                                                postprocess_kernel)
+
+    return {"postprocess_nms": postprocess_kernel,
+            "backbone_forward": backbone_forward,
+            "mlp_head_forward": mlp_head_forward}
+
+
+def reset_launches() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def close(got: torch.Tensor, want: torch.Tensor, rtol: float,
+          atol: float) -> tuple[float, float]:
+    """(max abs err, max of |got - want| / (atol + rtol |want|)): the second
+    is <= 1 where torch.testing.assert_close would pass."""
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    err = (got - want).abs()
+    ratio = err / (atol + rtol * want.abs())
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("non-finite kernel output")
+    return float(err.max()), float(ratio.max())
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median device time of one fn() over reps calls (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
 # ---------------------------------------------------------------- phases
-def phase_kernels(dev, anchors, main_inputs):
+def phase_build() -> dict:
+    """Every kernel library, one nvcc per source, all started together."""
+    from headpose_tpu_torch.ops.kernels import backbone, head_mlp, postprocess
+
+    mods = {"postprocess_nms": postprocess, "backbone_forward": backbone,
+            "mlp_head_forward": head_mlp}
+
+    def build(mod):
+        t0 = time.perf_counter()
+        mod.LIBRARY.load()                 # nvcc from csrc/ (first use)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(mods)) as pool:
+        seconds = dict(zip(mods, pool.map(build, mods.values())))
+    built = {name: {"build_s": seconds[name],
+                    "ptxas": [ln.strip() for ln in
+                              mod.LIBRARY.build_log.splitlines()
+                              if "registers" in ln or "smem" in ln]}
+             for name, mod in mods.items()}
+    emit({"phase": "build", **built})
+    return built
+
+
+def phase_kernels(dev, anchors, main_inputs, built):
     """postprocess_nms: the kernel against its twin on the card."""
     from headpose_tpu_torch.ops import detection as det
     from headpose_tpu_torch.ops.kernels import postprocess as kern
 
-    t0 = time.perf_counter()
-    kern.LIBRARY.load()                    # nvcc from csrc/ (first use)
-    build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in kern.LIBRARY.build_log.splitlines()
-             if "registers" in ln or "smem" in ln]
+    build_s = built["postprocess_nms"]["build_s"]
+    ptxas = built["postprocess_nms"]["ptxas"]
 
     cases = []
     for case in FUZZ:
@@ -224,6 +308,214 @@ def phase_kernels(dev, anchors, main_inputs):
     return entry
 
 
+NARROW = dict(input_size=32, stem_features=8, block_channels=(8, 12, 16, 16, 20),
+              downsample_blocks=(0, 1, 3), tap88_block=2)
+
+
+def random_init(net, seed):
+    """Glorot-uniform weights and small normal biases, made with numpy."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in net.parameters():
+            if p.ndim == 1:
+                v = rng.normal(0, 0.05, tuple(p.shape))
+            else:
+                fan = p.shape[1] * (p.shape[2] * p.shape[3] if p.ndim == 4
+                                    else 1)
+                lim = np.sqrt(6.0 / (fan + p.shape[0]))
+                v = rng.uniform(-lim, lim, tuple(p.shape))
+            p.copy_(torch.from_numpy(v.astype(np.float32)))
+    return net
+
+
+def backbone_work(spec, B):
+    """(operations, bytes) that the backbone must do and move for B images:
+    every multiply-add as 2, the biases, skip adds and ReLUs as 1; the
+    frames read once and the two taps written once (weights once)."""
+    S = spec.input_size
+    h, cin = S // 2, spec.stem_features
+    ops = 2 * h * h * 75 * cin + 2 * h * h * cin
+    params = 75 * cin + cin
+    for i, cout in enumerate(spec.block_channels):
+        h //= 2 if i in spec.downsample_blocks else 1
+        ops += (2 * h * h * 9 * cin + h * h * cin
+                + 2 * h * h * cin * cout + 3 * h * h * cout)
+        params += 10 * cin + cin * cout + cout
+        cin = cout
+    c88 = spec.block_channels[spec.tap88_block]
+    out = (S // 8) ** 2 * c88 + (S // 16) ** 2 * spec.block_channels[-1]
+    return B * ops, 4 * (B * (S * S * 3 + out) + params)
+
+
+def cudnn_taps(net, x):
+    """The port's cuDNN BlazeFaceNet from the frames to the taps (a
+    sequence of calls: stem, 16 blocks, two NHWC copies)."""
+    from headpose_tpu_torch.models.blazeface import _pad_same
+
+    y = torch.relu(net.stem(_pad_same(x.permute(0, 3, 1, 2), 5, 2)))
+    for i, block in enumerate(net.blocks):
+        y = block(y)
+        if i == net.spec.tap88_block:
+            f88 = y
+    return (f88.permute(0, 2, 3, 1).contiguous(),
+            y.permute(0, 2, 3, 1).contiguous())
+
+
+def bound(ops, nbytes):
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_FP32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def phase_kernel_backbone(dev, flagship, frames128, built):
+    """backbone_forward: the kernels against the plain version on the card,
+    flagship at B in {1, 3, 128} on corpus frames and a narrow random-init
+    spec at B=4; then timed at B=128."""
+    from headpose_tpu_torch.models import BlazeFace, BlazeFaceNet
+    from headpose_tpu_torch.ops.kernels import backbone as kbb
+
+    net = flagship.net.backbone
+    narrow = random_init(BlazeFaceNet(BlazeFace(**NARROW), device=dev), 5)
+    xn = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (4, 32, 32, 3)).astype(np.float32)).to(dev)
+    cases, worst = [], (0.0, 0.0)
+    with torch.inference_mode():
+        for name, m, x in (("flagship_b1", net, frames128[:1]),
+                           ("flagship_b3", net, frames128[:3]),
+                           ("flagship_b128", net, frames128),
+                           ("narrow_b4", narrow, xn)):
+            got = kbb.backbone_forward_cuda(m, x)
+            want = kbb.backbone_forward_plain(m, x)
+            torch.cuda.synchronize()
+            errs = [close(g, w, **BACKBONE_TOL) for g, w in zip(got, want)]
+            err = max(e for e, _ in errs)
+            ratio = max(r for _, r in errs)
+            cases.append({"case": name, "b": int(x.shape[0]),
+                          "max_abs_err": err, "tolerance_ratio": ratio})
+            worst = (max(worst[0], err), max(worst[1], ratio))
+        # the library yardstick agrees too (another sum order: report only)
+        lib88, lib96 = cudnn_taps(net, frames128)
+        got88, got96 = kbb.backbone_forward_cuda(net, frames128)
+        vs_library = max(float((lib88 - got88).abs().max()),
+                         float((lib96 - got96).abs().max()))
+        ms = cuda_ms(lambda: kbb.backbone_forward_cuda(net, frames128), 50)
+        plain_ms = cuda_ms(lambda: kbb.backbone_forward_plain(net,
+                                                              frames128), 3)
+        library_ms = cuda_ms(lambda: cudnn_taps(net, frames128), 50)
+    B = int(frames128.shape[0])
+    ops, nbytes = backbone_work(net.spec, B)
+    bound_ms, bound_by = bound(ops, nbytes)
+    emit({"phase": "kernels", "kernel": "backbone_forward", "cases": cases,
+          "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+          "bound_ms": bound_ms, "max_abs_err_vs_library": vs_library})
+    if worst[1] > 1.0:
+        raise AssertionError(f"backbone_forward disagrees with its plain "
+                             f"version beyond {BACKBONE_TOL}: {cases}")
+    return {
+        "name": "backbone_forward", "route": "cuda",
+        "source": "headpose_tpu_torch/csrc/backbone.cu",
+        "replaces": "headpose_tpu/ops/pallas/backbone.py:117",
+        "launches": None,                     # filled by the fused phase
+        "max_abs_err": worst[0], "tolerance": BACKBONE_TOL,
+        "tolerance_ratio": worst[1],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+        "library": "sequence of calls, not one: the port's cuDNN "
+                   "BlazeFaceNet stem + 16 blocks to the two NHWC taps",
+        "grids_per_launch": 1 + len(net.spec.block_channels),
+        "operations": ops, "bytes": nbytes,
+        "shape": {"B": B, "S": net.spec.input_size},
+        "build_s": built["backbone_forward"]["build_s"],
+        "ptxas": built["backbone_forward"]["ptxas"],
+    }
+
+
+def head_work(heads, rows):
+    """(operations, bytes) of pose heads over their rows: every
+    multiply-add as 2, bias and activation as 1 each; rows read once, the
+    outputs written once, weights once."""
+    ops = nbytes = 0
+    for net, n in zip(heads, rows):
+        cin = net.spec.in_features
+        nbytes += 4 * n * (cin + net.spec.layers[-1][0])
+        for cout, _ in net.spec.layers:
+            ops += n * (2 * cin * cout + 2 * cout)
+            nbytes += 4 * (cin * cout + cout)
+            cin = cout
+    return ops, nbytes
+
+
+def phase_kernel_head(dev, flagship, best, frames128, built):
+    """mlp_head_forward: the kernel against the plain version on the card,
+    both shipped models' heads on the flagship's B=128 feature maps, every
+    activation id and ragged N on random heads; then timed at the
+    flagship's B=128 shapes."""
+    from headpose_tpu_torch.core.activations import ACTIVATION_IDS
+    from headpose_tpu_torch.models.heads import MLPHead, MLPHeadNet
+    from headpose_tpu_torch.ops.kernels import head_mlp as khead
+
+    with torch.inference_mode():
+        out = flagship.net(frames128)
+    rows = {88: out["feat88"].reshape(-1, 88).contiguous(),
+            96: out["feat96"].reshape(-1, 96).contiguous()}
+    rng = np.random.default_rng(7)
+    cases = [(f"{model}.{h}", getattr(d.net, h), rows[k])
+             for model, d in (("flagship", flagship), ("best", best))
+             for h, k in (("head88", 88), ("head96", 96))]
+    for i, act in enumerate(ACTIVATION_IDS):
+        n = 513 + 32 * i                 # ragged: never a multiple of 32
+        net = random_init(MLPHeadNet(MLPHead(88, ((16, act), (3, "linear"))),
+                                     device=dev), 10 + i)
+        x = torch.from_numpy(rng.normal(0, 2, (n, 88)).astype(
+            np.float32)).to(dev)
+        cases.append((f"act_{act}_n{n}", net, x))
+    report, worst = [], (0.0, 0.0)
+    with torch.inference_mode():
+        for name, net, x in cases:
+            got = khead.mlp_head_forward_cuda(net, x)
+            want = khead.mlp_head_forward_plain(net, x)
+            torch.cuda.synchronize()
+            err, ratio = close(got, want, **HEAD_TOL)
+            report.append({"case": name, "n": int(x.shape[0]),
+                           "max_abs_err": err, "tolerance_ratio": ratio})
+            worst = (max(worst[0], err), max(worst[1], ratio))
+        heads = (flagship.net.head88, flagship.net.head96)
+        both = (rows[88], rows[96])
+        ms = cuda_ms(lambda: [khead.mlp_head_forward_cuda(h, x)
+                              for h, x in zip(heads, both)], 200)
+        plain_ms = cuda_ms(lambda: [khead.mlp_head_forward_plain(h, x)
+                                    for h, x in zip(heads, both)], 20)
+        library_ms = cuda_ms(lambda: [h(x) for h, x in zip(heads, both)],
+                             200)
+    ops, nbytes = head_work(heads, [x.shape[0] for x in both])
+    bound_ms, bound_by = bound(ops, nbytes)
+    emit({"phase": "kernels", "kernel": "mlp_head_forward", "cases": report,
+          "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+          "bound_ms": bound_ms})
+    if worst[1] > 1.0:
+        raise AssertionError(f"mlp_head_forward disagrees with its plain "
+                             f"version beyond {HEAD_TOL}: {report}")
+    return {
+        "name": "mlp_head_forward", "route": "cuda",
+        "source": "headpose_tpu_torch/csrc/head_mlp.cu",
+        "replaces": "headpose_tpu/ops/pallas/head_mlp.py:29",
+        "launches": None,                     # filled by the fused phase
+        "max_abs_err": worst[0], "tolerance": HEAD_TOL,
+        "tolerance_ratio": worst[1],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+        "library": "sequence of calls, not one: the MLPHeadNet modules' "
+                   "Linear + activation chain",
+        "timed": "head88 over B*256 rows + head96 over B*64 rows, B=128",
+        "operations": ops, "bytes": nbytes,
+        "shape": {"rows88": int(both[0].shape[0]),
+                  "rows96": int(both[1].shape[0])},
+        "build_s": built["mlp_head_forward"]["build_s"],
+        "ptxas": built["mlp_head_forward"]["ptxas"],
+    }
+
+
 def box_iou(a, b) -> float:
     x1, y1 = max(a[0], b[0]), max(a[1], b[1])
     x2, y2 = min(a[2], b[2]), min(a[3], b[3])
@@ -259,16 +551,10 @@ def dist(errs) -> dict:
             "p99": float(np.percentile(errs, 99)), "max": float(errs.max())}
 
 
-def phase_parity(flagship, corpus, production):
-    from headpose_tpu_torch.ops.kernels import postprocess_kernel
-
-    postprocess_kernel.launches = 0          # the main path's window opens
-    per = flagship.detect(corpus["imgs"]).trim()
-    res = flagship.detect_single(production["img"])
-    launches = postprocess_kernel.launches   # ... and closes
-    if launches < 2:
-        raise AssertionError(f"detect did not launch the kernel ({launches})")
-
+def check_parity(detect, corpus, production, phase):
+    """The parity corpus and e2e_production.npz through `detect`."""
+    per = detect(corpus["imgs"]).trim()
+    res = detect(production["img"]).trim()[0]
     agree, pose, box, score = 0, [], [], []
     for i, ours in enumerate(per):
         c = int(corpus["counts"][i])
@@ -280,7 +566,7 @@ def phase_parity(flagship, corpus, production):
             box.append(np.abs(ref["boxes"][ri] - ours.boxes[oi]).max())
             score.append(abs(float(ref["scores"][ri]) - float(ours.scores[oi])))
     n = len(per)
-    report = {"phase": "parity", "images": n,
+    report = {"phase": phase, "images": n,
               "reference_detections": int(corpus["counts"].sum()),
               "set_agreement": agree / n, "pose_deg": dist(pose),
               "box_norm": dist(box), "score": dist(score)}
@@ -299,6 +585,15 @@ def phase_parity(flagship, corpus, production):
         if not err <= tol:
             raise AssertionError(f"e2e_production: {k} err {err} > {tol}")
     report["e2e_production_detections"] = len(res)
+    return report
+
+
+def phase_parity(flagship, corpus, production):
+    reset_launches()                         # the main path's window opens
+    report = check_parity(flagship.detect, corpus, production, "parity")
+    launches = read_launches()               # ... and closes
+    if launches["postprocess_nms"] < 2:
+        raise AssertionError(f"detect did not launch the kernel ({launches})")
     report["launches"] = launches
     emit(report)
     return launches
@@ -314,13 +609,13 @@ def order_exact(ref_boxes, ref_scores, ours, c, score_tol=1e-3) -> bool:
                for i in range(c))
 
 
-def phase_stress(flagship, stress):
-    """The boundary-stress corpus: threshold-straddling scores, IoU~0.3 NMS
-    clusters, 20-48-face saturation, and >100-survivor overflow — its
-    truncation order at the 100-face cap, and its uncapped survivor sets at
-    max_faces=256."""
-    per = flagship.detect(stress["imgs"]).trim()
-    report = {"phase": "stress", "images": len(per)}
+def check_stress(detect, flagship, stress, phase):
+    """The boundary-stress corpus through `detect` (a method of flagship):
+    threshold-straddling scores, IoU~0.3 NMS clusters, 20-48-face
+    saturation, and >100-survivor overflow — its truncation order at the
+    100-face cap, and its uncapped survivor sets at max_faces=256."""
+    per = detect(stress["imgs"]).trim()
+    report = {"phase": phase, "images": len(per)}
     for axis in ("threshold", "nms", "saturation", "overflow"):
         idxs = np.where(stress["axis"] == axis)[0]
         agree, pose = 0, []
@@ -345,7 +640,7 @@ def phase_stress(flagship, stress):
     saved = flagship.max_faces
     flagship.max_faces = 256
     try:
-        unc = flagship.detect(stress["imgs"][stress["ov_idx"]]).trim()
+        unc = detect(stress["imgs"][stress["ov_idx"]]).trim()
     finally:
         flagship.max_faces = saved
     agree = count = order = 0
@@ -362,13 +657,14 @@ def phase_stress(flagship, stress):
                               "max_survivors": int(stress["ov_counts"].max())}
     if not agree == count == order == n:
         raise AssertionError(f"stress uncapped: {report['uncapped_256']}")
-    emit(report)
+    return report
 
 
-def phase_best(flagship, corpus):
-    from headpose_tpu_torch.pretrained import best_detector
+def phase_stress(flagship, stress):
+    emit(check_stress(flagship.detect, flagship, stress, "stress"))
 
-    best = best_detector()
+
+def phase_best(flagship, best, corpus):
     imgs = corpus["imgs"][:8]
     a, b = best.detect(imgs), flagship.detect(imgs)
     if not torch.equal(a.valid, b.valid):
@@ -382,6 +678,45 @@ def phase_best(flagship, corpus):
     emit({"phase": "best", "images": 8, "detections": int(m.sum()),
           "box_err": box_err, "score_err": score_err,
           "pose_diff_max_deg": float((a.poses - b.poses)[m].abs().max())})
+
+
+def phase_fused(flagship, best, corpus, production, stress, frames128):
+    """The slice's path, FaceDetector.detect_fused (preprocess →
+    backbone_forward → SSD 1x1 products → mlp_head_forward → the
+    postprocess kernel → trim), through the main path's gates; best's
+    detect_fused against its own detect; then the B=128 network stage of
+    both paths."""
+    from headpose_tpu_torch.runtime.fused import fused_network
+
+    reset_launches()                         # the fused path's window opens
+    parity = check_parity(flagship.detect_fused, corpus, production,
+                          "fused")
+    stressed = check_stress(flagship.detect_fused, flagship, stress,
+                            "fused")
+    imgs = corpus["imgs"][:8]
+    a, b = best.detect_fused(imgs), best.detect(imgs)
+    launches = read_launches()               # ... and closes
+    if min(launches.values()) < 1:
+        raise AssertionError(f"detect_fused missed a kernel: {launches}")
+    if not torch.equal(a.valid, b.valid):
+        raise AssertionError("best detect_fused: detection sets differ")
+    m = b.valid
+    best_err = {k: float((getattr(a, k) - getattr(b, k))[m].abs().max())
+                for k in ("boxes", "scores", "poses")}
+    for k, tol in (("boxes", 1e-4), ("scores", 1e-4), ("poses", 5e-4)):
+        if not best_err[k] <= tol:
+            raise AssertionError(f"best detect_fused: {k} err "
+                                 f"{best_err[k]} > {tol}")
+    with torch.inference_mode():
+        fused_ms = median_ms(lambda: fused_network(flagship.net, frames128),
+                             20)
+        cudnn_ms = median_ms(lambda: flagship.net(frames128), 20)
+    del parity["phase"], stressed["phase"]
+    emit({"phase": "fused", "launches": launches, "parity": parity,
+          "stress": stressed,
+          "best": {"images": 8, "detections": int(m.sum()), **best_err},
+          "b128_network_ms_median": {"fused": fused_ms, "cudnn": cudnn_ms}})
+    return launches
 
 
 def phase_timing(flagship, corpus, card):
@@ -438,7 +773,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from headpose_tpu_torch.pretrained import flagship_detector
+    from headpose_tpu_torch.pretrained import best_detector, flagship_detector
 
     card = nvidia_smi()
     dev = torch.device("cuda")
@@ -450,23 +785,34 @@ def main() -> int:
 
     corpus = dict(np.load(os.path.join(GOLDEN, "parity_corpus.npz")))
     production = dict(np.load(os.path.join(GOLDEN, "e2e_production.npz")))
+    stress = dict(np.load(os.path.join(GOLDEN, "stress_corpus.npz")))
+    built = phase_build()
     flagship = flagship_detector()            # TF32 off from here on
+    best = best_detector()
 
-    # the main path's own postprocess inputs: 128 corpus frames
+    # the main path's own inputs: 128 corpus frames, and the network's
+    # outputs for them
     imgs128 = np.concatenate([corpus["imgs"], corpus["imgs"][:16]])
     from headpose_tpu_torch.ops.image import preprocess
     with torch.inference_mode():
-        o = flagship.net(preprocess(torch.from_numpy(imgs128).to(dev)))
+        frames128 = preprocess(torch.from_numpy(imgs128).to(dev))
+        o = flagship.net(frames128)
     main_inputs = [o["scores"], o["loc"], o["pose_front"], o["pose_back"]]
 
-    entry = phase_kernels(dev, flagship.anchors, main_inputs)
-    entry["launches"] = phase_parity(flagship, corpus, production)
-    phase_stress(flagship,
-                 dict(np.load(os.path.join(GOLDEN, "stress_corpus.npz"))))
-    phase_best(flagship, corpus)
+    entries = [phase_kernels(dev, flagship.anchors, main_inputs, built),
+               phase_kernel_backbone(dev, flagship, frames128, built),
+               phase_kernel_head(dev, flagship, best, frames128, built)]
+    detect_launches = phase_parity(flagship, corpus, production)
+    phase_stress(flagship, stress)
+    phase_best(flagship, best, corpus)
+    fused_launches = phase_fused(flagship, best, corpus, production, stress,
+                                 frames128)
     phase_timing(flagship, corpus, card)
 
-    emit({"kernels": [entry]})
+    for entry in entries:
+        entry["launches"] = fused_launches[entry["name"]]
+    entries[0]["launches_detect"] = detect_launches["postprocess_nms"]
+    emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

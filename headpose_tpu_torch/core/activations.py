@@ -6,13 +6,16 @@ Keras semantics.  Two entries differ from PyTorch's defaults:
   * 'leaky_relu' is the tf-keras ACTIVATION string, alpha = 0.2
     (torch.nn.functional.leaky_relu defaults to 0.01);
   * 'gelu' is the exact erf form (approximate='none').
+
+`ACTIVATION_IDS` numbers the table for the fused head kernel: the enum in
+csrc/head_mlp.cu uses the same numbers (a CPU test reads both).
 """
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["ACTIVATIONS", "get_activation"]
+__all__ = ["ACTIVATIONS", "ACTIVATION_IDS", "get_activation", "activation_id"]
 
 ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "linear": lambda x: x,
@@ -28,6 +31,8 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "gelu": lambda x: F.gelu(x, approximate="none"),
 }
 
+ACTIVATION_IDS: dict[str, int] = {name: i for i, name in enumerate(ACTIVATIONS)}
+
 
 def get_activation(name: str | None) -> Callable[[torch.Tensor], torch.Tensor]:
     if not name:
@@ -36,3 +41,10 @@ def get_activation(name: str | None) -> Callable[[torch.Tensor], torch.Tensor]:
         return ACTIVATIONS[name]
     except KeyError:
         raise NotImplementedError(f"activation {name!r}")
+
+
+def activation_id(name: str | None) -> int:
+    """The kernel's number for a Keras activation name; an unknown name
+    raises as `get_activation` does."""
+    get_activation(name)
+    return ACTIVATION_IDS[name or "linear"]

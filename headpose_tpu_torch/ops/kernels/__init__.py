@@ -2,6 +2,8 @@
 
 Importing a module here builds nothing: each kernel is compiled with nvcc on
 its first launch (utils.build)."""
+from .backbone import backbone_forward
+from .head_mlp import mlp_head_forward
 from .postprocess import postprocess_kernel
 
-__all__ = ["postprocess_kernel"]
+__all__ = ["backbone_forward", "mlp_head_forward", "postprocess_kernel"]

@@ -13,9 +13,12 @@ Use:
     batch = det.detect(images)          # (B, H, W, 3) BGR uint8 → BatchResults
     results = batch.trim()              # ragged per-image, reference contract
     res = det.detect_single(image)      # one image → Results
+    batch = det.detect_fused(images)    # the network through the fused
+                                        # backbone and pose-head kernels
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
@@ -28,6 +31,7 @@ from ..ops.image import preprocess
 from ..ops.kernels.postprocess import postprocess_slab
 from ..tools.convert import load_native, params_from_jax
 from ..utils.device import resolve_device
+from .fused import fused_network
 from .results import BatchResults, Results
 
 __all__ = ["FaceDetector"]
@@ -98,6 +102,16 @@ class FaceDetector:
         """images: (B, H, W, 3) or (H, W, 3), uint8/float 0-255, BGR by
         default; a numpy array or a tensor.  Returns the slabs on the
         detector's device without synchronising."""
+        return self._detect(images, self.net)
+
+    def detect_fused(self, images) -> BatchResults:
+        """`detect` with the network computed through the fused backbone
+        and pose-head kernels (`runtime.fused.fused_network`) instead of the
+        cuDNN modules; the same preprocess and postprocess."""
+        return self._detect(images, functools.partial(fused_network,
+                                                      self.net))
+
+    def _detect(self, images, network) -> BatchResults:
         if isinstance(images, torch.Tensor):
             x = images
         else:
@@ -115,7 +129,7 @@ class FaceDetector:
         with torch.inference_mode():
             x = preprocess(x.to(self.device), self.input_size,
                            self.channel_order)
-            out = self.net(x)
+            out = network(x)
             slab = postprocess_slab(
                 out["scores"], out["loc"], out["pose_front"], out["pose_back"],
                 self.anchors, score_threshold=self.score_threshold,

@@ -1,0 +1,58 @@
+"""The unified network through the fused kernels.
+
+`fused_network(net, x)` computes what `UnifiedPoseNet.forward` computes
+(feat88, feat96, scores, loc, pose_front, pose_back) as the JAX package's
+kernel entry points compose:
+
+  ops.kernels.backbone_forward   the stem and every BlazeBlock (TPU kernel
+                                 ops/pallas/backbone.py::backbone_forward)
+  the four SSD 1x1 heads         matrix products on the NHWC taps, flattened
+                                 anchor-major (cell, then anchor), as XLA
+                                 computes them outside any kernel in JAX
+  ops.kernels.mlp_head_forward   both pose heads over every map cell (TPU
+                                 kernel ops/pallas/head_mlp.py)
+
+On a CUDA device both kernels launch (or the call raises); on the CPU their
+plain versions run.  `FaceDetector.detect_fused` serves it end to end.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..models.unified import UnifiedPoseNet
+from ..ops.kernels.backbone import backbone_forward
+from ..ops.kernels.head_mlp import mlp_head_forward
+
+__all__ = ["fused_network"]
+
+
+def _ssd(conv: torch.nn.Conv2d, feat: torch.Tensor) -> torch.Tensor:
+    """A 1x1 conv head on an NHWC map, flattened (B, cells * channels)."""
+    w = conv.weight[:, :, 0, 0]
+    y = feat.reshape(-1, feat.shape[-1]) @ w.t() + conv.bias
+    return y.reshape(feat.shape[0], -1)
+
+
+def _pose(head, feat: torch.Tensor) -> torch.Tensor:
+    B, H, W, C = feat.shape
+    return mlp_head_forward(head, feat.reshape(-1, C)).reshape(B, H, W, -1)
+
+
+@torch.no_grad()
+def fused_network(net: UnifiedPoseNet, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    """x (B, S, S, 3) float32 NHWC in [-1, 1] → the dict of
+    `UnifiedPoseNet.forward`, through the fused kernels."""
+    bb = net.backbone
+    f88, f96 = backbone_forward(bb, x.contiguous())   # the resize's output
+                                                      # is a strided view
+    B = x.shape[0]
+    out = {"feat88": f88, "feat96": f96,
+           "scores": torch.cat([_ssd(bb.cls_front, f88),
+                                _ssd(bb.cls_back, f96)], 1),
+           "loc": torch.cat([_ssd(bb.loc_front, f88),
+                             _ssd(bb.loc_back, f96)], 1).reshape(B, -1, 16)}
+    if net.head88 is not None:
+        out["pose_front"] = _pose(net.head88, f88)
+    if net.head96 is not None:
+        out["pose_back"] = _pose(net.head96, f96)
+    return out

@@ -1,11 +1,14 @@
-"""Where the time of FaceDetector.detect goes on the card.
+"""Where the time of FaceDetector.detect (or detect_fused) goes on the card.
 
 Usage:  python -m headpose_tpu_torch.tools.profile_detect [--batch 128]
+            [--fused]
 
-Runs the flagship's detect on parity-corpus frames under torch.profiler and
-prints one JSON object: the wall time of the profiled window, the device's
-busy time (the union of its kernel intervals) and idle share, and the
-kernels that take the most device time, grouped by name.  Needs a CUDA
+Runs the flagship's detect (with --fused, detect_fused: the network through
+the fused backbone and pose-head kernels) on parity-corpus frames under
+torch.profiler and prints one JSON object: the wall time of the profiled
+window, the device's busy time (the union of its kernel intervals) and idle
+share, the kernels that take the most device time, grouped by name, and the
+last call's device kernels in launch order with their times.  Needs a CUDA
 device; it fails without one.
 """
 from __future__ import annotations
@@ -39,6 +42,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, default=128)
     parser.add_argument("--iters", type=int, default=10)
+    parser.add_argument("--fused", action="store_true",
+                        help="profile detect_fused instead of detect")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_detect: no CUDA device is available")
@@ -52,14 +57,15 @@ def main() -> None:
                                 "parity_corpus.npz"))["imgs"]
     imgs = np.resize(imgs, (args.batch, *imgs.shape[1:]))
     det = flagship_detector()
+    detect = det.detect_fused if args.fused else det.detect
     for _ in range(3):
-        det.detect(imgs).trim()
+        detect(imgs).trim()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.iters):
-            det.detect(imgs).trim()
+            detect(imgs).trim()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
@@ -71,7 +77,10 @@ def main() -> None:
         t[0] += e.time_range.end - e.time_range.start
         t[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    kernels.sort(key=lambda e: e.time_range.start)
+    last_call = kernels[-(len(kernels) // args.iters):]
     print(json.dumps({
+        "path": "detect_fused" if args.fused else "detect",
         "batch": args.batch, "iters": args.iters,
         "card": torch.cuda.get_device_name(0),
         "wall_ms_per_detect": wall_us / args.iters / 1e3,
@@ -80,7 +89,10 @@ def main() -> None:
         "kernels_per_detect": len(kernels) / args.iters,
         "top_kernels": [{"name": n[:120], "ms_per_detect": t / args.iters / 1e3,
                          "calls_per_detect": c / args.iters}
-                        for n, (t, c) in top]}))
+                        for n, (t, c) in top],
+        "last_call": [{"name": e.name[:80],
+                       "us": e.time_range.end - e.time_range.start}
+                      for e in last_call]}))
 
 
 if __name__ == "__main__":

@@ -18,7 +18,7 @@ import subprocess
 import threading
 from typing import Callable, Sequence
 
-__all__ = ["CudaLibrary", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["CudaLibrary", "BUILD_DIR", "NVCC_FLAGS", "NVCC_FLAGS_FMA"]
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO, "build", "headpose_tpu_torch")
@@ -29,6 +29,11 @@ BUILD_DIR = os.path.join(_REPO, "build", "headpose_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# For kernels held to their plain versions within a tolerance, not bit for
+# bit: the same flags with FMA contraction allowed.  Still no
+# --use_fast_math, so division stays IEEE and tanhf, expf, erff, log1pf are
+# libdevice's accurate functions.
+NVCC_FLAGS_FMA = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
 
 
 def _nvcc() -> str:
@@ -47,19 +52,22 @@ def _nvcc() -> str:
 class CudaLibrary:
     """A shared library built from CUDA sources on first `load()`.
 
-    `configure(lib)` runs once after loading to declare argtypes/restype."""
+    `configure(lib)` runs once after loading to declare argtypes/restype;
+    `flags` are nvcc's flags for this library (they key its hash)."""
 
     def __init__(self, name: str, sources: Sequence[str],
-                 configure: Callable[[ctypes.CDLL], None]):
+                 configure: Callable[[ctypes.CDLL], None],
+                 flags: Sequence[str] = NVCC_FLAGS):
         self.name = name
         self.sources = tuple(os.path.abspath(s) for s in sources)
+        self.flags = tuple(flags)
         self._configure = configure
         self._lock = threading.Lock()
         self._lib: ctypes.CDLL | None = None
         self.build_log = ""   # nvcc's output of the build this process ran
 
     def path(self) -> str:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(" ".join(self.flags).encode())
         for src in self.sources:
             with open(src, "rb") as f:
                 h.update(f.read())
@@ -68,7 +76,7 @@ class CudaLibrary:
     def _build(self, path: str) -> None:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *self.sources],
+        proc = subprocess.run([_nvcc(), *self.flags, "-o", tmp, *self.sources],
                               capture_output=True, text=True, timeout=600)
         self.build_log = proc.stdout + proc.stderr
         if proc.returncode != 0:

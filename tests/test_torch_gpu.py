@@ -1,6 +1,8 @@
 """The port on the card: the CUDA postprocess kernel against its plain twin,
 and FaceDetector.detect through the kernel against the same pipeline through
-the twin.  Both are compared bit for bit.
+the twin, both bit for bit; the fused backbone and pose-head kernels against
+their plain versions (rtol 1e-4 / atol 1e-5 and rtol = atol = 1e-5: the
+kernels sum in another order than cuBLAS), and detect_fused against detect.
 
 Marked `gpu`.  Each test skips in the `cuda` fixture when no CUDA device is
 present (never at import: every xdist worker must collect the same tests).
@@ -15,9 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+from headpose_tpu_torch.models import BlazeFace, BlazeFaceNet, MLPHead
 from headpose_tpu_torch.models.anchors import generate_anchors
+from headpose_tpu_torch.models.heads import MLPHeadNet
 from headpose_tpu_torch.ops import detection as det
 from headpose_tpu_torch.ops.image import preprocess
+from headpose_tpu_torch.ops.kernels import backbone as kbb
+from headpose_tpu_torch.ops.kernels import head_mlp as khead
 from headpose_tpu_torch.ops.kernels import postprocess as kern
 
 pytestmark = pytest.mark.gpu
@@ -30,6 +36,8 @@ FIELDS = ("boxes", "keypoints", "scores", "poses", "valid")
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 plain versions
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -109,3 +117,118 @@ def test_empty_batch_launches_nothing(cuda):
     out = kern.postprocess_kernel(*args, anchors)
     assert out["valid"].shape == (0, 100)
     assert kern.postprocess_kernel.launches == before
+
+
+# ------------------------------------------------ fused backbone and heads
+NARROW = BlazeFace(input_size=32, stem_features=8,
+                   block_channels=(8, 12, 16, 16, 20),
+                   downsample_blocks=(0, 1, 3), tap88_block=2)
+
+
+def _random_init(net, seed):
+    """Glorot-uniform weights and small normal biases, made with numpy."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in net.parameters():
+            if p.ndim == 1:
+                v = rng.normal(0, 0.05, tuple(p.shape))
+            else:
+                fan = p.shape[1] * (p.shape[2] * p.shape[3] if p.ndim == 4
+                                    else 1)
+                lim = np.sqrt(6.0 / (fan + p.shape[0]))
+                v = rng.uniform(-lim, lim, tuple(p.shape))
+            p.copy_(torch.from_numpy(v.astype(np.float32)))
+    return net
+
+
+@pytest.fixture(scope="module")
+def flagship(cuda):
+    from headpose_tpu_torch.pretrained import flagship_detector
+
+    return flagship_detector()
+
+
+@pytest.mark.parametrize("case", ["flagship_b1", "flagship_b3", "narrow_b4"])
+def test_backbone_kernel_matches_plain(cuda, flagship, case):
+    if case.startswith("flagship"):
+        net = flagship.net.backbone
+        imgs = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"]
+        x = preprocess(torch.from_numpy(imgs[:int(case[-1])]).to(cuda))
+    else:
+        net = _random_init(BlazeFaceNet(NARROW, device=cuda), 5)
+        x = torch.from_numpy(np.random.default_rng(0).uniform(
+            -1, 1, (4, 32, 32, 3)).astype(np.float32)).to(cuda)
+    before = kbb.backbone_forward.launches
+    got = kbb.backbone_forward(net, x)
+    want = kbb.backbone_forward_plain(net, x)
+    torch.cuda.synchronize()
+    assert kbb.backbone_forward.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["flagship.head88", "flagship.head96",
+                                  "best.head88", "best.head96", "gelu",
+                                  "selu", "softplus", "ragged_513"])
+def test_head_kernel_matches_plain(cuda, case):
+    from headpose_tpu_torch.pretrained import BEST, FLAGSHIP, load_pretrained
+    from headpose_tpu_torch.tools.convert import params_from_jax
+
+    if "." in case:
+        model, head = case.split(".")
+        spec, params = load_pretrained(FLAGSHIP if model == "flagship"
+                                       else BEST)
+        hspec = getattr(spec, head)
+        net = MLPHeadNet(hspec, device=cuda)
+        net.load_state_dict(params_from_jax(hspec, params[head]))
+        k = hspec.in_features
+        x = np.load(os.path.join(GOLDEN, "heads.npz"))[f"xmap{k}"].reshape(
+            -1, k)
+    else:
+        act = "tanh" if case == "ragged_513" else case
+        net = _random_init(MLPHeadNet(MLPHead(88, ((16, act), (3, "linear"))),
+                                      device=cuda), 1)
+        x = np.random.default_rng(1).normal(
+            0, 2, (513 if case == "ragged_513" else 64, 88)).astype(np.float32)
+    x = torch.from_numpy(x).to(cuda)
+    before = khead.mlp_head_forward.launches
+    got = khead.mlp_head_forward(net, x)
+    want = khead.mlp_head_forward_plain(net, x)
+    torch.cuda.synchronize()
+    assert khead.mlp_head_forward.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("images", ["corpus", "production"])
+def test_detect_fused_matches_detect(cuda, flagship, images):
+    """16 corpus frames (128x128) and e2e_production.npz (256x256: the
+    resize path)."""
+    if images == "corpus":
+        imgs = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"][:16]
+    else:
+        imgs = np.load(os.path.join(GOLDEN, "e2e_production.npz"))["img"]
+    before = (kbb.backbone_forward.launches, khead.mlp_head_forward.launches)
+    got = flagship.detect_fused(imgs)
+    assert (kbb.backbone_forward.launches,
+            khead.mlp_head_forward.launches) == (before[0] + 1, before[1] + 2)
+    want = flagship.detect(imgs)
+    assert torch.equal(got.valid, want.valid)
+    assert int(want.valid.sum()) >= 1
+    for k, tol in (("boxes", 1e-4), ("scores", 1e-4), ("poses", 5e-4)):
+        err = (getattr(got, k) - getattr(want, k)).abs().max()
+        assert float(err) <= tol, k
+
+
+def test_fused_kernels_reject_what_they_do_not_take(cuda, flagship):
+    net = flagship.net.backbone
+    x = torch.zeros((2, 3, 128, 128), device=cuda).permute(0, 2, 3, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        kbb.backbone_forward_cuda(net, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        kbb.backbone_forward_cuda(net, x.cpu().contiguous())
+    head = flagship.net.head88
+    rows = torch.zeros((88, 8), device=cuda).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        khead.mlp_head_forward_cuda(head, rows)
+    with pytest.raises(ValueError, match=r"\(N, 88\)"):
+        khead.mlp_head_forward_cuda(head, torch.zeros((8, 96), device=cuda))

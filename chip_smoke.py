@@ -3,10 +3,12 @@
 
 Usage, from the root of the repository:  python3 chip_smoke.py
 
-It drives the port's two paths on the card, FaceDetector.detect (cuDNN
-network + the postprocess kernel) and FaceDetector.detect_fused (the fused
-backbone and pose-head kernels + the postprocess kernel), and exits non-zero
-on any failure (no phase catches its own failure).  It imports torch, numpy
+It drives the port's three paths on the card: FaceDetector.detect (cuDNN
+network + the postprocess kernel), FaceDetector.detect_fused (the fused
+backbone and pose-head kernels + the postprocess kernel), and
+FaceDetector(precision="fast").detect (the split-bf16 segment backbone +
+the pose-head and postprocess kernels); it exits non-zero on any failure
+(no phase catches its own failure).  It imports torch, numpy
 and the port: never jax, nor the headpose_tpu package.  Every line it prints
 is one JSON object, except the nvidia-smi line:
 
@@ -16,8 +18,11 @@ is one JSON object, except the nvidia-smi line:
   kernels  per kernel: holds it against its plain PyTorch version on the
            card over a set of cases (postprocess_nms bit for bit;
            backbone_forward at rtol 1e-4 / atol 1e-5; mlp_head_forward at
-           rtol = atol = 1e-5) and times it (CUDA events) at the main
-           path's shapes beside its plain version and a library yardstick;
+           rtol = atol = 1e-5; apply_fused at atol 2e-4 plus 2^-15 of the
+           value (SPLIT_TOL), and at atol 5e-4 against the fp32
+           backbone_forward kernel) and times it (CUDA
+           events) at the main path's shapes beside its plain version and a
+           library yardstick;
   parity   flagship_detector().detect on the 112 parity-corpus images
            against the reference detections (set agreement 1.0, pose p99
            and max < 0.1 deg) and on e2e_production.npz; every launch count
@@ -31,10 +36,18 @@ is one JSON object, except the nvidia-smi line:
            images; every launch count is reset just before and read just
            after, and each of the three kernels must have launched; then
            the B=128 network stage of both paths (CUDA events);
+  fast     flagship_detector(precision="fast").detect through the same
+           parity and stress gates, and best_detector(precision="fast")
+           against its own "highest" detect on 8 corpus images; launch
+           counts reset just before and read just after (apply_fused,
+           mlp_head_forward and postprocess_nms must have launched); the
+           B=128 network stage of the three networks and the "fast" detect
+           wall time at B=1 and B=128;
   timing   detect wall time at B=1 and B=128 (host clock around a
            synchronised call) and the per-stage split at B=128;
-  then the {"kernels": [...]} summary (launches from the fused phase), the
-  nvidia-smi line, and last {"ok": true, "device": {...}}.
+  then the {"kernels": [...]} summary (launches from the fused phase;
+  apply_fused's from the fast phase), the nvidia-smi line, and last
+  {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -52,11 +65,21 @@ GOLDEN = os.path.join(HERE, "tests", "golden")
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores
+H100_BF16_FLOPS = 989e12     # bf16 on the tensor cores, dense
 PARITY_BUDGET_DEG = 0.1
 IOU_MATCH = 0.5
 FIELDS = ("boxes", "keypoints", "scores", "poses", "valid")
 BACKBONE_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_pallas.py:83-86
 HEAD_TOL = dict(rtol=1e-5, atol=1e-5)       # degrees, another sum order
+# apply_fused against its plain version: the same split-bf16 products, summed
+# in the mma's order.  Wherever the two differ by an ulp before a split, the
+# lo half can round the other way, a step of 2^-17 of the value; on corpus
+# frames the maps reach 22, where one such step is 1.7e-4.  So the bound is
+# 2e-4 (the CPU's, on maps up to 2.7) plus 2^-15 (four steps) of the value;
+# each case also reports whether it is within 2e-4 alone
+SPLIT_TOL = dict(rtol=2.0 ** -15, atol=2e-4)
+# apply_fused against the fp32 backbone: tests/test_pallas.py:111-114
+SPLIT_VS_FP32_TOL = dict(rtol=0.0, atol=5e-4)
 
 
 def emit(obj) -> None:
@@ -142,13 +165,15 @@ def cuda_ms(fn, reps: int) -> float:
 
 def wrappers() -> dict:
     """Each kernel's wrapper; its `launches` counts the kernel's launches."""
-    from headpose_tpu_torch.ops.kernels import (backbone_forward,
+    from headpose_tpu_torch.ops.kernels import (apply_fused,
+                                                backbone_forward,
                                                 mlp_head_forward,
                                                 postprocess_kernel)
 
     return {"postprocess_nms": postprocess_kernel,
             "backbone_forward": backbone_forward,
-            "mlp_head_forward": mlp_head_forward}
+            "mlp_head_forward": mlp_head_forward,
+            "apply_fused": apply_fused}
 
 
 def reset_launches() -> None:
@@ -193,10 +218,11 @@ def median_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------- phases
 def phase_build() -> dict:
     """Every kernel library, one nvcc per source, all started together."""
-    from headpose_tpu_torch.ops.kernels import backbone, head_mlp, postprocess
+    from headpose_tpu_torch.ops.kernels import (backbone, backbone2, head_mlp,
+                                                postprocess)
 
     mods = {"postprocess_nms": postprocess, "backbone_forward": backbone,
-            "mlp_head_forward": head_mlp}
+            "mlp_head_forward": head_mlp, "apply_fused": backbone2}
 
     def build(mod):
         t0 = time.perf_counter()
@@ -551,8 +577,12 @@ def dist(errs) -> dict:
             "p99": float(np.percentile(errs, 99)), "max": float(errs.max())}
 
 
-def check_parity(detect, corpus, production, phase):
-    """The parity corpus and e2e_production.npz through `detect`."""
+PRODUCTION_TOL = {"scores": 1e-4, "boxes": 1e-4, "poses": 5e-4}
+
+
+def check_parity(detect, corpus, production, phase, production_tol=None):
+    """The parity corpus and e2e_production.npz through `detect`, the
+    latter at `production_tol` (default PRODUCTION_TOL, the fp32 path's)."""
     per = detect(corpus["imgs"]).trim()
     res = detect(production["img"]).trim()[0]
     agree, pose, box, score = 0, [], [], []
@@ -579,7 +609,7 @@ def check_parity(detect, corpus, production, phase):
     # e2e_production.npz at the tolerances of tests/test_detection.py:280-282
     if len(res) != len(production["scores"]):
         raise AssertionError("e2e_production: detection count differs")
-    for k, tol in (("scores", 1e-4), ("boxes", 1e-4), ("poses", 5e-4)):
+    for k, tol in (production_tol or PRODUCTION_TOL).items():
         err = float(np.abs(getattr(res, k) - production[k]).max())
         report[f"e2e_production_{k}_err"] = err
         if not err <= tol:
@@ -696,7 +726,8 @@ def phase_fused(flagship, best, corpus, production, stress, frames128):
     imgs = corpus["imgs"][:8]
     a, b = best.detect_fused(imgs), best.detect(imgs)
     launches = read_launches()               # ... and closes
-    if min(launches.values()) < 1:
+    if min(launches[k] for k in ("postprocess_nms", "backbone_forward",
+                                 "mlp_head_forward")) < 1:
         raise AssertionError(f"detect_fused missed a kernel: {launches}")
     if not torch.equal(a.valid, b.valid):
         raise AssertionError("best detect_fused: detection sets differ")
@@ -719,20 +750,165 @@ def phase_fused(flagship, best, corpus, production, stress, frames128):
     return launches
 
 
-def phase_timing(flagship, corpus, card):
-    from headpose_tpu_torch.ops.image import preprocess
-    from headpose_tpu_torch.ops.kernels import postprocess_kernel
+NARROW2 = dict(stem_features=8,
+               block_channels=(8, 8, 12, 12, 16, 16, 24, 24, 32, 32, 40,
+                               96, 96, 96, 96, 96))
+# the flagship's widths with segment D widening to 128 channels, the
+# kernel's widest instance
+WIDE_D = dict(block_channels=(24, 28, 32, 36, 42, 48, 56, 64, 72, 80, 88, 96,
+                              104, 112, 120, 128))
 
-    imgs128 = np.concatenate([corpus["imgs"], corpus["imgs"][:16]])
-    out = {"phase": "timing", "card": card, "frames": "128x128 uint8 BGR"}
+
+def segments_work(spec, B):
+    """(tensor-core operations, fp32 operations, bytes) of the four
+    split-bf16 segments for B images: each pointwise multiply-add as 2 on
+    the tensor cores, three times (hi.hi, lo.hi, hi.lo); the depthwise
+    multiply-adds as 2, its bias and the split's subtraction as 1 each, the
+    bias, skip add and ReLU as 1 each, in fp32.  Bytes: the segments' inputs
+    (the stem's output and block 11's) read once, their outputs (the two
+    taps) written once, the weights once (fp32 and the bf16 hi/lo packs)."""
+    from headpose_tpu_torch.ops.kernels.backbone2 import SEGMENTS
+
+    chans = (spec.stem_features, *spec.block_channels)
+    h, sizes = spec.input_size // 2, []
+    for i in range(len(spec.block_channels)):
+        h //= 2 if i in spec.downsample_blocks else 1
+        sizes.append(h)
+    tc = f32 = weights = 0
+    for first, last, _ in SEGMENTS.values():
+        for i in range(first, last + 1):
+            cin, cout, pix = chans[i], chans[i + 1], sizes[i] ** 2
+            tc += 3 * 2 * pix * cin * cout
+            f32 += 2 * 9 * pix * cin + 2 * pix * cin + 3 * pix * cout
+            weights += (4 * (10 * cin + cout)
+                        + 2 * 2 * (-(-cout // 8) * 8) * (-(-cin // 16) * 16))
+    s2 = spec.input_size // 2
+    maps = (s2 * s2 * chans[0] + sizes[11] ** 2 * chans[12]
+            + sizes[10] ** 2 * chans[11] + sizes[15] ** 2 * chans[16])
+    return B * tc, B * f32, 4 * B * maps + weights
+
+
+def phase_kernel_backbone2(dev, flagship, frames128, built):
+    """apply_fused: the split-bf16 segment kernels against the plain version
+    (SPLIT_TOL) and against the fp32 backbone_forward kernel (atol 5e-4) on
+    the card, flagship at B in {1, 3, 8, 128} on corpus frames, a narrow
+    random-init spec at B=4 and a random-init spec whose segment D widens to
+    128 channels at B=2; then timed at B=128: the four segment launches
+    alone (the row's ms) and apply_fused whole."""
+    from headpose_tpu_torch.models import BlazeFace, BlazeFaceNet
+    from headpose_tpu_torch.ops.kernels import backbone as kbb
+    from headpose_tpu_torch.ops.kernels import backbone2 as kb2
+
+    net = flagship.net.backbone
+    narrow = random_init(BlazeFaceNet(BlazeFace(**NARROW2), device=dev), 6)
+    wide = random_init(BlazeFaceNet(BlazeFace(**WIDE_D), device=dev), 8)
+    xn = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1, 1, (4, 128, 128, 3)).astype(np.float32)).to(dev)
+    cases, worst = [], {"plain": (0.0, 0.0), "fp32": (0.0, 0.0)}
+    with torch.inference_mode():
+        for name, m, x in (("flagship_b1", net, frames128[:1]),
+                           ("flagship_b3", net, frames128[:3]),
+                           ("flagship_b8", net, frames128[:8]),
+                           ("flagship_b128", net, frames128),
+                           ("narrow_b4", narrow, xn),
+                           ("wide_d_b2", wide, frames128[:2])):
+            got = kb2.apply_fused_cuda(m, x)
+            refs = {"plain": (kb2.apply_fused_plain(m, x), SPLIT_TOL),
+                    "fp32": (kbb.backbone_forward_cuda(m, x),
+                             SPLIT_VS_FP32_TOL)}
+            torch.cuda.synchronize()
+            row = {"case": name, "b": int(x.shape[0])}
+            for key, (want, tol) in refs.items():
+                errs = [close(g, w, **tol) for g, w in zip(got, want)]
+                err, ratio = max(e for e, _ in errs), max(r for _, r in errs)
+                row[f"max_abs_err_vs_{key}"] = err
+                row[f"tolerance_ratio_vs_{key}"] = ratio
+                worst[key] = (max(worst[key][0], err),
+                              max(worst[key][1], ratio))
+            row["within_atol_alone"] = (row["max_abs_err_vs_plain"]
+                                        <= SPLIT_TOL["atol"])
+            # the scale of the maps, and how far the plain version itself
+            # lies from the fp32 backbone
+            row["max_abs_map"] = max(float(w.abs().max())
+                                     for w in refs["fp32"][0])
+            row["plain_vs_fp32"] = max(
+                float((p - w).abs().max())
+                for p, w in zip(refs["plain"][0], refs["fp32"][0]))
+            cases.append(row)
+        # the main path's shapes at B=128: the segments' own inputs
+        y0 = kbb.stem_forward_cuda(net, frames128)
+        f88 = kb2.run_segment_cuda(net, kb2.run_segment_cuda(
+            net, kb2.run_segment_cuda(net, y0, "A"), "B"), "C")
+        y11 = kbb.block_forward_cuda(net, 11, f88)
+
+        pack = kb2.pack_backbone(net)    # taken once: the launches alone
+
+        def segments(run):
+            return run(run(run(y0, "A"), "B"), "C"), run(y11, "D")
+
+        ms = cuda_ms(lambda: segments(
+            lambda y, seg: kb2.run_segment_cuda(net, y, seg, pack)), 50)
+        plain_ms = cuda_ms(lambda: segments(
+            lambda y, seg: kb2.run_segment_plain(net, y, seg)), 3)
+        whole_ms = cuda_ms(lambda: kb2.apply_fused_cuda(net, frames128), 50)
+        whole_plain_ms = cuda_ms(lambda: kb2.apply_fused_plain(net,
+                                                               frames128), 3)
+        library_ms = cuda_ms(lambda: cudnn_taps(net, frames128), 50)
+    B = int(frames128.shape[0])
+    tc_ops, f32_ops, nbytes = segments_work(net.spec, B)
+    times = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
+             "tensor-core operations": tc_ops / H100_BF16_FLOPS * 1e3,
+             "fp32 operations": f32_ops / H100_FP32_FLOPS * 1e3}
+    bound_ms = max(times.values())
+    bound_by = "bytes" if times["bytes"] == bound_ms else "operations"
+    emit({"phase": "kernels", "kernel": "apply_fused", "cases": cases,
+          "ms": ms, "plain_ms": plain_ms, "apply_fused_ms": whole_ms,
+          "apply_fused_plain_ms": whole_plain_ms, "library_ms": library_ms,
+          "bound_ms": bound_ms, "bound_terms_ms": times})
+    for key, tol in (("plain", SPLIT_TOL), ("fp32", SPLIT_VS_FP32_TOL)):
+        if worst[key][1] > 1.0:
+            raise AssertionError(f"apply_fused disagrees with the {key} "
+                                 f"version beyond {tol}: {cases}")
+    return {
+        "name": "apply_fused", "route": "cuda",
+        "source": "headpose_tpu_torch/csrc/backbone2.cu",
+        "replaces": "headpose_tpu/ops/pallas/backbone2.py:334",
+        "launches": None,                     # filled by the fast phase
+        "max_abs_err": worst["plain"][0], "tolerance": SPLIT_TOL,
+        "tolerance_ratio": worst["plain"][1],
+        "max_abs_err_vs_fp32_kernel": worst["fp32"][0],
+        "tolerance_vs_fp32_kernel": SPLIT_VS_FP32_TOL,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+        "library": "sequence of calls, not one, of another function: the "
+                   "port's cuDNN fp32 BlazeFaceNet stem + 16 blocks to the "
+                   "two NHWC taps (no PyTorch call computes a 3-pass "
+                   "split-bf16 product)",
+        "timed": "the four segment launches (blocks 0-10, 12-15) at B=128; "
+                 "apply_fused_ms adds the fp32 stem and block 11",
+        "apply_fused_ms": whole_ms, "apply_fused_plain_ms": whole_plain_ms,
+        "bound_terms_ms": times, "tensor_core_operations": tc_ops,
+        "fp32_operations": f32_ops, "bytes": nbytes,
+        "grids_per_launch": 2 + sum(last - first + 1 for first, last, _
+                                    in kb2.SEGMENTS.values()),
+        "shape": {"B": B, "S": net.spec.input_size},
+        "build_s": built["apply_fused"]["build_s"],
+        "ptxas": built["apply_fused"]["ptxas"],
+    }
+
+
+def detect_walls(detect, imgs128) -> dict:
+    """detect wall time at B=1 and B=128 (host clock around a synchronised
+    call; median of 50 and 20 warm calls)."""
+    out = {}
     for B, reps in ((1, 50), (128, 20)):
         x = imgs128[:B]
-        flagship.detect(x)
+        detect(x)
         torch.cuda.synchronize()
         walls, trims = [], []
         for _ in range(reps):
             t0 = time.perf_counter()
-            batch = flagship.detect(x)
+            batch = detect(x)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             batch.trim()
@@ -745,6 +921,68 @@ def phase_timing(flagship, corpus, card):
                         "detect_ms_max": max(walls),
                         "frames_per_s": B / med * 1e3,
                         "detect_trim_ms_median": statistics.median(trims)}
+    return out
+
+
+def phase_fast(flagship, best, corpus, production, stress, frames128):
+    """precision="fast": FaceDetector.detect (preprocess → fp32 stem →
+    split-bf16 segments A-C → fp32 block 11 → segment D → SSD 1x1 products
+    → mlp_head_forward → the postprocess kernel → trim) through the parity
+    and stress gates; best_detector at "fast" against its own "highest"
+    detect; then the B=128 network stage of the three networks and the
+    "fast" detect wall times."""
+    from headpose_tpu_torch.pretrained import best_detector, flagship_detector
+    from headpose_tpu_torch.runtime.fused import fused_network
+
+    fast = flagship_detector(precision="fast")
+    best_fast = best_detector(precision="fast")
+    # e2e_production.npz at the mode's own contract for poses (the 0.1 deg
+    # parity budget; "fast" moves them by about 1e-3 deg), scores and boxes
+    # at the fp32 path's tolerances
+    tol = {**PRODUCTION_TOL, "poses": PARITY_BUDGET_DEG}
+    reset_launches()                         # the fast path's window opens
+    parity = check_parity(fast.detect, corpus, production, "fast", tol)
+    stressed = check_stress(fast.detect, fast, stress, "fast")
+    imgs = corpus["imgs"][:8]
+    a = best_fast.detect(imgs)
+    launches = read_launches()               # ... and closes
+    if min(launches[k] for k in ("apply_fused", "mlp_head_forward",
+                                 "postprocess_nms")) < 1:
+        raise AssertionError(f"the fast detect missed a kernel: {launches}")
+    b = best.detect(imgs)
+    if not torch.equal(a.valid, b.valid):
+        raise AssertionError("best fast: detection sets differ")
+    m = b.valid
+    best_err = {k: float((getattr(a, k) - getattr(b, k))[m].abs().max())
+                for k in ("boxes", "scores", "poses")}
+    if not best_err["poses"] < 0.05:
+        raise AssertionError(f"best fast: poses {best_err['poses']} deg "
+                             "from its highest detect")
+    with torch.inference_mode():
+        network_ms = {
+            "fast": median_ms(lambda: fused_network(flagship.net, frames128,
+                                                    "fast"), 20),
+            "fused_highest": median_ms(lambda: fused_network(flagship.net,
+                                                             frames128), 20),
+            "cudnn": median_ms(lambda: flagship.net(frames128), 20)}
+    imgs128 = np.concatenate([corpus["imgs"], corpus["imgs"][:16]])
+    del parity["phase"], stressed["phase"]
+    emit({"phase": "fast", "launches": launches, "parity": parity,
+          "stress": stressed,
+          "best_vs_its_highest": {"images": 8, "detections": int(m.sum()),
+                                  **best_err},
+          "b128_network_ms_median": network_ms,
+          "detect_wall": detect_walls(fast.detect, imgs128)})
+    return launches
+
+
+def phase_timing(flagship, corpus, card):
+    from headpose_tpu_torch.ops.image import preprocess
+    from headpose_tpu_torch.ops.kernels import postprocess_kernel
+
+    imgs128 = np.concatenate([corpus["imgs"], corpus["imgs"][:16]])
+    out = {"phase": "timing", "card": card, "frames": "128x128 uint8 BGR",
+           **detect_walls(flagship.detect, imgs128)}
 
     # where the time goes at B=128: CUDA events between the stages
     dev = flagship.device
@@ -801,17 +1039,21 @@ def main() -> int:
 
     entries = [phase_kernels(dev, flagship.anchors, main_inputs, built),
                phase_kernel_backbone(dev, flagship, frames128, built),
-               phase_kernel_head(dev, flagship, best, frames128, built)]
+               phase_kernel_head(dev, flagship, best, frames128, built),
+               phase_kernel_backbone2(dev, flagship, frames128, built)]
     detect_launches = phase_parity(flagship, corpus, production)
     phase_stress(flagship, stress)
     phase_best(flagship, best, corpus)
     fused_launches = phase_fused(flagship, best, corpus, production, stress,
                                  frames128)
+    fast_launches = phase_fast(flagship, best, corpus, production, stress,
+                               frames128)
     phase_timing(flagship, corpus, card)
 
-    for entry in entries:
+    for entry in entries[:3]:
         entry["launches"] = fused_launches[entry["name"]]
     entries[0]["launches_detect"] = detect_launches["postprocess_nms"]
+    entries[3]["launches"] = fast_launches["apply_fused"]
     emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -38,6 +38,10 @@
 // is the same product with the 75 taps of the 5x5x3 window in place of the
 // channels.  FMA contraction is allowed (the wrapper holds the result to its
 // plain version within a tolerance, not bit for bit).
+//
+// The stem and a single block are also entry points of their own
+// (headpose_backbone_stem, headpose_backbone_block): the split-bf16 backbone
+// (csrc/backbone2.cu) runs its fp32 stem and its fp32 block 11 through them.
 
 #include <cuda_runtime.h>
 
@@ -320,6 +324,32 @@ int launch_block_s(const float* in, const float* dw_w, const float* dw_b,
 }
 
 }  // namespace
+
+// The stem alone on `stream`: x (B, S, S, 3) -> out (B, S/2, S/2, C), with
+// w (5, 5, 3, C) HWIO and bias (C).  Returns 0, a CUDA error code, or -1.
+extern "C" int headpose_backbone_stem(const float* x, const float* w,
+                                      const float* bias, float* out,
+                                      int batch, int input_size, int channels,
+                                      cudaStream_t stream) {
+  if (batch <= 0) return 0;
+  return launch_stem(x, w, bias, out, batch, input_size, channels, stream);
+}
+
+// One block alone on `stream`: in (B, H, H, Cin) -> out (B, H/stride,
+// H/stride, Cout), with dw (3, 3, Cin), dw bias, pw (Cin, Cout), pw bias.
+// Returns 0, a CUDA error code, or -1.
+extern "C" int headpose_backbone_block(const float* in, const float* dw_w,
+                                       const float* dw_b, const float* pw_w,
+                                       const float* pw_b, float* out,
+                                       int batch, int H, int cin, int cout,
+                                       int stride, cudaStream_t stream) {
+  if (batch <= 0) return 0;
+  return stride == 1
+             ? launch_block_s<1>(in, dw_w, dw_b, pw_w, pw_b, out, batch, H,
+                                 cin, cout, stream)
+             : launch_block_s<2>(in, dw_w, dw_b, pw_w, pw_b, out, batch, H,
+                                 cin, cout, stream);
+}
 
 // Runs the stem and every block on `stream` and returns 0, a CUDA error
 // code, or -1 (kErrTooWide) when a layer is wider than the kernels take.

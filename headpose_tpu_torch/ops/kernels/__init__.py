@@ -3,7 +3,9 @@
 Importing a module here builds nothing: each kernel is compiled with nvcc on
 its first launch (utils.build)."""
 from .backbone import backbone_forward
+from .backbone2 import apply_fused
 from .head_mlp import mlp_head_forward
 from .postprocess import postprocess_kernel
 
-__all__ = ["backbone_forward", "mlp_head_forward", "postprocess_kernel"]
+__all__ = ["apply_fused", "backbone_forward", "mlp_head_forward",
+           "postprocess_kernel"]

@@ -18,6 +18,11 @@ Its domain is the JAX kernel's: a spec whose taps land at S/8 and S/16
 (`backbone.py:176-177`), i.e. three stride-2 blocks, the tap block after the
 second, and S divisible by 16.  `BLAZEFACE_BACK` (taps at S/16 and S/32) is
 outside it and raises.
+
+`stem_forward_cuda` and `block_forward_cuda` launch the stem or one block
+alone, in fp32: the split-bf16 backbone (`backbone2.apply_fused`) runs its
+stem and block 11 through them.  They count no launch of their own; the
+caller's wrapper counts.
 """
 from __future__ import annotations
 
@@ -32,7 +37,8 @@ from ...utils.build import NVCC_FLAGS_FMA, CudaLibrary
 from .packing import Packed, c_ints, packed
 
 __all__ = ["backbone_forward", "backbone_forward_plain",
-           "backbone_forward_cuda", "backbone_pack", "LIBRARY"]
+           "backbone_forward_cuda", "backbone_pack", "stem_forward_cuda",
+           "block_forward_cuda", "LIBRARY"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc", "backbone.cu")
@@ -43,6 +49,12 @@ def _configure(lib: ctypes.CDLL) -> None:
     fn = lib.headpose_backbone_forward
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.headpose_backbone_stem
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.headpose_backbone_block
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -86,9 +98,10 @@ def _leaves(net: BlazeFaceNet):
         yield blk.pw.bias
 
 
-def backbone_pack(net: BlazeFaceNet) -> Packed:
-    """`net`'s weights in one buffer on its device (packed once per module)."""
-    return packed(net, _leaves)
+def backbone_pack(net: BlazeFaceNet, current: tuple | None = None) -> Packed:
+    """`net`'s weights in one buffer on its device (packed once per module;
+    `current` as for `packing.packed`)."""
+    return packed(net, _leaves, current=current)
 
 
 # ------------------------------------------------------------ plain version
@@ -136,6 +149,24 @@ def _maxpool2(x):
                          torch.maximum(r[:, :, 1, :, 0], r[:, :, 1, :, 1]))
 
 
+def _finish(t, y, stride: int):
+    """relu(t + skip): the skip is y, max-pooled 2x2/2 at stride 2, zero-
+    padded on the channel axis to t's width."""
+    skip = _maxpool2(y) if stride == 2 else y
+    if t.shape[-1] > skip.shape[-1]:
+        skip = F.pad(skip, (0, t.shape[-1] - skip.shape[-1]))
+    return torch.relu(t + skip)
+
+
+def _block(y, dw_w, dw_b, pw_w, pw_b, stride: int):
+    """One BlazeBlock in fp32: depthwise, the pointwise as a product over
+    channels, bias, skip, ReLU."""
+    t = _depthwise(y, dw_w, dw_b, stride)
+    cin, cout = pw_w.shape
+    t = (t.reshape(-1, cin) @ pw_w).reshape(*t.shape[:3], cout) + pw_b
+    return _finish(t, y, stride)
+
+
 def _check_input(net: BlazeFaceNet, x: torch.Tensor) -> list[int]:
     s = net.spec.input_size
     if x.ndim != 4 or tuple(x.shape[1:]) != (s, s, 3):
@@ -155,23 +186,35 @@ def backbone_forward_plain(net: BlazeFaceNet, x: torch.Tensor):
     spec = net.spec
     w = list(_leaves(net))
     y = torch.relu(_stem(x, w[0], w[1]))
-    cin, feat88 = spec.stem_features, None
-    for i, cout in enumerate(spec.block_channels):
-        dw_w, dw_b, pw_w, pw_b = w[2 + 4 * i:6 + 4 * i]
+    feat88 = None
+    for i in range(len(spec.block_channels)):
         stride = 2 if i in spec.downsample_blocks else 1
-        t = _depthwise(y, dw_w, dw_b, stride)
-        t = (t.reshape(-1, cin) @ pw_w).reshape(*t.shape[:3], cout) + pw_b
-        skip = _maxpool2(y) if stride == 2 else y
-        if cout > cin:
-            skip = F.pad(skip, (0, cout - cin))
-        y = torch.relu(t + skip)
+        y = _block(y, *w[2 + 4 * i:6 + 4 * i], stride)
         if i == spec.tap88_block:
             feat88 = y
-        cin = cout
     return feat88, y
 
 
 # ------------------------------------------------------------------ kernel
+def _check_cuda(net: BlazeFaceNet, x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"x must be on a CUDA device, got {x.device}")
+    if net.stem.weight.device != x.device:
+        raise ValueError(f"net is on {net.stem.weight.device}, x on "
+                         f"{x.device}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"x must be float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{'a layer too wide' if err < 0 else 'CUDA error'}"
+                           f" ({err})")
+
+
 @torch.no_grad()
 def backbone_forward_cuda(net: BlazeFaceNet, x: torch.Tensor):
     """The kernels: what `backbone_forward_plain` computes, on a CUDA device.
@@ -180,13 +223,7 @@ def backbone_forward_cuda(net: BlazeFaceNet, x: torch.Tensor):
     stream, without synchronising.  Raises on anything the kernels do not
     take, and when a launch fails."""
     sizes = _check_input(net, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"x must be on a CUDA device, got {x.device}")
-    if net.stem.weight.device != x.device:
-        raise ValueError(f"net is on {net.stem.weight.device}, x on "
-                         f"{x.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
+    _check_cuda(net, x)
     spec = net.spec
     B, S = x.shape[0], spec.input_size
     c88 = spec.block_channels[spec.tap88_block]
@@ -210,12 +247,57 @@ def backbone_forward_cuda(net: BlazeFaceNet, x: torch.Tensor):
             n, spec.stem_features, S, spec.tap88_block, buf_a.data_ptr(),
             buf_b.data_ptr(), out88.data_ptr(), out96.data_ptr(), B,
             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"backbone kernel launch failed: "
-                           f"{'a layer too wide' if err < 0 else 'CUDA error'}"
-                           f" ({err})")
+    _raise_on(err, "backbone kernel")
     backbone_forward.launches += 1
     return out88, out96
+
+
+@torch.no_grad()
+def stem_forward_cuda(net: BlazeFaceNet, x: torch.Tensor,
+                      pack: Packed | None = None) -> torch.Tensor:
+    """relu(stem(x)) in fp32 on a CUDA device, one launch: x (B, S, S, 3) ->
+    (B, S/2, S/2, C0).  `pack` is `backbone_pack(net)`, when the caller
+    holds it.  Raises on anything the kernel does not take."""
+    s = net.spec.input_size
+    if x.ndim != 4 or tuple(x.shape[1:]) != (s, s, 3):
+        raise ValueError(f"x must be (B, {s}, {s}, 3), got {tuple(x.shape)}")
+    _check_cuda(net, x)
+    c = net.spec.stem_features
+    out = x.new_empty((x.shape[0], s // 2, s // 2, c))
+    pack = pack if pack is not None else backbone_pack(net)
+    with torch.cuda.device(x.device):
+        err = LIBRARY.load().headpose_backbone_stem(
+            x.data_ptr(), pack.weights.data_ptr() + 4 * pack.offsets[0],
+            pack.weights.data_ptr() + 4 * pack.offsets[1], out.data_ptr(),
+            x.shape[0], s, c, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "stem kernel")
+    return out
+
+
+@torch.no_grad()
+def block_forward_cuda(net: BlazeFaceNet, i: int, x: torch.Tensor,
+                       pack: Packed | None = None) -> torch.Tensor:
+    """Block i of `net` in fp32 on a CUDA device, one launch: x (B, H, H,
+    Cin) -> (B, H/s, H/s, Cout).  `pack` is `backbone_pack(net)`, when the
+    caller holds it.  Raises on anything the kernel does not take."""
+    blk = net.blocks[i]
+    cin, cout = blk.dw.weight.shape[0], blk.pw.weight.shape[0]
+    if x.ndim != 4 or x.shape[1] != x.shape[2] or x.shape[3] != cin:
+        raise ValueError(f"x must be (B, H, H, {cin}), got {tuple(x.shape)}")
+    if max(cin, cout) > MAX_CHANNELS:
+        raise ValueError(f"block {i} is wider than {MAX_CHANNELS} channels")
+    _check_cuda(net, x)
+    h = x.shape[1]
+    out = x.new_empty((x.shape[0], h // blk.stride, h // blk.stride, cout))
+    pack = pack if pack is not None else backbone_pack(net)
+    ptr = [pack.weights.data_ptr() + 4 * pack.offsets[2 + 4 * i + k]
+           for k in range(4)]
+    with torch.cuda.device(x.device):
+        err = LIBRARY.load().headpose_backbone_block(
+            x.data_ptr(), *ptr, out.data_ptr(), x.shape[0], h, cin, cout,
+            blk.stride, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, f"block {i} kernel")
+    return out
 
 
 def backbone_forward(net: BlazeFaceNet, x: torch.Tensor):

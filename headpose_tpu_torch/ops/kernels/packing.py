@@ -1,10 +1,11 @@
-"""Weights of a module packed into one contiguous float32 buffer for a kernel.
+"""Weights of a module packed into one contiguous buffer for a kernel.
 
 A kernel takes one device pointer and the start of each weight in it
-(`Packed.offsets`, in floats).  `packed(module, leaves)` packs the tensors
-that `leaves(module)` yields, in the kernel's layout, once per module: the
-pack is cached beside the module and rebuilt only when a parameter changes
-(another storage, or an in-place write such as `load_state_dict`).
+(`Packed.offsets`, in elements).  `packed(module, leaves)` packs the tensors
+that `leaves(module)` yields, in the kernel's layout, once per module and
+layout: the pack is cached beside the module, keyed by `leaves` and the
+element type, and rebuilt only when a parameter changes (another storage,
+or an in-place write such as `load_state_dict`).
 """
 from __future__ import annotations
 
@@ -16,21 +17,25 @@ from typing import Callable, Iterable
 import torch
 from torch import nn
 
-__all__ = ["Packed", "packed", "c_ints"]
+__all__ = ["Packed", "packed", "stamp", "c_ints"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Packed:
-    weights: torch.Tensor                  # (total,) float32, contiguous
-    offsets: tuple[int, ...]               # start of each leaf, in floats;
-                                           # each leaf is row-major
+    weights: torch.Tensor                  # (total,) contiguous
+    offsets: tuple[int, ...]               # start of each leaf, in
+                                           # elements; each leaf row-major
 
 
-_CACHE: "weakref.WeakKeyDictionary[nn.Module, tuple]" = \
+_CACHE: "weakref.WeakKeyDictionary[nn.Module, dict]" = \
     weakref.WeakKeyDictionary()
 
 
-def _stamp(module: nn.Module) -> tuple:
+def stamp(module: nn.Module) -> tuple:
+    """What `packed` checks a cached pack against: each parameter's storage
+    and version.  Walking a backbone's parameters is the costliest host step
+    of a launch, so a caller that packs one module in several layouts takes
+    the stamp once and passes it to each `packed` call."""
     # inference tensors keep no version counter (and cannot be written to
     # outside inference mode)
     return tuple((p.data_ptr(), 0 if p.is_inference() else p._version)
@@ -38,23 +43,26 @@ def _stamp(module: nn.Module) -> tuple:
 
 
 def packed(module: nn.Module,
-           leaves: Callable[[nn.Module], Iterable[torch.Tensor]]) -> Packed:
-    """The module's weights as `leaves` lays them out, in one buffer on the
-    module's device (cached per module)."""
-    stamp = _stamp(module)
-    hit = _CACHE.get(module)
-    if hit is not None and hit[0] == stamp:
+           leaves: Callable[[nn.Module], Iterable[torch.Tensor]],
+           dtype: torch.dtype = torch.float32,
+           current: tuple | None = None) -> Packed:
+    """The module's weights as `leaves` lays them out, in one `dtype` buffer
+    on the module's device (cached per module, `leaves` and `dtype`).
+    `current` is `stamp(module)` when the caller has just taken it."""
+    current = stamp(module) if current is None else current
+    packs = _CACHE.setdefault(module, {})
+    hit = packs.get((leaves, dtype))
+    if hit is not None and hit[0] == current:
         return hit[1]
     with torch.no_grad():
-        parts = [t.detach().to(torch.float32).contiguous()
-                 for t in leaves(module)]
+        parts = [t.detach().to(dtype).contiguous() for t in leaves(module)]
         offsets, start = [], 0
         for t in parts:
             offsets.append(start)
             start += t.numel()
         pack = Packed(torch.cat([t.reshape(-1) for t in parts]),
                       tuple(offsets))
-    _CACHE[module] = (stamp, pack)
+    packs[(leaves, dtype)] = (current, pack)
     return pack
 
 

@@ -15,6 +15,8 @@ Use:
     res = det.detect_single(image)      # one image → Results
     batch = det.detect_fused(images)    # the network through the fused
                                         # backbone and pose-head kernels
+    fast = flagship_detector(precision="fast")   # split-bf16 backbone
+                                        # segments; detect runs the kernels
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ from ..ops.image import preprocess
 from ..ops.kernels.postprocess import postprocess_slab
 from ..tools.convert import load_native, params_from_jax
 from ..utils.device import resolve_device
-from .fused import fused_network
+from .fused import PRECISIONS, fused_network
 from .results import BatchResults, Results
 
 __all__ = ["FaceDetector"]
@@ -54,8 +56,21 @@ class FaceDetector:
     `score_threshold`, `iou_threshold` and `max_faces` are read on every
     call and may be changed between calls.  `channel_order` is fixed at
     construction; the input size is the backbone's, and it chooses the
-    anchor table (128 front, 256 back).  Only precision='highest' (exact
-    fp32) and head_eval='map' (pose heads over every map cell) are served.
+    anchor table (128 front, 256 back).  Only head_eval='map' (pose heads
+    over every map cell) is served.
+
+    `precision` is one of `runtime.fused.PRECISIONS`:
+      'highest'  exact fp32: `detect` runs the cuDNN network, `detect_fused`
+                 the fp32 fused kernels.
+      'fast'     the JAX detector's certified fast mode at its precision
+                 (3-pass split-bf16, the TPU's 'high'): `detect` and
+                 `detect_fused` both run `fused_network(..., "fast")`, whose
+                 backbone segments take a split-bf16 pointwise
+                 (`ops.kernels.backbone2.apply_fused`); everything else is
+                 fp32.  On the CPU it runs the plain split-bf16 version, so
+                 the CPU shows the mode's own rounding.
+    'turbo' and 'max' (single-pass bf16 islands, not certified on the
+    stress corpus) are not served and raise.
     """
 
     def __init__(self, model: UnifiedPoseModel, params: Any, *,
@@ -64,9 +79,9 @@ class FaceDetector:
                  precision: str = "highest", head_eval: str = "map",
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
-        if precision != "highest":
+        if precision not in PRECISIONS:
             raise ValueError(f"precision={precision!r} is not served by the "
-                             "port; only 'highest' (exact fp32) is")
+                             f"port; the served modes are {PRECISIONS}")
         if head_eval != "map":
             raise ValueError(f"head_eval={head_eval!r} is not served by the "
                              "port; only 'map' is")
@@ -87,6 +102,7 @@ class FaceDetector:
         self.max_faces = int(max_faces)
         self.input_size = int(model.backbone.input_size)
         self.channel_order = channel_order
+        self.precision = precision
         config = BACK_CONFIG if self.input_size == 256 else FRONT_CONFIG
         self.anchors = torch.tensor(
             generate_anchors(config).astype(np.float32), device=self.device)
@@ -101,15 +117,19 @@ class FaceDetector:
     def detect(self, images) -> BatchResults:
         """images: (B, H, W, 3) or (H, W, 3), uint8/float 0-255, BGR by
         default; a numpy array or a tensor.  Returns the slabs on the
-        detector's device without synchronising."""
+        detector's device without synchronising.  At precision 'fast' it is
+        `detect_fused`."""
+        if self.precision == "fast":
+            return self.detect_fused(images)
         return self._detect(images, self.net)
 
     def detect_fused(self, images) -> BatchResults:
         """`detect` with the network computed through the fused backbone
-        and pose-head kernels (`runtime.fused.fused_network`) instead of the
-        cuDNN modules; the same preprocess and postprocess."""
-        return self._detect(images, functools.partial(fused_network,
-                                                      self.net))
+        and pose-head kernels (`runtime.fused.fused_network`, at the
+        detector's precision) instead of the cuDNN modules; the same
+        preprocess and postprocess."""
+        return self._detect(images, functools.partial(
+            fused_network, self.net, precision=self.precision))
 
     def _detect(self, images, network) -> BatchResults:
         if isinstance(images, torch.Tensor):

@@ -5,15 +5,21 @@
 kernel entry points compose:
 
   ops.kernels.backbone_forward   the stem and every BlazeBlock (TPU kernel
-                                 ops/pallas/backbone.py::backbone_forward)
+                                 ops/pallas/backbone.py::backbone_forward),
+                                 fp32, at precision="highest";
+  ops.kernels.apply_fused        or, at precision="fast", the stem and
+                                 block 11 in fp32 and the other blocks with
+                                 a 3-pass split-bf16 pointwise (TPU kernel
+                                 ops/pallas/backbone2.py::run_segment)
   the four SSD 1x1 heads         matrix products on the NHWC taps, flattened
                                  anchor-major (cell, then anchor), as XLA
                                  computes them outside any kernel in JAX
   ops.kernels.mlp_head_forward   both pose heads over every map cell (TPU
                                  kernel ops/pallas/head_mlp.py)
 
-On a CUDA device both kernels launch (or the call raises); on the CPU their
-plain versions run.  `FaceDetector.detect_fused` serves it end to end.
+On a CUDA device the kernels launch (or the call raises); on the CPU their
+plain versions run.  `FaceDetector.detect_fused` serves it end to end, and
+`FaceDetector.detect` too when the detector's precision is "fast".
 """
 from __future__ import annotations
 
@@ -21,9 +27,12 @@ import torch
 
 from ..models.unified import UnifiedPoseNet
 from ..ops.kernels.backbone import backbone_forward
+from ..ops.kernels.backbone2 import apply_fused
 from ..ops.kernels.head_mlp import mlp_head_forward
 
-__all__ = ["fused_network"]
+__all__ = ["fused_network", "PRECISIONS"]
+
+PRECISIONS = ("highest", "fast")   # fp32; split-bf16 segment pointwise
 
 
 def _ssd(conv: torch.nn.Conv2d, feat: torch.Tensor) -> torch.Tensor:
@@ -39,12 +48,18 @@ def _pose(head, feat: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def fused_network(net: UnifiedPoseNet, x: torch.Tensor) -> dict[str, torch.Tensor]:
+def fused_network(net: UnifiedPoseNet, x: torch.Tensor,
+                  precision: str = "highest") -> dict[str, torch.Tensor]:
     """x (B, S, S, 3) float32 NHWC in [-1, 1] → the dict of
-    `UnifiedPoseNet.forward`, through the fused kernels."""
+    `UnifiedPoseNet.forward`, through the fused kernels; `precision` (one
+    of `PRECISIONS`) chooses the backbone."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
     bb = net.backbone
-    f88, f96 = backbone_forward(bb, x.contiguous())   # the resize's output
-                                                      # is a strided view
+    backbone = apply_fused if precision == "fast" else backbone_forward
+    f88, f96 = backbone(bb, x.contiguous())   # the resize's output is a
+                                              # strided view
     B = x.shape[0]
     out = {"feat88": f88, "feat96": f96,
            "scores": torch.cat([_ssd(bb.cls_front, f88),

@@ -1,10 +1,12 @@
 """Where the time of FaceDetector.detect (or detect_fused) goes on the card.
 
 Usage:  python -m headpose_tpu_torch.tools.profile_detect [--batch 128]
-            [--fused]
+            [--fused] [--precision highest|fast]
 
 Runs the flagship's detect (with --fused, detect_fused: the network through
-the fused backbone and pose-head kernels) on parity-corpus frames under
+the fused backbone and pose-head kernels; with --precision fast, the
+detector's "fast" mode, whose detect runs the split-bf16 segment backbone
+through the same kernels) on parity-corpus frames under
 torch.profiler and prints one JSON object: the wall time of the profiled
 window, the device's busy time (the union of its kernel intervals) and idle
 share, the kernels that take the most device time, grouped by name, and the
@@ -16,6 +18,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import time
 
 import numpy as np
@@ -44,6 +47,9 @@ def main() -> None:
     parser.add_argument("--iters", type=int, default=10)
     parser.add_argument("--fused", action="store_true",
                         help="profile detect_fused instead of detect")
+    parser.add_argument("--precision", default="highest",
+                        choices=("highest", "fast"),
+                        help="the detector's precision")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_detect: no CUDA device is available")
@@ -56,7 +62,7 @@ def main() -> None:
     imgs = np.load(os.path.join(repo, "tests", "golden",
                                 "parity_corpus.npz"))["imgs"]
     imgs = np.resize(imgs, (args.batch, *imgs.shape[1:]))
-    det = flagship_detector()
+    det = flagship_detector(precision=args.precision)
     detect = det.detect_fused if args.fused else det.detect
     for _ in range(3):
         detect(imgs).trim()
@@ -81,8 +87,13 @@ def main() -> None:
     last_call = kernels[-(len(kernels) // args.iters):]
     print(json.dumps({
         "path": "detect_fused" if args.fused else "detect",
+        "precision": args.precision,
         "batch": args.batch, "iters": args.iters,
         "card": torch.cuda.get_device_name(0),
+        "nvidia_smi": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip(),
         "wall_ms_per_detect": wall_us / args.iters / 1e3,
         "device_busy_ms_per_detect": busy / args.iters / 1e3,
         "device_idle_share": 1.0 - busy / wall_us,

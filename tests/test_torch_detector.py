@@ -169,10 +169,11 @@ def test_trim_is_the_slab(det, corpus):
         np.testing.assert_array_equal(r.poses, batch.poses[b].numpy()[m])
 
 
-@pytest.mark.parametrize("kw", [dict(precision="fast"),
+@pytest.mark.parametrize("kw", [dict(precision="turbo"),
                                 dict(head_eval="survivors"),
                                 dict(channel_order="bgra"),
-                                dict(device="mps")])
+                                dict(device="mps"),
+                                dict(precision="max")])
 def test_unserved_options_raise(kw):
     with pytest.raises(ValueError):
         flagship_detector(**{"device": "cpu", **kw})

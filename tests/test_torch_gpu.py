@@ -2,7 +2,10 @@
 and FaceDetector.detect through the kernel against the same pipeline through
 the twin, both bit for bit; the fused backbone and pose-head kernels against
 their plain versions (rtol 1e-4 / atol 1e-5 and rtol = atol = 1e-5: the
-kernels sum in another order than cuBLAS), and detect_fused against detect.
+kernels sum in another order than cuBLAS), and detect_fused against detect;
+the split-bf16 segment kernel (apply_fused) against its plain version (atol
+2e-4) and the fp32 backbone kernel (atol 5e-4), and the "fast" detector
+against the "highest" one.
 
 Marked `gpu`.  Each test skips in the `cuda` fixture when no CUDA device is
 present (never at import: every xdist worker must collect the same tests).
@@ -23,6 +26,7 @@ from headpose_tpu_torch.models.heads import MLPHeadNet
 from headpose_tpu_torch.ops import detection as det
 from headpose_tpu_torch.ops.image import preprocess
 from headpose_tpu_torch.ops.kernels import backbone as kbb
+from headpose_tpu_torch.ops.kernels import backbone2 as kb2
 from headpose_tpu_torch.ops.kernels import head_mlp as khead
 from headpose_tpu_torch.ops.kernels import postprocess as kern
 
@@ -232,3 +236,55 @@ def test_fused_kernels_reject_what_they_do_not_take(cuda, flagship):
         khead.mlp_head_forward_cuda(head, rows)
     with pytest.raises(ValueError, match=r"\(N, 88\)"):
         khead.mlp_head_forward_cuda(head, torch.zeros((8, 96), device=cuda))
+
+
+# ------------------------------------------------ split-bf16 segment backbone
+# the flagship's widths with segment D widening to 128 channels (the
+# kernel's widest instance)
+WIDE_D = BlazeFace(block_channels=(24, 28, 32, 36, 42, 48, 56, 64, 72, 80,
+                                   88, 96, 104, 112, 120, 128))
+
+
+@pytest.mark.parametrize("case", ["flagship_b1", "flagship_b8",
+                                  "wide_d_b2"])
+def test_apply_fused_kernel_matches_plain(cuda, flagship, case):
+    """The segment kernels (mma.sync bf16 -> fp32, another sum order than
+    the plain version's fp32 matmuls) within atol 2e-4 of the plain version
+    and 5e-4 of the fp32 backbone kernel, on corpus frames.  The random-init
+    wide spec's maps have no bound on their scale, so it is held as
+    chip_smoke.py holds the kernel: atol 2e-4 plus 2^-15 of the value (one
+    split-bf16 rounding step is 2^-17 of it)."""
+    b = int(case.split("_b")[1])
+    imgs = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"][:b]
+    x = preprocess(torch.from_numpy(imgs).to(cuda))
+    if case.startswith("flagship"):
+        net = flagship.net.backbone
+    else:
+        net = _random_init(BlazeFaceNet(WIDE_D, device=cuda), 7)
+    before = (kb2.apply_fused.launches, kb2.run_segment.launches)
+    got = kb2.apply_fused(net, x)
+    want = kb2.apply_fused_plain(net, x)
+    fp32 = kbb.backbone_forward_cuda(net, x)
+    torch.cuda.synchronize()
+    assert (kb2.apply_fused.launches,
+            kb2.run_segment.launches) == (before[0] + 1, before[1] + 4)
+    rtol = 0.0 if case.startswith("flagship") else 2.0 ** -15
+    for g, w, f in zip(got, want, fp32):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=2e-4)
+        torch.testing.assert_close(g, f, rtol=0, atol=5e-4)
+
+
+def test_fast_detect_matches_highest(cuda, flagship):
+    """e2e_production.npz (the resize path) through precision="fast" and
+    "highest": identical detection sets, poses within 0.05 degrees."""
+    from headpose_tpu_torch.pretrained import flagship_detector
+
+    fast = flagship_detector(precision="fast")
+    img = np.load(os.path.join(GOLDEN, "e2e_production.npz"))["img"]
+    before = kb2.apply_fused.launches
+    got = fast.detect(img)
+    assert kb2.apply_fused.launches == before + 1
+    want = flagship.detect(img)
+    assert torch.equal(got.valid, want.valid)
+    assert int(want.valid.sum()) >= 1
+    assert float((got.poses - want.poses).abs().max()) < 0.05

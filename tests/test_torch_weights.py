@@ -135,6 +135,8 @@ from headpose_tpu_torch.pretrained import flagship_detector
 img = np.load({golden!r})["img"]
 res = flagship_detector(device="cpu").detect_single(img)
 assert len(res) > 0
+fast = flagship_detector(device="cpu", precision="fast").detect_single(img)
+assert len(fast) == len(res)
 leaked = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "headpose_tpu")]
 assert not leaked, leaked

@@ -3,12 +3,15 @@
 
 Usage, from the root of the repository:  python3 chip_smoke.py
 
-It drives the port's three paths on the card: FaceDetector.detect (cuDNN
+It drives the port's paths on the card: FaceDetector.detect (cuDNN
 network + the postprocess kernel), FaceDetector.detect_fused (the fused
-backbone and pose-head kernels + the postprocess kernel), and
+backbone and pose-head kernels + the postprocess kernel),
 FaceDetector(precision="fast").detect (the split-bf16 segment backbone +
-the pose-head and postprocess kernels); it exits non-zero on any failure
-(no phase catches its own failure).  It imports torch, numpy
+the pose-head and postprocess kernels), the SE-Transformer model (the
+flagship's backbone with two seeded SE-Transformer heads) through the
+SE-Transformer kernel in both head profiles, and 'unified-best' (99
+ensemble members) under the survivors profile; it exits non-zero on any
+failure (no phase catches its own failure).  It imports torch, numpy
 and the port: never jax, nor the headpose_tpu package.  Every line it prints
 is one JSON object, except the nvidia-smi line:
 
@@ -20,9 +23,9 @@ is one JSON object, except the nvidia-smi line:
            backbone_forward at rtol 1e-4 / atol 1e-5; mlp_head_forward at
            rtol = atol = 1e-5; apply_fused at atol 2e-4 plus 2^-15 of the
            value (SPLIT_TOL), and at atol 5e-4 against the fp32
-           backbone_forward kernel) and times it (CUDA
-           events) at the main path's shapes beside its plain version and a
-           library yardstick;
+           backbone_forward kernel; se_transformer_forward at rtol 1e-4 /
+           atol 1e-5) and times it (CUDA events) at the main path's shapes
+           beside its plain version and a library yardstick;
   parity   flagship_detector().detect on the 112 parity-corpus images
            against the reference detections (set agreement 1.0, pose p99
            and max < 0.1 deg) and on e2e_production.npz; every launch count
@@ -43,10 +46,25 @@ is one JSON object, except the nvidia-smi line:
            mlp_head_forward and postprocess_nms must have launched); the
            B=128 network stage of the three networks and the "fast" detect
            wall time at B=1 and B=128;
+  se       the SE-Transformer model on the 112 parity-corpus frames
+           through detect_fused at head_eval "map" and "survivors" and
+           through the "fast" detect (map): set agreement 1.0 against the
+           reference detections; poses against the same model's module
+           path (detect) within rtol 1e-4 / atol 1e-4, and against the
+           port's CPU path on 8 frames; "fast" poses within the 0.1 deg
+           budget of its "highest" detect; launch counts reset just before
+           and read just after each of the three, and se_transformer_forward
+           must have launched in each; detect_fused wall time at B=1 and
+           B=128 in both profiles;
+  unified_best  'unified-best' (head_eval "auto" = "survivors") through
+           detect and detect_fused on 16 corpus frames: the flagship's
+           detection sets, poses within 1e-3 deg of the port's CPU
+           detector; detect wall time at B=1 and B=128;
   timing   detect wall time at B=1 and B=128 (host clock around a
            synchronised call) and the per-stage split at B=128;
   then the {"kernels": [...]} summary (launches from the fused phase;
-  apply_fused's from the fast phase), the nvidia-smi line, and last
+  apply_fused's from the fast phase, se_transformer_forward's from the se
+  phase's map window), the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 """
 import json
@@ -80,6 +98,9 @@ HEAD_TOL = dict(rtol=1e-5, atol=1e-5)       # degrees, another sum order
 SPLIT_TOL = dict(rtol=2.0 ** -15, atol=2e-4)
 # apply_fused against the fp32 backbone: tests/test_pallas.py:111-114
 SPLIT_VS_FP32_TOL = dict(rtol=0.0, atol=5e-4)
+SE_TOL = dict(rtol=1e-4, atol=1e-5)         # tests/test_pallas.py:52
+SE_POSE_TOL = dict(rtol=1e-4, atol=1e-4)    # kernel path vs module path
+UNIFIED_BEST_POSE_TOL_DEG = 1e-3            # card vs the port's CPU path
 
 
 def emit(obj) -> None:
@@ -168,12 +189,14 @@ def wrappers() -> dict:
     from headpose_tpu_torch.ops.kernels import (apply_fused,
                                                 backbone_forward,
                                                 mlp_head_forward,
-                                                postprocess_kernel)
+                                                postprocess_kernel,
+                                                se_transformer_forward)
 
     return {"postprocess_nms": postprocess_kernel,
             "backbone_forward": backbone_forward,
             "mlp_head_forward": mlp_head_forward,
-            "apply_fused": apply_fused}
+            "apply_fused": apply_fused,
+            "se_transformer_forward": se_transformer_forward}
 
 
 def reset_launches() -> None:
@@ -199,6 +222,27 @@ def close(got: torch.Tensor, want: torch.Tensor, rtol: float,
     return float(err.max()), float(ratio.max())
 
 
+def grid_ms(fn, reps: int) -> dict:
+    """Device time per kernel name of one fn() (torch.profiler over reps
+    warm calls, mean per call), in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").split(
+                "(")[0][:60]
+            out[name] = out.get(name, 0.0) + (
+                e.time_range.end - e.time_range.start) / reps / 1e3
+    return out
+
+
 def median_ms(fn, reps: int) -> float:
     """Median device time of one fn() over reps calls (CUDA events)."""
     fn()
@@ -219,10 +263,11 @@ def median_ms(fn, reps: int) -> float:
 def phase_build() -> dict:
     """Every kernel library, one nvcc per source, all started together."""
     from headpose_tpu_torch.ops.kernels import (backbone, backbone2, head_mlp,
-                                                postprocess)
+                                                postprocess, se_attention)
 
     mods = {"postprocess_nms": postprocess, "backbone_forward": backbone,
-            "mlp_head_forward": head_mlp, "apply_fused": backbone2}
+            "mlp_head_forward": head_mlp, "apply_fused": backbone2,
+            "se_transformer_forward": se_attention}
 
     def build(mod):
         t0 = time.perf_counter()
@@ -976,6 +1021,353 @@ def phase_fast(flagship, best, corpus, production, stress, frames128):
     return launches
 
 
+# ------------------------------------------------- SE-Transformer head
+def se_head_params(c, seed, num_heads=4, key_dim=16, reduction=16, ff=64,
+                   hidden=128, out=3):
+    """An SETransformerHead's params in JAX layout, with the shapes and
+    limits of the JAX init (headpose_tpu/models/heads.py:298-320): Glorot-
+    uniform dense kernels, q/k/v and attn_out uniform in
+    sqrt(6 / (C + H D)), zero biases, unit LayerNorm gains; numpy, from a
+    seed."""
+    rng = np.random.default_rng(seed)
+    H, D, M = num_heads, key_dim, c // reduction
+
+    def uniform(shape, fans):
+        lim = np.sqrt(6.0 / fans)
+        return rng.uniform(-lim, lim, shape).astype(np.float32)
+
+    def dense(cin, cout):
+        return {"w": uniform((cin, cout), cin + cout),
+                "b": np.zeros(cout, np.float32)}
+
+    def qkv():
+        return {"w": uniform((c, H, D), c + H * D),
+                "b": np.zeros((H, D), np.float32)}
+
+    def ln():
+        return {"g": np.ones(c, np.float32), "b": np.zeros(c, np.float32)}
+
+    return {"se": {"fc1": dense(c, M), "fc2": dense(M, c)},
+            "query": qkv(), "key": qkv(), "value": qkv(),
+            "attn_out": {"w": uniform((H, D, c), H * D + c),
+                         "b": np.zeros(c, np.float32)},
+            "ln1": ln(), "ff1": dense(c, ff), "ff2": dense(ff, c),
+            "ln2": ln(), "fc": dense(c, hidden), "out": dense(hidden, out)}
+
+
+def se_head(dev, c, seed, **fields):
+    """An SETransformerHeadNet on the card with `se_head_params`."""
+    from headpose_tpu_torch.models.heads import (SETransformerHead,
+                                                 SETransformerHeadNet)
+    from headpose_tpu_torch.tools.convert import params_from_jax
+
+    spec = SETransformerHead(in_features=c, **fields)
+    net = SETransformerHeadNet(spec, device=dev)
+    net.load_state_dict(params_from_jax(spec, se_head_params(
+        c, seed, num_heads=spec.num_heads, key_dim=spec.key_dim,
+        reduction=spec.reduction, ff=spec.ff_dim, hidden=spec.hidden,
+        out=spec.out_features)))
+    return net
+
+
+def se_model():
+    """The SE-Transformer model: the flagship's backbone and SSD weights
+    with SETransformerHead(88) and SETransformerHead(96) at their defaults,
+    seeded (88, 96)."""
+    from headpose_tpu_torch.models.heads import SETransformerHead
+    from headpose_tpu_torch.models.unified import UnifiedPoseModel
+    from headpose_tpu_torch.pretrained import FLAGSHIP, load_pretrained
+
+    spec, params = load_pretrained(FLAGSHIP)
+    params = {"backbone": params["backbone"],
+              "head88": se_head_params(88, 88),
+              "head96": se_head_params(96, 96)}
+    return UnifiedPoseModel(backbone=spec.backbone,
+                            head88=SETransformerHead(88),
+                            head96=SETransformerHead(96)), params
+
+
+def se_work(spec, B, T):
+    """(operations, bytes) of one SE-Transformer head over B maps of T
+    tokens: every multiply-add of a product as 2; the token mean, gate,
+    biases, residual adds, ReLUs and LayerNorms (8 per element), and the
+    softmax (scale, max, subtract, exp, sum: 5 per score, and a divide per
+    output) as 1 each.  Bytes: the maps read once, the output written once,
+    the weights once."""
+    C, H, D = spec.in_features, spec.num_heads, spec.key_dim
+    M, F, Hd, O = C // spec.reduction, spec.ff_dim, spec.hidden, \
+        spec.out_features
+    HD = H * D
+    products = 2 * (T * C * 3 * HD + T * T * HD * 2 + T * HD * C
+                    + 2 * T * C * F + T * C * Hd + T * Hd * O + 2 * C * M)
+    elementwise = (2 * T * C + M + C                     # mean, gate
+                   + 3 * T * HD + 5 * H * T * T + T * HD  # biases, softmax
+                   + 2 * T * C + 2 * 8 * T * C          # residuals, LNs
+                   + T * (F + C + 2 * Hd + O))          # FFN, 1x1s
+    weights = (2 * C * M + M + C + 3 * (C * HD + HD) + HD * C + C + 4 * C
+               + 2 * C * F + F + C + C * Hd + Hd + Hd * O + O)
+    return B * (products + elementwise), 4 * (B * T * (C + O) + weights)
+
+
+def se_library(net):
+    """The yardstick: the same chain with one scaled_dot_product_attention
+    call for the attention and torch Linear / layer_norm for the rest, fp32
+    (timed here, never served)."""
+    import torch.nn.functional as F
+
+    s = net.spec
+    C, H, D = s.in_features, s.num_heads, s.key_dim
+    w = {name: getattr(net, name).w.reshape(C, H * D).t().contiguous()
+         for name in ("query", "key", "value")}
+    b = {name: getattr(net, name).b.reshape(H * D)
+         for name in ("query", "key", "value")}
+    wo = net.attn_out.w.reshape(H * D, C).t().contiguous()
+
+    def run(x):
+        B, Hs, Ws, _ = x.shape
+        t = x.reshape(B, Hs * Ws, C)
+        g = torch.sigmoid(net.se.fc2(torch.relu(net.se.fc1(t.mean(1)))))
+        t = t * g[:, None]
+        q, k, v = (F.linear(t, w[n], b[n]).reshape(B, -1, H, D)
+                   .transpose(1, 2) for n in ("query", "key", "value"))
+        o = F.scaled_dot_product_attention(q, k, v)
+        o = F.linear(o.transpose(1, 2).reshape(B, -1, H * D), wo,
+                     net.attn_out.b)
+        t1 = F.layer_norm(t + o, (C,), net.ln1.g, net.ln1.b, eps=1e-3)
+        f = net.ff2(torch.relu(net.ff1(t1)))
+        t2 = F.layer_norm(t1 + f, (C,), net.ln2.g, net.ln2.b, eps=1e-3)
+        return net.out(torch.relu(net.fc(t2))).reshape(B, Hs, Ws, -1)
+
+    return run
+
+
+def phase_kernel_se(dev, flagship, frames128, built):
+    """se_transformer_forward: the kernel against its plain version on the
+    card (SE_TOL): the SE model's heads on the flagship's taps of corpus
+    frames at B in {1, 8, 128}, a 2 x 8 head on random 8x8x96 maps, a
+    one-head spec on random 16x16x88 maps, T = 1 rows at N in {1, 100,
+    12800}; then timed at B=128 (both maps) and on the 12,800 rows beside
+    the plain version, the library yardstick and the bound."""
+    from headpose_tpu_torch.ops.kernels import se_attention as kse
+
+    h88, h96 = se_head(dev, 88, 88), se_head(dev, 96, 96)
+    with torch.inference_mode():
+        out = flagship.net(frames128)
+    taps = {88: out["feat88"].clone(), 96: out["feat96"].clone()}
+    rng = np.random.default_rng(12)
+
+    def rand(shape):
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(
+            np.float32)).to(dev)
+
+    rows = taps[88].reshape(-1, 1, 1, 88)
+    cases = [(f"flagship{c}_b{b}", h, taps[c][:b])
+             for b in (1, 8, 128) for c, h in ((88, h88), (96, h96))]
+    cases += [("narrow96_2x8_b4", se_head(dev, 96, 5, num_heads=2,
+                                          key_dim=8), rand((4, 8, 8, 96))),
+              ("one_head88_b4", se_head(dev, 88, 6, num_heads=1),
+               rand((4, 16, 16, 88)))]
+    cases += [(f"rows_n{n}", h88, rows[:n].contiguous())
+              for n in (1, 100, 12800)]
+    report, worst = [], (0.0, 0.0)
+    with torch.inference_mode():
+        for name, net, x in cases:
+            got = kse.se_transformer_forward_cuda(net, x)
+            want = kse.se_transformer_forward_plain(net, x)
+            torch.cuda.synchronize()
+            err, ratio = close(got, want, **SE_TOL)
+            report.append({"case": name, "shape": list(x.shape),
+                           "max_abs_err": err, "tolerance_ratio": ratio,
+                           "max_abs_out": float(want.abs().max())})
+            worst = (max(worst[0], err), max(worst[1], ratio))
+        lib88, lib96 = se_library(h88), se_library(h96)
+        vs_library = max(
+            float((lib88(taps[88]) - kse.se_transformer_forward_plain(
+                h88, taps[88])).abs().max()),
+            float((lib96(taps[96]) - kse.se_transformer_forward_plain(
+                h96, taps[96])).abs().max()))
+        x88, x96, r12800 = taps[88], taps[96], rows[:12800].contiguous()
+        ms = cuda_ms(lambda: (kse.se_transformer_forward_cuda(h88, x88),
+                              kse.se_transformer_forward_cuda(h96, x96)), 50)
+        plain_ms = cuda_ms(lambda: (
+            kse.se_transformer_forward_plain(h88, x88),
+            kse.se_transformer_forward_plain(h96, x96)), 5)
+        library_ms = cuda_ms(lambda: (lib88(x88), lib96(x96)), 50)
+        rows_ms = cuda_ms(lambda: kse.se_transformer_forward_cuda(
+            h88, r12800), 200)
+        rows_plain_ms = cuda_ms(lambda: kse.se_transformer_forward_plain(
+            h88, r12800), 20)
+        rows_library_ms = cuda_ms(lambda: lib88(r12800), 200)
+        grids = {"maps_b128": grid_ms(lambda: (
+            kse.se_transformer_forward_cuda(h88, x88),
+            kse.se_transformer_forward_cuda(h96, x96)), 10),
+            "rows12800": grid_ms(lambda: kse.se_transformer_forward_cuda(
+                h88, r12800), 10)}
+    B = int(frames128.shape[0])
+    ops88, bytes88 = se_work(h88.spec, B, 256)
+    ops96, bytes96 = se_work(h96.spec, B, 64)
+    bound_ms, bound_by = bound(ops88 + ops96, bytes88 + bytes96)
+    rows_ops, rows_bytes = se_work(h88.spec, 12800, 1)
+    rows_bound_ms, rows_bound_by = bound(rows_ops, rows_bytes)
+    emit({"phase": "kernels", "kernel": "se_transformer_forward",
+          "cases": report, "ms": ms, "plain_ms": plain_ms,
+          "library_ms": library_ms, "bound_ms": bound_ms,
+          "rows12800": {"ms": rows_ms, "plain_ms": rows_plain_ms,
+                        "library_ms": rows_library_ms,
+                        "bound_ms": rows_bound_ms},
+          "grid_ms": grids,
+          "max_abs_err_plain_vs_library": vs_library})
+    if worst[1] > 1.0:
+        raise AssertionError(f"se_transformer_forward disagrees with its "
+                             f"plain version beyond {SE_TOL}: {report}")
+    return {
+        "name": "se_transformer_forward", "route": "cuda",
+        "source": "headpose_tpu_torch/csrc/se_attention.cu",
+        "replaces": "headpose_tpu/ops/pallas/se_attention.py:39",
+        "launches": None,                     # filled by the se phase
+        "max_abs_err": worst[0], "tolerance": SE_TOL,
+        "tolerance_ratio": worst[1],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+        "library": "sequence of calls, not one: "
+                   "scaled_dot_product_attention for the attention, torch "
+                   "Linear / layer_norm for the rest, fp32",
+        "timed": "head88 over B x 16x16 tokens + head96 over B x 8x8, "
+                 "B=128 (two calls, four launches)",
+        "rows12800": {"ms": rows_ms, "plain_ms": rows_plain_ms,
+                      "library_ms": rows_library_ms,
+                      "bound_ms": rows_bound_ms, "bound_by": rows_bound_by},
+        "grid_ms": grids,
+        "operations": ops88 + ops96, "bytes": bytes88 + bytes96,
+        "shape": {"B": B, "T88": 256, "T96": 64},
+        "build_s": built["se_transformer_forward"]["build_s"],
+        "ptxas": built["se_transformer_forward"]["ptxas"],
+    }
+
+
+def check_sets(per, corpus) -> dict:
+    """Set agreement of per-image Results against the parity corpus's
+    reference detections (boxes by IoU > 0.5, as check_parity)."""
+    agree = 0
+    for i, ours in enumerate(per):
+        c = int(corpus["counts"][i])
+        ref = {k: corpus[k][i, :c] for k in ("boxes", "scores")}
+        agree += match_image(ref, ours)[1]
+    if agree != len(per):
+        raise AssertionError(f"detection sets differ on "
+                             f"{len(per) - agree} images")
+    return {"images": len(per), "set_agreement": agree / len(per)}
+
+
+def pose_gap(a, b, tol) -> dict:
+    """a, b: BatchResults with equal valid; the largest pose difference on
+    valid slots and its ratio to `tol` (<= 1 passes)."""
+    if not torch.equal(a.valid.cpu(), b.valid.cpu()):
+        raise AssertionError("detection sets differ")
+    m = b.valid.cpu()
+    pa, pb = a.poses.cpu()[m], b.poses.cpu()[m]
+    err, ratio = close(pa, pb, **tol)
+    return {"detections": int(m.sum()), "pose_max_abs_diff": err,
+            "tolerance_ratio": ratio}
+
+
+def phase_se(corpus):
+    """The SE-Transformer model on the card: detect_fused in both head
+    profiles and the "fast" detect (map), each through the parity corpus
+    in its own launch window; poses against the module path, the CPU path
+    and (for "fast") the "highest" detect."""
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+
+    spec, params = se_model()
+    dets = {"map": FaceDetector(spec, params, head_eval="map"),
+            "survivors": FaceDetector(spec, params)}
+    if dets["survivors"].head_eval != "survivors":
+        raise AssertionError("head_eval='auto' did not resolve to "
+                             "'survivors' for the SE-Transformer model")
+    fast = FaceDetector(spec, params, head_eval="map", precision="fast")
+    imgs = corpus["imgs"]
+    report = {"phase": "se", "images": len(imgs)}
+    fused = {}
+    for name, run in (("map", dets["map"].detect_fused),
+                      ("survivors", dets["survivors"].detect_fused),
+                      ("fast_map", fast.detect)):
+        reset_launches()                     # this path's window opens
+        batch = run(imgs)
+        launches = read_launches()           # ... and closes
+        if launches["se_transformer_forward"] < 1 or \
+                launches["postprocess_nms"] < 1:
+            raise AssertionError(f"se {name}: a kernel did not launch "
+                                 f"({launches})")
+        fused[name] = batch
+        report[name] = {"launches": launches,
+                        **check_sets(batch.trim(), corpus)}
+    for name in ("map", "survivors"):
+        det = dets[name]
+        report[name]["vs_module_path"] = pose_gap(fused[name],
+                                                  det.detect(imgs),
+                                                  SE_POSE_TOL)
+        cpu = FaceDetector(spec, params, head_eval=name, device="cpu")
+        report[name]["vs_cpu_path_8"] = pose_gap(
+            dets[name].detect_fused(imgs[:8]), cpu.detect_fused(imgs[:8]),
+            SE_POSE_TOL)
+    fast_gap = pose_gap(fused["fast_map"], dets["map"].detect(imgs),
+                        dict(rtol=0.0, atol=PARITY_BUDGET_DEG))
+    report["fast_map"]["vs_highest_detect"] = fast_gap
+    report["profiles_pose_max_abs_diff"] = float(
+        (fused["map"].poses - fused["survivors"].poses)[
+            fused["map"].valid].abs().max())
+    imgs128 = np.concatenate([imgs, imgs[:16]])
+    report["detect_fused_wall"] = {
+        name: detect_walls(dets[name].detect_fused, imgs128)
+        for name in ("map", "survivors")}
+    emit(report)
+    for name in ("map", "survivors"):
+        for key in ("vs_module_path", "vs_cpu_path_8"):
+            if report[name][key]["tolerance_ratio"] > 1.0:
+                raise AssertionError(f"se {name} {key}: {report[name][key]}")
+    if fast_gap["tolerance_ratio"] > 1.0:
+        raise AssertionError(f"se fast: {fast_gap}")
+    return report["map"]["launches"], report
+
+
+def phase_unified_best(flagship, corpus):
+    """'unified-best' on the card: head_eval 'auto' resolves to
+    'survivors'; detect and detect_fused on 16 corpus frames give the
+    flagship's detections, and poses within 1e-3 deg of the port's CPU
+    detector; detect wall times."""
+    from headpose_tpu_torch.pretrained import UNIFIED_BEST, load_pretrained
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+
+    spec, params = load_pretrained(UNIFIED_BEST)
+    ub = FaceDetector(spec, params)
+    if ub.head_eval != "survivors":
+        raise AssertionError("unified-best did not resolve to 'survivors'")
+    imgs = corpus["imgs"][:16]
+    flag = flagship.detect(imgs)
+    cpu = FaceDetector(spec, params, device="cpu").detect(imgs)
+    report = {"phase": "unified_best", "images": 16,
+              "head_eval": ub.head_eval}
+    for name, run in (("detect", ub.detect),
+                      ("detect_fused", ub.detect_fused)):
+        batch = run(imgs)
+        if not torch.equal(batch.valid, flag.valid):
+            raise AssertionError(f"unified-best {name}: detection sets "
+                                 "differ from the flagship's")
+        m = flag.valid
+        gap = pose_gap(batch, cpu, dict(rtol=0.0,
+                                        atol=UNIFIED_BEST_POSE_TOL_DEG))
+        report[name] = {
+            "box_err_vs_flagship": float((batch.boxes - flag.boxes)[m]
+                                         .abs().max()),
+            "vs_cpu_detector": gap}
+        if gap["tolerance_ratio"] > 1.0:
+            raise AssertionError(f"unified-best {name}: poses {gap} from "
+                                 "the CPU detector")
+    imgs128 = np.concatenate([corpus["imgs"], corpus["imgs"][:16]])
+    report["detect_wall"] = detect_walls(ub.detect, imgs128)
+    emit(report)
+
+
 def phase_timing(flagship, corpus, card):
     from headpose_tpu_torch.ops.image import preprocess
     from headpose_tpu_torch.ops.kernels import postprocess_kernel
@@ -1040,7 +1432,8 @@ def main() -> int:
     entries = [phase_kernels(dev, flagship.anchors, main_inputs, built),
                phase_kernel_backbone(dev, flagship, frames128, built),
                phase_kernel_head(dev, flagship, best, frames128, built),
-               phase_kernel_backbone2(dev, flagship, frames128, built)]
+               phase_kernel_backbone2(dev, flagship, frames128, built),
+               phase_kernel_se(dev, flagship, frames128, built)]
     detect_launches = phase_parity(flagship, corpus, production)
     phase_stress(flagship, stress)
     phase_best(flagship, best, corpus)
@@ -1048,12 +1441,18 @@ def main() -> int:
                                  frames128)
     fast_launches = phase_fast(flagship, best, corpus, production, stress,
                                frames128)
+    se_launches, se_report = phase_se(corpus)
+    phase_unified_best(flagship, corpus)
     phase_timing(flagship, corpus, card)
 
     for entry in entries[:3]:
         entry["launches"] = fused_launches[entry["name"]]
     entries[0]["launches_detect"] = detect_launches["postprocess_nms"]
     entries[3]["launches"] = fast_launches["apply_fused"]
+    entries[4]["launches"] = se_launches["se_transformer_forward"]
+    entries[4]["launches_se_windows"] = {
+        name: se_report[name]["launches"]["se_transformer_forward"]
+        for name in ("map", "survivors", "fast_map")}
     emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

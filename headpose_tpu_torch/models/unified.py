@@ -11,13 +11,14 @@ reference's unified H5.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 from torch import nn
 
 from ..utils.device import resolve_device
 from .blazeface import BLAZEFACE_FRONT, BlazeFace, BlazeFaceNet
-from .heads import MLPHead, MLPHeadNet
+from .heads import head_net
 
 __all__ = ["UnifiedPoseModel", "UnifiedPoseNet"]
 
@@ -27,8 +28,8 @@ class UnifiedPoseModel:
     """BlazeFace + two pose-regression heads (the spec)."""
 
     backbone: BlazeFace = BLAZEFACE_FRONT
-    head88: MLPHead | None = None  # pose head consuming feat88 (16x16x88)
-    head96: MLPHead | None = None  # pose head consuming feat96 (8x8x96)
+    head88: Any = None  # pose head consuming feat88 (16x16x88), any family
+    head96: Any = None  # pose head consuming feat96 (8x8x96)
 
 
 class UnifiedPoseNet(nn.Module):
@@ -40,16 +41,19 @@ class UnifiedPoseNet(nn.Module):
         device = resolve_device(device)
         self.spec = spec
         self.backbone = BlazeFaceNet(spec.backbone, device=device)
-        self.head88 = (MLPHeadNet(spec.head88, device=device)
+        self.head88 = (head_net(spec.head88, device=device)
                        if spec.head88 is not None else None)
-        self.head96 = (MLPHeadNet(spec.head96, device=device)
+        self.head96 = (head_net(spec.head96, device=device)
                        if spec.head96 is not None else None)
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                heads: bool = True) -> dict[str, torch.Tensor]:
+        """`heads=False` leaves out the pose maps: the detector's survivors
+        profile runs the heads after NMS on the survivors' vectors."""
         out = self.backbone(x)
-        if self.head88 is not None:
+        if heads and self.head88 is not None:
             out["pose_front"] = self.head88(out["feat88"])
-        if self.head96 is not None:
+        if heads and self.head96 is not None:
             out["pose_back"] = self.head96(out["feat96"])
         return out
 

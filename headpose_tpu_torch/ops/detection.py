@@ -24,6 +24,12 @@ except the selection itself:
 
 `postprocess` chains them and is the plain reference the tests and
 `chip_smoke.py` hold the kernel to, bit for bit.
+
+The survivors head profile (`FaceDetector(head_eval="survivors")`) feeds
+the postprocess `cell_index_maps` in place of the pose maps: both the plain
+loop and the kernel copy pose values, so each survivor's pose channel 0
+comes back as its flat cell index, and `gather_survivor_features` takes the
+survivors' feature vectors from the two maps.
 """
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ import torch
 __all__ = ["MAX_FACES", "KEYPOINTS", "NUM_ANCHORS", "NUM_ANCHORS_FRONT",
            "SLAB", "score_threshold_to_logit", "sanitize_model_outputs",
            "anchor_cells", "prepare_postprocess", "nms_slab_plain",
-           "finish_postprocess", "split_slab", "postprocess"]
+           "finish_postprocess", "split_slab", "postprocess",
+           "cell_index_maps", "gather_survivor_features"]
 
 MAX_FACES = 100          # the reference's MAX_FACE_NUM
 KEYPOINTS = 6
@@ -246,3 +253,43 @@ def postprocess(scores_logits: torch.Tensor, loc: torch.Tensor,
         input_size=input_size)
     return split_slab(finish_postprocess(nms_slab_plain(
         logits, decoded, pf, pb, logit_thr, iou_thr, max_faces)))
+
+
+def cell_index_maps(feat_front: torch.Tensor, feat_back: torch.Tensor):
+    """Pose-map-shaped tensors whose channel 0 holds the flat cell index:
+    front cells first, back cells offset by the front count (the layout of
+    the postprocess's pose table).  The indices are small integers, exact
+    in float32.  An invalid slot of the slab carries 0, a real index:
+    decode only under the `valid` mask."""
+    B, hf, wf = feat_front.shape[:3]
+    hb, wb = feat_back.shape[1:3]
+    nf = hf * wf
+    mf = torch.zeros((hf, wf, 3), dtype=torch.float32,
+                     device=feat_front.device)
+    mf[..., 0] = torch.arange(nf, dtype=torch.float32,
+                              device=mf.device).reshape(hf, wf)
+    mb = torch.zeros((hb, wb, 3), dtype=torch.float32, device=mf.device)
+    mb[..., 0] = nf + torch.arange(hb * wb, dtype=torch.float32,
+                                   device=mf.device).reshape(hb, wb)
+    return mf.expand(B, hf, wf, 3), mb.expand(B, hb, wb, 3)
+
+
+def gather_survivor_features(cells: torch.Tensor, valid: torch.Tensor,
+                             feat_front: torch.Tensor,
+                             feat_back: torch.Tensor):
+    """Flat cell indices (B, F) and the valid mask → the feature vector at
+    each survivor's cell: (vec_front (B, F, C88), vec_back (B, F, C96),
+    is_front (B, F)).  Rows of the other map, and invalid slots, are zero.
+    An index gather: each row is copied exactly."""
+    B, hf, wf, cf = feat_front.shape
+    hb, wb, cb = feat_back.shape[1:]
+    nf, nb = hf * wf, hb * wb
+    is_front = cells < nf
+    base = torch.arange(B, device=cells.device)[:, None]
+    rows_f = (base * nf + cells.clamp(0, nf - 1)).reshape(-1)
+    rows_b = (base * nb + (cells - nf).clamp(0, nb - 1)).reshape(-1)
+    vec_front = feat_front.reshape(B * nf, cf)[rows_f].reshape(B, -1, cf)
+    vec_back = feat_back.reshape(B * nb, cb)[rows_b].reshape(B, -1, cb)
+    vec_front = torch.where((valid & is_front)[..., None], vec_front, 0.0)
+    vec_back = torch.where((valid & ~is_front)[..., None], vec_back, 0.0)
+    return vec_front, vec_back, is_front

@@ -6,6 +6,7 @@ from .backbone import backbone_forward
 from .backbone2 import apply_fused
 from .head_mlp import mlp_head_forward
 from .postprocess import postprocess_kernel
+from .se_attention import se_transformer_forward
 
 __all__ = ["apply_fused", "backbone_forward", "mlp_head_forward",
-           "postprocess_kernel"]
+           "postprocess_kernel", "se_transformer_forward"]

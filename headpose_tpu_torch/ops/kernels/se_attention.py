@@ -1,0 +1,203 @@
+"""The SE-Transformer pose head on the card: wrapper of csrc/se_attention.cu.
+
+`se_transformer_forward(net, x)` is the counterpart of the TPU kernel
+headpose_tpu/ops/pallas/se_attention.py::se_transformer_forward: the whole
+`SETransformerHead` (SE gate, multi-head attention over each image's H·W
+tokens, residual + LayerNorm, FFN, residual + LayerNorm, ReLU 1x1, output
+1x1) of `net` (an `SETransformerHeadNet`) over maps x (B, H, W, C) float32,
+returning (B, H, W, out).  Rows (N, C) go in as (N, 1, 1, C) maps.  A tensor
+on the CPU goes through `se_transformer_forward_plain`; a tensor on a CUDA
+device goes through the hand-written kernel, or the call raises.  Nothing
+else selects between the two.  The JAX function's `interpret` is a TPU knob
+and has no counterpart here.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from ...models.heads import SETransformerHeadNet
+from ...utils.build import NVCC_FLAGS_FMA, CudaLibrary
+from .packing import Packed, c_ints, packed
+
+__all__ = ["se_transformer_forward", "se_transformer_forward_plain",
+           "se_transformer_forward_cuda", "se_pack", "LIBRARY"]
+
+SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "csrc", "se_attention.cu")
+# the kernel's domain (csrc/se_attention.cu)
+NUM_HEADS = (1, 2, 4, 8)
+KEY_DIMS = (8, 16, 32)
+MAX_HEAD_WIDTH = 64          # num_heads * key_dim
+MAX_CHANNELS = 128
+MAX_FF = MAX_HIDDEN = 256
+MAX_OUT = 8
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    fn = lib.headpose_se_transformer
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+
+
+LIBRARY = CudaLibrary("se_attention", [SOURCE], _configure, NVCC_FLAGS_FMA)
+
+
+def _leaves(net: SETransformerHeadNet):
+    """The weights as the JAX wrapper flattens them, in the order of
+    csrc/se_attention.cu's `enum Leaf`: dense kernels (in, out), q/k/v
+    (C, H·D), attn_out (H·D, C), then each bias or LayerNorm vector."""
+    C = net.spec.in_features
+    hd = net.spec.num_heads * net.spec.key_dim
+    yield net.se.fc1.weight.t()
+    yield net.se.fc1.bias
+    yield net.se.fc2.weight.t()
+    yield net.se.fc2.bias
+    for proj in (net.query, net.key, net.value):
+        yield proj.w.reshape(C, hd)
+        yield proj.b.reshape(hd)
+    yield net.attn_out.w.reshape(hd, C)
+    yield net.attn_out.b
+    yield net.ln1.g
+    yield net.ln1.b
+    for layer in (net.ff1, net.ff2):
+        yield layer.weight.t()
+        yield layer.bias
+    yield net.ln2.g
+    yield net.ln2.b
+    for layer in (net.fc, net.out):
+        yield layer.weight.t()
+        yield layer.bias
+
+
+def se_pack(net: SETransformerHeadNet) -> Packed:
+    """`net`'s weights in one buffer on its device (packed once per module)."""
+    return packed(net, _leaves)
+
+
+def _check_domain(net: SETransformerHeadNet) -> None:
+    """ValueError when the head lies outside the kernel's domain."""
+    s = net.spec
+    problems = []
+    if s.num_heads not in NUM_HEADS:
+        problems.append(f"num_heads {s.num_heads} not in {NUM_HEADS}")
+    if s.key_dim not in KEY_DIMS:
+        problems.append(f"key_dim {s.key_dim} not in {KEY_DIMS}")
+    if s.num_heads * s.key_dim > MAX_HEAD_WIDTH:
+        problems.append(f"num_heads * key_dim > {MAX_HEAD_WIDTH}")
+    if s.in_features > MAX_CHANNELS or s.in_features // s.reduction < 1:
+        problems.append(f"in_features {s.in_features} (at most "
+                        f"{MAX_CHANNELS}, and at least the reduction)")
+    if s.ff_dim > MAX_FF or s.hidden > MAX_HIDDEN or s.out_features > MAX_OUT:
+        problems.append(f"ff_dim <= {MAX_FF}, hidden <= {MAX_HIDDEN} and "
+                        f"out_features <= {MAX_OUT} are required")
+    if problems:
+        raise ValueError("se_transformer_forward does not take this head: "
+                         + "; ".join(problems))
+
+
+def _check_input(net: SETransformerHeadNet, x: torch.Tensor) -> None:
+    c = net.spec.in_features
+    if x.ndim != 4 or x.shape[-1] != c:
+        raise ValueError(f"x must be (B, H, W, {c}), got {tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"x must be float32, got {x.dtype}")
+
+
+def _layernorm(x, g, b, eps=1e-3):
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * g + b
+
+
+@torch.no_grad()
+def se_transformer_forward_plain(net: SETransformerHeadNet,
+                                 x: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's arithmetic in plain torch, step by step, every image
+    of the batch at once: token mean and gate, the flattened q/k/v
+    products, each head's softmax attention, the output projection, the
+    tail.  It does not call `SETransformerHeadNet.forward`."""
+    _check_domain(net)
+    _check_input(net, x)
+    spec = net.spec
+    B, Hs, Ws, C = x.shape
+    H, D = spec.num_heads, spec.key_dim
+    (se1w, se1b, se2w, se2b, qw, qb, kw, kb, vw, vb, ow, ob, ln1g, ln1b,
+     f1w, f1b, f2w, f2b, ln2g, ln2b, fcw, fcb, outw, outb) = _leaves(net)
+    tokens = x.reshape(B, Hs * Ws, C)
+    pooled = tokens.mean(dim=1, keepdim=True)                   # (B, 1, C)
+    s = torch.relu(pooled @ se1w + se1b)
+    s = torch.sigmoid(s @ se2w + se2b)
+    t = tokens * s
+    q, k, v = t @ qw + qb, t @ kw + kb, t @ vw + vb             # (B, T, H*D)
+    inv_scale = 1.0 / torch.sqrt(torch.tensor(D, dtype=torch.float32))
+    heads = []
+    for h in range(H):
+        sl = slice(h * D, (h + 1) * D)
+        scores = (q[..., sl] @ k[..., sl].transpose(1, 2)) * inv_scale
+        heads.append(torch.softmax(scores, dim=-1) @ v[..., sl])
+    o = torch.cat(heads, dim=-1) @ ow + ob
+    t1 = _layernorm(t + o, ln1g, ln1b)
+    f = torch.relu(t1 @ f1w + f1b) @ f2w + f2b
+    t2 = _layernorm(t1 + f, ln2g, ln2b)
+    y = torch.relu(t2 @ fcw + fcb) @ outw + outb
+    return y.reshape(B, Hs, Ws, spec.out_features)
+
+
+@torch.no_grad()
+def se_transformer_forward_cuda(net: SETransformerHeadNet,
+                                x: torch.Tensor) -> torch.Tensor:
+    """The kernel: what `se_transformer_forward_plain` computes, on a CUDA
+    device.  Two launches (gate and K/V; attention and the tail) on the
+    current stream, without synchronising.  Raises on anything the kernel
+    does not take, and when a launch fails."""
+    _check_domain(net)
+    _check_input(net, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"x must be on a CUDA device, got {x.device}")
+    if net.query.w.device != x.device:
+        raise ValueError(f"net is on {net.query.w.device}, x on {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    spec = net.spec
+    B, Hs, Ws, C = x.shape
+    T = Hs * Ws
+    hd = spec.num_heads * spec.key_dim
+    out = x.new_empty((B, Hs, Ws, spec.out_features))
+    if B * T == 0:
+        return out
+    gate = x.new_empty((B, C))
+    kv = x.new_empty((B * T, 2 * hd))
+    pack = se_pack(net)
+    dims = (C, C // spec.reduction, spec.num_heads, spec.key_dim,
+            spec.ff_dim, spec.hidden, spec.out_features)
+    lib = LIBRARY.load()
+    with torch.cuda.device(x.device):
+        err = lib.headpose_se_transformer(
+            x.data_ptr(), pack.weights.data_ptr(), gate.data_ptr(),
+            kv.data_ptr(), out.data_ptr(), B, T, c_ints(dims),
+            c_ints(pack.offsets), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"se_transformer kernel launch failed: "
+                           f"{'unsupported head' if err < 0 else 'CUDA error'}"
+                           f" ({err})")
+    se_transformer_forward.launches += 1
+    return out
+
+
+def se_transformer_forward(net: SETransformerHeadNet,
+                           x: torch.Tensor) -> torch.Tensor:
+    """`net` over maps x (B, H, W, C): the CUDA kernel for a tensor on a
+    CUDA device, the plain version for a tensor on the CPU.
+
+    `se_transformer_forward.launches` counts the calls that launched the
+    kernel (one per call: both of its launches)."""
+    if x.device.type == "cpu":
+        return se_transformer_forward_plain(net, x)
+    return se_transformer_forward_cuda(net, x)
+
+
+se_transformer_forward.launches = 0

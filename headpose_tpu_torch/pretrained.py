@@ -10,6 +10,11 @@ needs neither Orbax nor JAX.
     params, imported from the reference's selected H5.
   * 'unified-best-distilled' (BEST): the same backbone and SSD heads with two
     256-128 tanh MLP pose heads distilled from the stacked ensembles.
+  * 'unified-best' (UNIFIED_BEST): the same backbone and SSD heads with the
+    two stacked ensembles themselves (EnsembleHead: 33 members on feat88,
+    66 on feat96; MLP, residual, skip and SE-MLP members), 979,619 params.
+    Its SE-MLP members make FaceDetector's head_eval="auto" serve it under
+    the survivors profile.
 """
 from __future__ import annotations
 
@@ -17,13 +22,14 @@ import os
 
 from .tools.convert import load_native
 
-__all__ = ["PRETRAINED_DIR", "FLAGSHIP", "BEST", "load_pretrained",
-           "flagship_detector", "best_detector"]
+__all__ = ["PRETRAINED_DIR", "FLAGSHIP", "BEST", "UNIFIED_BEST",
+           "load_pretrained", "flagship_detector", "best_detector"]
 
 PRETRAINED_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "pretrained_models")
 FLAGSHIP = "unified-stoqa9pt-hrchr82r"
 BEST = "unified-best-distilled"
+UNIFIED_BEST = "unified-best"
 
 
 def _path(name: str) -> str:

@@ -7,6 +7,8 @@ Port of headpose_tpu/runtime/detector.py.  A batch of frames goes through
   → postprocess: on a CUDA device the hand-written kernel
     (ops.kernels.postprocess), on the CPU its plain twin
   → BatchResults slabs, `trim()` to ragged per-image Results.
+Under head_eval="survivors" the pose heads run after the postprocess, on
+the feature vectors at the survivors' cells (`_survivor_poses`).
 
 Use:
     det = flagship_detector()           # on the card; device="cpu" to ask
@@ -28,12 +30,13 @@ import torch
 
 from ..models.anchors import BACK_CONFIG, FRONT_CONFIG, generate_anchors
 from ..models.unified import UnifiedPoseModel, UnifiedPoseNet
-from ..ops.detection import MAX_FACES
+from ..ops.detection import (C_LOGIT, C_POSE, C_VALID, MAX_FACES,
+                             cell_index_maps, gather_survivor_features)
 from ..ops.image import preprocess
 from ..ops.kernels.postprocess import postprocess_slab
 from ..tools.convert import load_native, params_from_jax
 from ..utils.device import resolve_device
-from .fused import PRECISIONS, fused_network
+from .fused import PRECISIONS, fused_network, head_forward
 from .results import BatchResults, Results
 
 __all__ = ["FaceDetector"]
@@ -56,8 +59,22 @@ class FaceDetector:
     `score_threshold`, `iou_threshold` and `max_faces` are read on every
     call and may be changed between calls.  `channel_order` is fixed at
     construction; the input size is the backbone's, and it chooses the
-    anchor table (128 front, 256 back).  Only head_eval='map' (pose heads
-    over every map cell) is served.
+    anchor table (128 front, 256 back).
+
+    `head_eval` is the head evaluation profile, as in the JAX detector:
+      'map'        the pose heads run over every cell of both feature maps
+                   before NMS, and each survivor takes its cell's pose (the
+                   reference's grafted-graph semantics);
+      'survivors'  the heads run after NMS on the feature vectors at the
+                   survivors' cells, each face's vector on its own (the
+                   training semantics).  Per-cell heads give the 'map'
+                   poses; heads that couple a map's cells (SE gating, the
+                   SE-Transformer's attention) give another function;
+      'auto'       (default) 'survivors' when a head declares
+                   `spatial_context` (SE-MLP and SE-Transformer heads, and
+                   ensembles with such members, e.g. 'unified-best'),
+                   'map' otherwise (the flagship, 'unified-best-distilled').
+    The resolved profile is `self.head_eval`.
 
     `precision` is one of `runtime.fused.PRECISIONS`:
       'highest'  exact fp32: `detect` runs the cuDNN network, `detect_fused`
@@ -76,15 +93,15 @@ class FaceDetector:
     def __init__(self, model: UnifiedPoseModel, params: Any, *,
                  score_threshold: float = 0.4, iou_threshold: float = 0.3,
                  max_faces: int = MAX_FACES, channel_order: str = "bgr",
-                 precision: str = "highest", head_eval: str = "map",
+                 precision: str = "highest", head_eval: str = "auto",
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
         if precision not in PRECISIONS:
             raise ValueError(f"precision={precision!r} is not served by the "
                              f"port; the served modes are {PRECISIONS}")
-        if head_eval != "map":
-            raise ValueError(f"head_eval={head_eval!r} is not served by the "
-                             "port; only 'map' is")
+        if head_eval not in ("map", "survivors", "auto"):
+            raise ValueError(f"head_eval must be 'map', 'survivors' or "
+                             f"'auto', got {head_eval!r}")
         if channel_order not in ("bgr", "rgb"):
             raise ValueError(f"channel_order must be 'bgr' or 'rgb', "
                              f"got {channel_order!r}")
@@ -94,6 +111,11 @@ class FaceDetector:
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+        if head_eval == "auto":
+            head_eval = ("survivors" if any(
+                getattr(h, "spatial_context", False)
+                for h in (model.head88, model.head96)) else "map")
+        self.head_eval = head_eval
         self.model = model
         self.net = UnifiedPoseNet(model, device=self.device).eval()
         self.net.load_state_dict(params_from_jax(model, params))
@@ -121,17 +143,20 @@ class FaceDetector:
         `detect_fused`."""
         if self.precision == "fast":
             return self.detect_fused(images)
-        return self._detect(images, self.net)
+        return self._detect(images, self.net, _module_forward)
 
     def detect_fused(self, images) -> BatchResults:
         """`detect` with the network computed through the fused backbone
         and pose-head kernels (`runtime.fused.fused_network`, at the
         detector's precision) instead of the cuDNN modules; the same
-        preprocess and postprocess."""
+        preprocess and postprocess.  Under the survivors profile the heads
+        run through their kernels on the survivors' rows."""
         return self._detect(images, functools.partial(
-            fused_network, self.net, precision=self.precision))
+            fused_network, self.net, precision=self.precision), head_forward)
 
-    def _detect(self, images, network) -> BatchResults:
+    def _detect(self, images, network, heads) -> BatchResults:
+        """`network(x, heads=...)` is the network's dict; `heads(head, x)`
+        runs one pose head on rows under the survivors profile."""
         if isinstance(images, torch.Tensor):
             x = images
         else:
@@ -149,13 +174,39 @@ class FaceDetector:
         with torch.inference_mode():
             x = preprocess(x.to(self.device), self.input_size,
                            self.channel_order)
-            out = network(x)
+            survivors = self.head_eval == "survivors"
+            out = network(x, heads=not survivors)
+            if survivors:
+                # the postprocess copies pose values exactly, so cell-index
+                # maps bring back each survivor's cell in pose channel 0
+                pose_front, pose_back = cell_index_maps(out["feat88"],
+                                                        out["feat96"])
+            else:
+                pose_front, pose_back = out["pose_front"], out["pose_back"]
             slab = postprocess_slab(
-                out["scores"], out["loc"], out["pose_front"], out["pose_back"],
+                out["scores"], out["loc"], pose_front, pose_back,
                 self.anchors, score_threshold=self.score_threshold,
                 iou_threshold=self.iou_threshold,
                 input_size=self.input_size, max_faces=self.max_faces)
+            if survivors:
+                slab[..., C_POSE:C_LOGIT] = self._survivor_poses(out, slab,
+                                                                 heads)
         return BatchResults(slab)
+
+    def _survivor_poses(self, out, slab, heads) -> torch.Tensor:
+        """head_eval='survivors': both pose heads on the feature vectors
+        gathered at the survivors' cells, each (B·F, C) row on its own; a
+        survivor takes its map's pose, an invalid slot 0."""
+        cells = torch.round(slab[..., C_POSE]).to(torch.int64)      # (B, F)
+        valid = slab[..., C_VALID] > 0.5
+        vf, vb, is_front = gather_survivor_features(
+            cells, valid, out["feat88"], out["feat96"])
+        B, F = cells.shape
+        pf = heads(self.net.head88, vf.reshape(B * F, -1)).reshape(B, F, -1)
+        pb = heads(self.net.head96, vb.reshape(B * F, -1)).reshape(B, F, -1)
+        z = valid[..., None]
+        return torch.where(is_front[..., None] & z, pf,
+                           torch.where(z, pb, 0.0))
 
     def detect_single(self, image) -> Results:
         return self.detect(image).trim()[0]
@@ -164,3 +215,7 @@ class FaceDetector:
         """Run one batch of the given shape (cuDNN picks its algorithms and
         the kernel is built on the first call)."""
         self.detect(np.zeros(shape, np.uint8))
+
+
+def _module_forward(head: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+    return head(x)

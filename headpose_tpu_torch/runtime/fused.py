@@ -14,23 +14,35 @@ kernel entry points compose:
   the four SSD 1x1 heads         matrix products on the NHWC taps, flattened
                                  anchor-major (cell, then anchor), as XLA
                                  computes them outside any kernel in JAX
-  ops.kernels.mlp_head_forward   both pose heads over every map cell (TPU
-                                 kernel ops/pallas/head_mlp.py)
+  `head_forward`                 both pose heads over every map cell: an
+                                 `MLPHeadNet` through ops.kernels.
+                                 mlp_head_forward (TPU kernel
+                                 ops/pallas/head_mlp.py), an
+                                 `SETransformerHeadNet` through ops.kernels.
+                                 se_transformer_forward (TPU kernel
+                                 ops/pallas/se_attention.py), any other head
+                                 (the residual, skip and SE-MLP families,
+                                 ensembles) as its module, as the JAX
+                                 package runs them through XLA
 
 On a CUDA device the kernels launch (or the call raises); on the CPU their
 plain versions run.  `FaceDetector.detect_fused` serves it end to end, and
-`FaceDetector.detect` too when the detector's precision is "fast".
+`FaceDetector.detect` too when the detector's precision is "fast"; under the
+survivors head profile the detector calls it with `heads=False` and runs
+`head_forward` on the survivors' rows.
 """
 from __future__ import annotations
 
 import torch
 
+from ..models.heads import MLPHeadNet, SETransformerHeadNet
 from ..models.unified import UnifiedPoseNet
 from ..ops.kernels.backbone import backbone_forward
 from ..ops.kernels.backbone2 import apply_fused
 from ..ops.kernels.head_mlp import mlp_head_forward
+from ..ops.kernels.se_attention import se_transformer_forward
 
-__all__ = ["fused_network", "PRECISIONS"]
+__all__ = ["fused_network", "head_forward", "PRECISIONS"]
 
 PRECISIONS = ("highest", "fast")   # fp32; split-bf16 segment pointwise
 
@@ -42,17 +54,27 @@ def _ssd(conv: torch.nn.Conv2d, feat: torch.Tensor) -> torch.Tensor:
     return y.reshape(feat.shape[0], -1)
 
 
-def _pose(head, feat: torch.Tensor) -> torch.Tensor:
-    B, H, W, C = feat.shape
-    return mlp_head_forward(head, feat.reshape(-1, C)).reshape(B, H, W, -1)
+def head_forward(head: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A pose head over (B, H, W, C) maps or (N, C) rows, through its kernel
+    where the head has one."""
+    if isinstance(head, MLPHeadNet):
+        rows = mlp_head_forward(head, x.reshape(-1, x.shape[-1]))
+        return rows.reshape(*x.shape[:-1], rows.shape[-1])
+    if isinstance(head, SETransformerHeadNet):
+        if x.ndim == 2:              # each row a 1x1 map
+            return se_transformer_forward(head, x[:, None, None, :])[:, 0, 0]
+        return se_transformer_forward(head, x)
+    return head(x)
 
 
 @torch.no_grad()
 def fused_network(net: UnifiedPoseNet, x: torch.Tensor,
-                  precision: str = "highest") -> dict[str, torch.Tensor]:
+                  precision: str = "highest",
+                  heads: bool = True) -> dict[str, torch.Tensor]:
     """x (B, S, S, 3) float32 NHWC in [-1, 1] → the dict of
     `UnifiedPoseNet.forward`, through the fused kernels; `precision` (one
-    of `PRECISIONS`) chooses the backbone."""
+    of `PRECISIONS`) chooses the backbone; `heads=False` leaves out the pose
+    maps."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got "
                          f"{precision!r}")
@@ -66,8 +88,8 @@ def fused_network(net: UnifiedPoseNet, x: torch.Tensor,
                                 _ssd(bb.cls_back, f96)], 1),
            "loc": torch.cat([_ssd(bb.loc_front, f88),
                              _ssd(bb.loc_back, f96)], 1).reshape(B, -1, 16)}
-    if net.head88 is not None:
-        out["pose_front"] = _pose(net.head88, f88)
-    if net.head96 is not None:
-        out["pose_back"] = _pose(net.head96, f96)
+    if heads and net.head88 is not None:
+        out["pose_front"] = head_forward(net.head88, f88)
+    if heads and net.head96 is not None:
+        out["pose_back"] = head_forward(net.head96, f96)
     return out

@@ -20,14 +20,17 @@ import numpy as np
 import torch
 
 from ..models.blazeface import BlazeFace
-from ..models.heads import MLPHead
+from ..models.heads import (EnsembleHead, MLPHead, ResidualMLPHead,
+                            SEMLPHead, SETransformerHead, SkipMLPHead)
 from ..models.unified import UnifiedPoseModel
 
 __all__ = ["spec_from_dict", "params_from_jax", "params_to_jax",
            "flatten_params", "unflatten_params", "save_npz", "load_npz",
            "load_native"]
 
-_SPEC_CLASSES = {cls.__name__: cls for cls in (MLPHead, BlazeFace,
+_HEADS = (MLPHead, ResidualMLPHead, SkipMLPHead, SEMLPHead,
+          SETransformerHead, EnsembleHead)
+_SPEC_CLASSES = {cls.__name__: cls for cls in (*_HEADS, BlazeFace,
                                                UnifiedPoseModel)}
 
 
@@ -49,80 +52,132 @@ def _decode(value: Any) -> Any:
 
 
 def spec_from_dict(d: dict) -> Any:
-    """JSON spec (the JAX package's format) → UnifiedPoseModel / BlazeFace /
-    MLPHead.  Other head types raise NotImplementedError."""
+    """JSON spec (the JAX package's format) → UnifiedPoseModel, BlazeFace or
+    a head of any family.  An unknown spec type raises
+    NotImplementedError."""
     return _decode(d)
 
 
 # ------------------------------------------------------------ the bridge
-def _to_torch(a: np.ndarray) -> torch.Tensor:
+# Each leaf is converted by what it is, not by its rank: a convolution
+# kernel HWIO → OIHW (depthwise (3, 3, 1, C) → (C, 1, 3, 3)), a dense kernel
+# (in, out) → nn.Linear's (out, in); everything else (biases, LayerNorm
+# gains, the SE-Transformer's (C, H, D) / (H, D) / (H, D, C) attention
+# weights) keeps its JAX layout.
+CONV, DENSE, SAME = "conv", "dense", "same"
+
+
+def _to_torch(a: np.ndarray, layout: str) -> torch.Tensor:
     a = np.asarray(a, np.float32)
-    if a.ndim == 4:      # HWIO → OIHW; depthwise (3,3,1,C) → (C,1,3,3)
+    if layout == CONV:
         a = a.transpose(3, 2, 0, 1)
-    elif a.ndim == 2:    # dense (in, out) → (out, in)
+    elif layout == DENSE:
         a = a.T
     return torch.tensor(np.ascontiguousarray(a))
 
 
-def _to_jax(t: torch.Tensor) -> np.ndarray:
+def _to_jax(t: torch.Tensor, layout: str) -> np.ndarray:
     a = t.detach().cpu().numpy()
-    if a.ndim == 4:
+    if layout == CONV:
         a = a.transpose(2, 3, 1, 0)
-    elif a.ndim == 2:
+    elif layout == DENSE:
         a = a.T
     return np.ascontiguousarray(a)
 
 
-def _conv_pairs(spec: BlazeFace, prefix: str):
-    """(state_dict key, JAX path) pairs of one backbone."""
-    yield f"{prefix}stem.weight", ("stem", "kernel")
-    yield f"{prefix}stem.bias", ("stem", "bias")
+def _conv_pairs(spec: BlazeFace):
+    """(state_dict key, JAX path, layout) of one backbone's leaves."""
+    yield "stem.weight", ("stem", "kernel"), CONV
+    yield "stem.bias", ("stem", "bias"), SAME
     for i in range(len(spec.block_channels)):
         for conv in ("dw", "pw"):
-            yield (f"{prefix}blocks.{i}.{conv}.weight",
-                   ("blocks", i, f"{conv}_kernel"))
-            yield (f"{prefix}blocks.{i}.{conv}.bias",
-                   ("blocks", i, f"{conv}_bias"))
+            yield (f"blocks.{i}.{conv}.weight",
+                   ("blocks", i, f"{conv}_kernel"), CONV)
+            yield (f"blocks.{i}.{conv}.bias", ("blocks", i, f"{conv}_bias"),
+                   SAME)
     for head in ("cls_front", "cls_back", "loc_front", "loc_back"):
-        yield f"{prefix}{head}.weight", (head, "kernel")
-        yield f"{prefix}{head}.bias", (head, "bias")
+        yield f"{head}.weight", (head, "kernel"), CONV
+        yield f"{head}.bias", (head, "bias"), SAME
 
 
-def _head_pairs(spec: MLPHead, prefix: str):
-    for i in range(len(spec.layers)):
-        yield f"{prefix}layers.{i}.weight", ("layers", i, "w")
-        yield f"{prefix}layers.{i}.bias", ("layers", i, "b")
+def _dense(*path):
+    """An nn.Linear whose module path is the JAX path of its {w, b}."""
+    key = ".".join(str(p) for p in path)
+    yield f"{key}.weight", (*path, "w"), DENSE
+    yield f"{key}.bias", (*path, "b"), SAME
 
 
-def _pairs(spec: Any):
-    if isinstance(spec, UnifiedPoseModel):
-        for key, path in _conv_pairs(spec.backbone, "backbone."):
-            yield key, ("backbone", *path)
-        for name in ("head88", "head96"):
-            head = getattr(spec, name)
-            if head is not None:
-                for key, path in _head_pairs(head, f"{name}."):
-                    yield key, (name, *path)
-    elif isinstance(spec, BlazeFace):
-        yield from _conv_pairs(spec, "")
-    elif isinstance(spec, MLPHead):
-        yield from _head_pairs(spec, "")
+def _same(*path, leaves=("w", "b")):
+    key = ".".join(str(p) for p in path)
+    for leaf in leaves:
+        yield f"{key}.{leaf}", (*path, leaf), SAME
+
+
+def _head_pairs(spec: Any):
+    """(state_dict key, JAX path, layout) of one head's leaves."""
+    if isinstance(spec, MLPHead):
+        for i in range(len(spec.layers)):
+            yield f"layers.{i}.weight", ("layers", i, "w"), DENSE
+            yield f"layers.{i}.bias", ("layers", i, "b"), SAME
+    elif isinstance(spec, ResidualMLPHead):
+        yield from _dense("proj")
+        for b in range(spec.num_blocks):
+            yield from _dense("blocks", b, "fc1")
+            yield from _dense("blocks", b, "fc2")
+        yield from _dense("bottleneck")
+        yield from _dense("out")
+    elif isinstance(spec, SkipMLPHead):
+        for name in ("enc1", "enc2", "dec", "out"):
+            yield from _dense(name)
+    elif isinstance(spec, SEMLPHead):
+        for path in (("se", "fc1"), ("se", "fc2"), ("fc",), ("out",)):
+            yield from _dense(*path)
+    elif isinstance(spec, SETransformerHead):
+        yield from _dense("se", "fc1")
+        yield from _dense("se", "fc2")
+        for name in ("query", "key", "value", "attn_out"):
+            yield from _same(name)
+        yield from _same("ln1", leaves=("g", "b"))
+        yield from _dense("ff1")
+        yield from _dense("ff2")
+        yield from _same("ln2", leaves=("g", "b"))
+        yield from _dense("fc")
+        yield from _dense("out")
+    elif isinstance(spec, EnsembleHead):
+        for i, member in enumerate(spec.members):
+            for key, path, layout in _head_pairs(member):
+                yield f"members.{i}.{key}", ("members", i, *path), layout
     else:
         raise NotImplementedError(f"spec type {type(spec).__name__} is not "
                                   "ported")
 
 
+def _pairs(spec: Any):
+    if isinstance(spec, UnifiedPoseModel):
+        for key, path, layout in _conv_pairs(spec.backbone):
+            yield f"backbone.{key}", ("backbone", *path), layout
+        for name in ("head88", "head96"):
+            head = getattr(spec, name)
+            if head is not None:
+                for key, path, layout in _head_pairs(head):
+                    yield f"{name}.{key}", (name, *path), layout
+    elif isinstance(spec, BlazeFace):
+        yield from _conv_pairs(spec)
+    else:
+        yield from _head_pairs(spec)
+
+
 def params_from_jax(spec: Any, tree: Any) -> dict[str, torch.Tensor]:
     """JAX params (nested dicts and lists of arrays) → the state_dict of the
-    port's module for `spec` (UnifiedPoseNet / BlazeFaceNet / MLPHeadNet).
-    Converts HWIO → OIHW, depthwise (3, 3, 1, C) → (C, 1, 3, 3) and dense
-    (in, out) → (out, in); values are unchanged."""
+    port's module for `spec` (UnifiedPoseNet, BlazeFaceNet or a head
+    module).  Converts convolution kernels to OIHW and dense kernels to
+    (out, in); values are unchanged."""
     out = {}
-    for key, path in _pairs(spec):
+    for key, path, layout in _pairs(spec):
         leaf = tree
         for p in path:
             leaf = leaf[p]
-        out[key] = _to_torch(leaf)
+        out[key] = _to_torch(leaf, layout)
     return out
 
 
@@ -130,7 +185,7 @@ def params_to_jax(spec: Any, state_dict: dict[str, torch.Tensor]) -> Any:
     """The inverse of `params_from_jax`: a state_dict → JAX-layout params
     (nested dicts and lists of numpy arrays)."""
     return unflatten_params({"/".join(str(p) for p in path): _to_jax(
-        state_dict[key]) for key, path in _pairs(spec)})
+        state_dict[key], layout) for key, path, layout in _pairs(spec)})
 
 
 # ------------------------------------------------------------- npz files

@@ -1,12 +1,14 @@
 """Where the time of FaceDetector.detect (or detect_fused) goes on the card.
 
 Usage:  python -m headpose_tpu_torch.tools.profile_detect [--batch 128]
-            [--fused] [--precision highest|fast]
+            [--fused] [--precision highest|fast] [--model NAME]
 
-Runs the flagship's detect (with --fused, detect_fused: the network through
-the fused backbone and pose-head kernels; with --precision fast, the
-detector's "fast" mode, whose detect runs the split-bf16 segment backbone
-through the same kernels) on parity-corpus frames under
+Runs a shipped model's detect (the flagship unless --model names another,
+e.g. unified-best, served at its head_eval="auto" profile; with --fused,
+detect_fused: the network through the fused backbone and pose-head kernels;
+with --precision fast, the detector's "fast" mode, whose detect runs the
+split-bf16 segment backbone through the same kernels) on parity-corpus
+frames under
 torch.profiler and prints one JSON object: the wall time of the profiled
 window, the device's busy time (the union of its kernel intervals) and idle
 share, the kernels that take the most device time, grouped by name, and the
@@ -50,19 +52,24 @@ def main() -> None:
     parser.add_argument("--precision", default="highest",
                         choices=("highest", "fast"),
                         help="the detector's precision")
+    parser.add_argument("--model", default=None,
+                        help="a shipped model's name (default: the flagship)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_detect: no CUDA device is available")
     from torch.profiler import ProfilerActivity, profile
 
-    from ..pretrained import flagship_detector
+    from ..pretrained import FLAGSHIP, PRETRAINED_DIR
+    from ..runtime.detector import FaceDetector
 
     repo = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     imgs = np.load(os.path.join(repo, "tests", "golden",
                                 "parity_corpus.npz"))["imgs"]
     imgs = np.resize(imgs, (args.batch, *imgs.shape[1:]))
-    det = flagship_detector(precision=args.precision)
+    model = args.model or FLAGSHIP
+    det = FaceDetector.from_native(os.path.join(PRETRAINED_DIR, model),
+                                   precision=args.precision)
     detect = det.detect_fused if args.fused else det.detect
     for _ in range(3):
         detect(imgs).trim()
@@ -87,6 +94,7 @@ def main() -> None:
     last_call = kernels[-(len(kernels) // args.iters):]
     print(json.dumps({
         "path": "detect_fused" if args.fused else "detect",
+        "model": model, "head_eval": det.head_eval,
         "precision": args.precision,
         "batch": args.batch, "iters": args.iters,
         "card": torch.cuda.get_device_name(0),

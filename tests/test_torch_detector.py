@@ -170,7 +170,7 @@ def test_trim_is_the_slab(det, corpus):
 
 
 @pytest.mark.parametrize("kw", [dict(precision="turbo"),
-                                dict(head_eval="survivors"),
+                                dict(head_eval="bogus"),
                                 dict(channel_order="bgra"),
                                 dict(device="mps"),
                                 dict(precision="max")])

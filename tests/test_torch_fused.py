@@ -190,12 +190,25 @@ def test_mlp_head_plain_matches_jax_kernel(name, c, layers, n):
     else:
         x = np.random.default_rng(len(name)).normal(
             0, 2, (n, hspec.in_features)).astype(np.float32)
-    want = np.asarray(jax_head(JaxMLPHead(hspec.in_features, hspec.layers),
-                               hparams, jnp.asarray(x), tile=256,
-                               interpret=True))
-    got = khead.mlp_head_forward_plain(net, torch.from_numpy(x)).numpy()
+    def pallas():
+        return np.asarray(jax_head(JaxMLPHead(hspec.in_features,
+                                              hspec.layers),
+                                   hparams, jnp.asarray(x), tile=256,
+                                   interpret=True))
+
+    def plain():
+        return khead.mlp_head_forward_plain(net, torch.from_numpy(x)).numpy()
+
+    want, got = pallas(), plain()
     assert got.shape == want.shape == (len(x), hspec.layers[-1][0])
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    msg = ""
+    if not np.allclose(got, want, rtol=1e-5, atol=1e-5):
+        # a mismatch seen once in a parallel run of the whole suite and not
+        # reproduced since: say which side does not give its result again
+        msg = (f"plain gives the same result again: "
+               f"{np.array_equal(plain(), got)}; Pallas gives the same "
+               f"result again: {np.array_equal(pallas(), want)}")
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5, err_msg=msg)
 
 
 @pytest.mark.parametrize("model", [FLAGSHIP, BEST])

@@ -5,7 +5,9 @@ their plain versions (rtol 1e-4 / atol 1e-5 and rtol = atol = 1e-5: the
 kernels sum in another order than cuBLAS), and detect_fused against detect;
 the split-bf16 segment kernel (apply_fused) against its plain version (atol
 2e-4) and the fp32 backbone kernel (atol 5e-4), and the "fast" detector
-against the "highest" one.
+against the "highest" one; the SE-Transformer head kernel
+(se_transformer_forward) against its plain version (rtol 1e-4 / atol 1e-5),
+and the SE-Transformer model's detect_fused in both head profiles.
 
 Marked `gpu`.  Each test skips in the `cuda` fixture when no CUDA device is
 present (never at import: every xdist worker must collect the same tests).
@@ -22,13 +24,15 @@ import torch
 
 from headpose_tpu_torch.models import BlazeFace, BlazeFaceNet, MLPHead
 from headpose_tpu_torch.models.anchors import generate_anchors
-from headpose_tpu_torch.models.heads import MLPHeadNet
+from headpose_tpu_torch.models.heads import (MLPHeadNet, SETransformerHead,
+                                             SETransformerHeadNet)
 from headpose_tpu_torch.ops import detection as det
 from headpose_tpu_torch.ops.image import preprocess
 from headpose_tpu_torch.ops.kernels import backbone as kbb
 from headpose_tpu_torch.ops.kernels import backbone2 as kb2
 from headpose_tpu_torch.ops.kernels import head_mlp as khead
 from headpose_tpu_torch.ops.kernels import postprocess as kern
+from headpose_tpu_torch.ops.kernels import se_attention as kse
 
 pytestmark = pytest.mark.gpu
 
@@ -288,3 +292,99 @@ def test_fast_detect_matches_highest(cuda, flagship):
     assert torch.equal(got.valid, want.valid)
     assert int(want.valid.sum()) >= 1
     assert float((got.poses - want.poses).abs().max()) < 0.05
+
+
+# ------------------------------------------------- SE-Transformer head
+def _se_head(cuda, seed, **fields):
+    """A random SE-Transformer head, with the limits of the JAX init
+    (Glorot-uniform kernels; q/k/v and attn_out at sqrt(6 / (C + H D)));
+    biases N(0, 0.05), LayerNorm gains 1 + N(0, 0.05); numpy, seeded."""
+    net = SETransformerHeadNet(SETransformerHead(**fields), device=cuda)
+    rng = np.random.default_rng(seed)
+    s = net.spec
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith((".bias", ".b")):
+                v = rng.normal(0, 0.05, tuple(p.shape))
+            elif name.endswith(".g"):
+                v = 1 + rng.normal(0, 0.05, tuple(p.shape))
+            else:
+                fans = (s.in_features + s.num_heads * s.key_dim
+                        if p.ndim == 3 else sum(p.shape))
+                lim = np.sqrt(6.0 / fans)
+                v = rng.uniform(-lim, lim, tuple(p.shape))
+            p.copy_(torch.from_numpy(v.astype(np.float32)))
+    return net
+
+
+@pytest.mark.parametrize("case", ["flagship88_b1", "flagship96_b1",
+                                  "flagship88_b8", "flagship96_b8",
+                                  "rows_n100", "narrow_2x8", "one_head"])
+def test_se_kernel_matches_plain(cuda, flagship, case):
+    """The kernel (another sum order, an online softmax) against its plain
+    version at rtol 1e-4 / atol 1e-5: the flagship's taps at B in {1, 8},
+    T = 1 rows, a 2 x 8 head and a one-head spec on random maps."""
+    c = 96 if "96" in case or case == "narrow_2x8" else 88
+    fields = {"narrow_2x8": dict(num_heads=2, key_dim=8),
+              "one_head": dict(num_heads=1)}.get(case, {})
+    net = _se_head(cuda, 11, in_features=c, **fields)
+    if case.startswith("flagship"):
+        b = int(case.split("_b")[1])
+        imgs = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"][:b]
+        with torch.inference_mode():
+            out = flagship.net(preprocess(torch.from_numpy(imgs).to(cuda)))
+        x = out["feat88" if c == 88 else "feat96"].clone()
+    else:
+        shape = (100, 1, 1, c) if case == "rows_n100" else (
+            (3, 8, 8, c) if c == 96 else (2, 16, 16, c))
+        x = torch.from_numpy(np.random.default_rng(4).normal(
+            0, 1, shape).astype(np.float32)).to(cuda)
+    before = kse.se_transformer_forward.launches
+    got = kse.se_transformer_forward(net, x)
+    want = kse.se_transformer_forward_plain(net, x)
+    torch.cuda.synchronize()
+    assert kse.se_transformer_forward.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_se_kernel_rejects_what_it_does_not_take(cuda):
+    net = _se_head(cuda, 1, in_features=88)
+    x = torch.zeros((2, 88, 4, 4), device=cuda).permute(0, 2, 3, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        kse.se_transformer_forward_cuda(net, x)
+    with pytest.raises(ValueError, match="num_heads"):
+        kse.se_transformer_forward_cuda(
+            _se_head(cuda, 1, in_features=88, num_heads=3),
+            torch.zeros((1, 4, 4, 88), device=cuda))
+
+
+@pytest.mark.parametrize("head_eval", ["map", "survivors"])
+def test_se_model_detect_fused_launches_the_kernel(cuda, flagship,
+                                                   head_eval):
+    """The flagship's backbone with two random-init SE-Transformer heads:
+    detect_fused launches the kernel twice (both maps, or both heads' rows)
+    and gives detect's detections and poses."""
+    from headpose_tpu_torch.models.unified import UnifiedPoseModel
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+    from headpose_tpu_torch.tools.convert import params_to_jax
+
+    spec = UnifiedPoseModel(backbone=flagship.model.backbone,
+                            head88=SETransformerHead(88),
+                            head96=SETransformerHead(96))
+    params = {"backbone": params_to_jax(flagship.model.backbone,
+                                        flagship.net.backbone.state_dict())}
+    for name, c in (("head88", 88), ("head96", 96)):
+        head = _se_head(cuda, c, in_features=c)
+        params[name] = params_to_jax(head.spec, head.state_dict())
+    det = FaceDetector(spec, params, head_eval=head_eval)
+    imgs = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"][:8]
+    before = kse.se_transformer_forward.launches
+    got = det.detect_fused(imgs)
+    assert kse.se_transformer_forward.launches == before + 2
+    want = det.detect(imgs)
+    assert torch.equal(got.valid, want.valid)
+    assert int(want.valid.sum()) >= 8
+    for k in ("boxes", "scores"):
+        assert float((getattr(got, k) - getattr(want, k)).abs().max()) \
+            <= 1e-4, k
+    torch.testing.assert_close(got.poses, want.poses, rtol=1e-4, atol=1e-4)

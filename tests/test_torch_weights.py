@@ -34,7 +34,8 @@ PORT = os.path.join(REPO, "headpose_tpu_torch")
 
 @pytest.mark.parametrize("name,leaves,count", [
     ("unified-stoqa9pt-hrchr82r", 84, 110964),
-    ("unified-best-distilled", 86, 215572)])
+    ("unified-best-distilled", 86, 215572),
+    ("unified-best", 786, 979619)])
 def test_npz_is_bitwise_the_orbax_checkpoint(name, leaves, count):
     jspec, jparams = jax_load_pretrained(name)
     want = flatten_params(jax.tree.map(np.asarray, jparams))
@@ -83,11 +84,16 @@ def test_bridge_round_trips_back_spec_and_lone_head(spec, net):
 
 
 def test_unported_head_types_raise():
-    """spec_from_dict accepts the three ported spec types only."""
+    """spec_from_dict raises on a spec type the port does not know, here
+    unified-best's spec with one ensemble member renamed."""
     with open(os.path.join(JAX_PRETRAINED_DIR, "unified-best",
                            "spec.json")) as f:
         doc = json.load(f)
-    with pytest.raises(NotImplementedError):
+    spec_from_dict(doc["spec"])                     # every family is ported
+    member = doc["spec"]["fields"]["head88"]["fields"]["members"][
+        "__tuple__"][0]
+    member["__spec__"] = "ConvLSTMHead"
+    with pytest.raises(NotImplementedError, match="ConvLSTMHead"):
         spec_from_dict(doc["spec"])
 
 
@@ -137,6 +143,13 @@ res = flagship_detector(device="cpu").detect_single(img)
 assert len(res) > 0
 fast = flagship_detector(device="cpu", precision="fast").detect_single(img)
 assert len(fast) == len(res)
+from headpose_tpu_torch.pretrained import load_pretrained
+from headpose_tpu_torch.runtime.detector import FaceDetector
+
+spec, params = load_pretrained("unified-best")
+ub = FaceDetector(spec, params, device="cpu")
+assert ub.head_eval == "survivors"
+assert len(ub.detect_single(img)) == len(res)
 leaked = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "headpose_tpu")]
 assert not leaked, leaked

@@ -17,7 +17,9 @@ is one JSON object, except the nvidia-smi line:
 
   device   the card (name, power limit), torch and CUDA versions;
   build    every kernel library built from csrc/ with nvcc, one nvcc per
-           source, all started together; ptxas's registers and smem;
+           source, all started together; ptxas's registers and smem; the
+           tensor-core (HMMA) instructions in the SASS of the split-bf16
+           and SE-Transformer libraries (the latter must have some);
   kernels  per kernel: holds it against its plain PyTorch version on the
            card over a set of cases (postprocess_nms bit for bit;
            backbone_forward at rtol 1e-4 / atol 1e-5; mlp_head_forward at
@@ -25,7 +27,9 @@ is one JSON object, except the nvidia-smi line:
            value (SPLIT_TOL), and at atol 5e-4 against the fp32
            backbone_forward kernel; se_transformer_forward at rtol 1e-4 /
            atol 1e-5) and times it (CUDA events) at the main path's shapes
-           beside its plain version and a library yardstick;
+           beside its plain version and a library yardstick, with each
+           grid's device time (backbone_forward's 17 beside each one's
+           byte floor; se_transformer_forward's by kernel);
   parity   flagship_detector().detect on the 112 parity-corpus images
            against the reference detections (set agreement 1.0, pose p99
            and max < 0.1 deg) and on e2e_production.npz; every launch count
@@ -84,6 +88,7 @@ GOLDEN = os.path.join(HERE, "tests", "golden")
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores
 H100_BF16_FLOPS = 989e12     # bf16 on the tensor cores, dense
+H100_TF32_FLOPS = 495e12     # TF32 on the tensor cores, dense
 PARITY_BUDGET_DEG = 0.1
 IOU_MATCH = 0.5
 FIELDS = ("boxes", "keypoints", "scores", "poses", "valid")
@@ -243,6 +248,44 @@ def grid_ms(fn, reps: int) -> dict:
     return out
 
 
+def grids_in_order(fn, reps: int, per_call: int) -> list:
+    """Device time of each of the per_call kernel launches of one fn(), in
+    launch order (torch.profiler over reps warm calls, mean per launch over
+    the calls whose launches it recorded whole), in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    calls = [ev[i:i + per_call] for i in range(len(ev) - per_call, -1,
+                                               -per_call)]
+    names = [e.name for e in calls[0]] if calls else []
+    whole = [c for c in calls if [e.name for e in c] == names]
+    if len(names) != per_call or not whole:
+        raise AssertionError(f"the profiler recorded no whole call of "
+                             f"{per_call} launches ({len(ev)} events)")
+    return [sum(c[i].time_range.end - c[i].time_range.start for c in whole)
+            / len(whole) / 1e3 for i in range(per_call)]
+
+
+def sass_count(lib, opcode: str) -> int:
+    """Instructions of `opcode` in a built library's SASS (cuobjdump)."""
+    import shutil
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "", "bin",
+                                                     "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib.path()], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    return sum(opcode in line for line in sass.splitlines())
+
+
 def median_ms(fn, reps: int) -> float:
     """Median device time of one fn() over reps calls (CUDA events)."""
     fn()
@@ -281,6 +324,12 @@ def phase_build() -> dict:
                               mod.LIBRARY.build_log.splitlines()
                               if "registers" in ln or "smem" in ln]}
              for name, mod in mods.items()}
+    # the tensor-core kernels' mma instructions in their SASS
+    for name in ("apply_fused", "se_transformer_forward"):
+        built[name]["sass_hmma"] = sass_count(mods[name].LIBRARY, "HMMA")
+    if built["se_transformer_forward"]["sass_hmma"] == 0:
+        raise AssertionError("libse_attention has no tensor-core "
+                             "instruction (HMMA) in its SASS")
     emit({"phase": "build", **built})
     return built
 
@@ -418,6 +467,30 @@ def backbone_work(spec, B):
     return B * ops, 4 * (B * (S * S * 3 + out) + params)
 
 
+def backbone_grids(spec, B):
+    """The 17 grids of backbone_forward in launch order: each one's map
+    sizes and the bytes a layer-per-launch design must move for it at B
+    images (its input map read once, its output map written once, its
+    weights once) over 3.35 TB/s: the per-layer byte floor."""
+    S = spec.input_size
+    layers = [("stem", S, 3, spec.stem_features, 2, 75 * spec.stem_features
+               + spec.stem_features)]
+    h, cin = S // 2, spec.stem_features
+    for i, cout in enumerate(spec.block_channels):
+        st = 2 if i in spec.downsample_blocks else 1
+        layers.append((f"block{i}", h, cin, cout, st,
+                       10 * cin + cin * cout + cout))
+        h, cin = h // st, cout
+    out = []
+    for name, hi, ci, co, st, params in layers:
+        ho = hi // st
+        nbytes = 4 * (B * (hi * hi * ci + ho * ho * co) + params)
+        out.append({"grid": name, "in": [hi, hi, ci], "out": [ho, ho, co],
+                    "bytes": nbytes,
+                    "floor_ms": nbytes / H100_BYTES_PER_S * 1e3})
+    return out
+
+
 def cudnn_taps(net, x):
     """The port's cuDNN BlazeFaceNet from the frames to the taps (a
     sequence of calls: stem, 16 blocks, two NHWC copies)."""
@@ -474,12 +547,20 @@ def phase_kernel_backbone(dev, flagship, frames128, built):
         plain_ms = cuda_ms(lambda: kbb.backbone_forward_plain(net,
                                                               frames128), 3)
         library_ms = cuda_ms(lambda: cudnn_taps(net, frames128), 50)
+        per_grid = grids_in_order(
+            lambda: kbb.backbone_forward_cuda(net, frames128), 10,
+            1 + len(net.spec.block_channels))
     B = int(frames128.shape[0])
     ops, nbytes = backbone_work(net.spec, B)
     bound_ms, bound_by = bound(ops, nbytes)
+    grids = backbone_grids(net.spec, B)
+    for row, t in zip(grids, per_grid):
+        row["ms"] = t
+    layer_floor_ms = sum(row["floor_ms"] for row in grids)
     emit({"phase": "kernels", "kernel": "backbone_forward", "cases": cases,
           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-          "bound_ms": bound_ms, "max_abs_err_vs_library": vs_library})
+          "bound_ms": bound_ms, "layer_byte_floor_ms": layer_floor_ms,
+          "grid_ms": grids, "max_abs_err_vs_library": vs_library})
     if worst[1] > 1.0:
         raise AssertionError(f"backbone_forward disagrees with its plain "
                              f"version beyond {BACKBONE_TOL}: {cases}")
@@ -495,6 +576,8 @@ def phase_kernel_backbone(dev, flagship, frames128, built):
         "library": "sequence of calls, not one: the port's cuDNN "
                    "BlazeFaceNet stem + 16 blocks to the two NHWC taps",
         "grids_per_launch": 1 + len(net.spec.block_channels),
+        "grid_ms": {row["grid"]: row["ms"] for row in grids},
+        "layer_byte_floor_ms": layer_floor_ms,
         "operations": ops, "bytes": nbytes,
         "shape": {"B": B, "S": net.spec.input_size},
         "build_s": built["backbone_forward"]["build_s"],
@@ -1088,25 +1171,52 @@ def se_model():
 
 
 def se_work(spec, B, T):
-    """(operations, bytes) of one SE-Transformer head over B maps of T
-    tokens: every multiply-add of a product as 2; the token mean, gate,
-    biases, residual adds, ReLUs and LayerNorms (8 per element), and the
-    softmax (scale, max, subtract, exp, sum: 5 per score, and a divide per
-    output) as 1 each.  Bytes: the maps read once, the output written once,
-    the weights once."""
+    """Work of one SE-Transformer head over B maps of T tokens as the kernel
+    does it: {"tc": the products on the tensor cores (q/k/v, Q K^T, P V, the
+    output projection, the FFN, the two 1x1s; for T = 1 only v and the
+    tail, as the softmax over one key is 1), each multiply-add as 2, times
+    three TF32 passes; "fp32": on the CUDA cores the token mean and the
+    gate's two products, the biases, residual adds, ReLUs and LayerNorms (8
+    per element) and the softmax (scale, max, subtract, exp, sum: 5 per
+    score, a divide per output), as 1 each; "bytes": the maps read once,
+    the output written once, the weights once; "fp32_only": every
+    operation of the head with attention, all on the CUDA cores: the
+    count of the kernel's first, fp32-only design}."""
     C, H, D = spec.in_features, spec.num_heads, spec.key_dim
     M, F, Hd, O = C // spec.reduction, spec.ff_dim, spec.hidden, \
         spec.out_features
     HD = H * D
-    products = 2 * (T * C * 3 * HD + T * T * HD * 2 + T * HD * C
-                    + 2 * T * C * F + T * C * Hd + T * Hd * O + 2 * C * M)
-    elementwise = (2 * T * C + M + C                     # mean, gate
-                   + 3 * T * HD + 5 * H * T * T + T * HD  # biases, softmax
-                   + 2 * T * C + 2 * 8 * T * C          # residuals, LNs
-                   + T * (F + C + 2 * Hd + O))          # FFN, 1x1s
+    tail = T * HD * C + 2 * T * C * F + T * C * Hd + T * Hd * O
+    attention = T * C * 3 * HD + T * T * HD * 2
+    gate = 2 * T * C + M + C + 4 * C * M                 # mean, gate
+    rest = (2 * T * C + 2 * 8 * T * C                    # residuals, LNs
+            + T * (F + C + 2 * Hd + O))                  # FFN, 1x1s
+    softmax = 3 * T * HD + 5 * H * T * T + T * HD        # biases, softmax
     weights = (2 * C * M + M + C + 3 * (C * HD + HD) + HD * C + C + 4 * C
                + 2 * C * F + F + C + C * Hd + Hd + Hd * O + O)
-    return B * (products + elementwise), 4 * (B * T * (C + O) + weights)
+    nbytes = 4 * (B * T * (C + O) + weights)
+    if T == 1:
+        tc, fp32 = 2 * (T * C * HD + tail), gate + rest + T * HD
+    else:
+        tc, fp32 = 2 * (attention + tail), gate + rest + softmax
+    return {"tc": 3 * B * tc, "fp32": B * fp32, "bytes": nbytes,
+            "fp32_only": B * (2 * (attention + tail) + gate + rest + softmax)}
+
+
+def se_bound(works):
+    """(bound ms, bound by, its terms, the fp32-only bound) of a
+    sum of `se_work`s: the largest of bytes over 3.35 TB/s, tensor-core
+    operations over 495 TFLOP/s (TF32) and CUDA-core operations over 67
+    TFLOP/s."""
+    terms = {"bytes": sum(w["bytes"] for w in works) / H100_BYTES_PER_S * 1e3,
+             "tensor-core operations": sum(w["tc"] for w in works)
+             / H100_TF32_FLOPS * 1e3,
+             "fp32 operations": sum(w["fp32"] for w in works)
+             / H100_FP32_FLOPS * 1e3}
+    ms = max(terms.values())
+    old = bound(sum(w["fp32_only"] for w in works),
+                sum(w["bytes"] for w in works))[0]
+    return ms, "bytes" if terms["bytes"] == ms else "operations", terms, old
 
 
 def se_library(net):
@@ -1145,9 +1255,12 @@ def phase_kernel_se(dev, flagship, frames128, built):
     """se_transformer_forward: the kernel against its plain version on the
     card (SE_TOL): the SE model's heads on the flagship's taps of corpus
     frames at B in {1, 8, 128}, a 2 x 8 head on random 8x8x96 maps, a
-    one-head spec on random 16x16x88 maps, T = 1 rows at N in {1, 100,
-    12800}; then timed at B=128 (both maps) and on the 12,800 rows beside
-    the plain version, the library yardstick and the bound."""
+    one-head spec on random 16x16x88 maps, 5x5 maps (T = 25: ragged key
+    blocks and tiles that span images), 8 heads of 8 and 2 heads of 32, T =
+    1 rows at N in {1, 100, 12800}; then timed at B=128 (both maps) and on
+    the 12,800 rows beside the plain version, the library yardstick and the
+    bound (tensor-core work in three TF32 passes, and the fp32-only bound
+    of the kernel's first design beside it)."""
     from headpose_tpu_torch.ops.kernels import se_attention as kse
 
     h88, h96 = se_head(dev, 88, 88), se_head(dev, 96, 96)
@@ -1166,7 +1279,12 @@ def phase_kernel_se(dev, flagship, frames128, built):
     cases += [("narrow96_2x8_b4", se_head(dev, 96, 5, num_heads=2,
                                           key_dim=8), rand((4, 8, 8, 96))),
               ("one_head88_b4", se_head(dev, 88, 6, num_heads=1),
-               rand((4, 16, 16, 88)))]
+               rand((4, 16, 16, 88))),
+              ("maps5x5_88_b6", h88, rand((6, 5, 5, 88))),
+              ("heads8_kd8_88_b4", se_head(dev, 88, 7, num_heads=8,
+                                           key_dim=8), rand((4, 16, 16, 88))),
+              ("key_dim32_96_b4", se_head(dev, 96, 9, num_heads=2,
+                                          key_dim=32), rand((4, 8, 8, 96)))]
     cases += [(f"rows_n{n}", h88, rows[:n].contiguous())
               for n in (1, 100, 12800)]
     report, worst = [], (0.0, 0.0)
@@ -1204,17 +1322,20 @@ def phase_kernel_se(dev, flagship, frames128, built):
             "rows12800": grid_ms(lambda: kse.se_transformer_forward_cuda(
                 h88, r12800), 10)}
     B = int(frames128.shape[0])
-    ops88, bytes88 = se_work(h88.spec, B, 256)
-    ops96, bytes96 = se_work(h96.spec, B, 64)
-    bound_ms, bound_by = bound(ops88 + ops96, bytes88 + bytes96)
-    rows_ops, rows_bytes = se_work(h88.spec, 12800, 1)
-    rows_bound_ms, rows_bound_by = bound(rows_ops, rows_bytes)
+    work = [se_work(h88.spec, B, 256), se_work(h96.spec, B, 64)]
+    bound_ms, bound_by, terms, fp32_only_ms = se_bound(work)
+    rows_work = se_work(h88.spec, 12800, 1)
+    rows_bound_ms, rows_bound_by, rows_terms, rows_fp32_only_ms = se_bound(
+        [rows_work])
     emit({"phase": "kernels", "kernel": "se_transformer_forward",
           "cases": report, "ms": ms, "plain_ms": plain_ms,
           "library_ms": library_ms, "bound_ms": bound_ms,
+          "bound_terms_ms": terms, "bound_fp32_only_ms": fp32_only_ms,
           "rows12800": {"ms": rows_ms, "plain_ms": rows_plain_ms,
                         "library_ms": rows_library_ms,
-                        "bound_ms": rows_bound_ms},
+                        "bound_ms": rows_bound_ms,
+                        "bound_terms_ms": rows_terms,
+                        "bound_fp32_only_ms": rows_fp32_only_ms},
           "grid_ms": grids,
           "max_abs_err_plain_vs_library": vs_library})
     if worst[1] > 1.0:
@@ -1236,9 +1357,13 @@ def phase_kernel_se(dev, flagship, frames128, built):
                  "B=128 (two calls, four launches)",
         "rows12800": {"ms": rows_ms, "plain_ms": rows_plain_ms,
                       "library_ms": rows_library_ms,
-                      "bound_ms": rows_bound_ms, "bound_by": rows_bound_by},
-        "grid_ms": grids,
-        "operations": ops88 + ops96, "bytes": bytes88 + bytes96,
+                      "bound_ms": rows_bound_ms, "bound_by": rows_bound_by,
+                      "bound_fp32_only_ms": rows_fp32_only_ms},
+        "grid_ms": grids, "bound_terms_ms": terms,
+        "bound_fp32_only_ms": fp32_only_ms,
+        "tensor_core_operations": sum(w["tc"] for w in work),
+        "fp32_operations": sum(w["fp32"] for w in work),
+        "bytes": sum(w["bytes"] for w in work),
         "shape": {"B": B, "T88": 256, "T96": 64},
         "build_s": built["se_transformer_forward"]["build_s"],
         "ptxas": built["se_transformer_forward"]["ptxas"],

@@ -206,6 +206,9 @@ def _check_cuda(net: BlazeFaceNet, x: torch.Tensor) -> None:
         raise ValueError(f"x must be float32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError("x must start 16-byte aligned (the kernels stage "
+                         "its rows with 16-byte copies)")
 
 
 def _raise_on(err: int, what: str) -> None:

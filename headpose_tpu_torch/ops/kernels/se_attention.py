@@ -17,13 +17,15 @@ import ctypes
 import os
 
 import torch
+import torch.nn.functional as F
 
 from ...models.heads import SETransformerHeadNet
 from ...utils.build import NVCC_FLAGS_FMA, CudaLibrary
 from .packing import Packed, c_ints, packed
 
 __all__ = ["se_transformer_forward", "se_transformer_forward_plain",
-           "se_transformer_forward_cuda", "se_pack", "LIBRARY"]
+           "se_transformer_forward_cuda", "se_pack", "split_tf32",
+           "matmul_3xtf32", "LIBRARY"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc", "se_attention.cu")
@@ -73,9 +75,29 @@ def _leaves(net: SETransformerHeadNet):
         yield layer.bias
 
 
+# the leaves the kernel multiplies on the tensor cores, staged in tiles of
+# TILE_N columns: q/k/v, attn_out, ff1, ff2, fc, out (csrc/se_attention.cu)
+_TILED = (4, 6, 8, 10, 14, 16, 20, 22)
+TILE_N = 32
+
+
+def _kernel_leaves(net: SETransformerHeadNet):
+    """`_leaves` in the kernel's layout: each tiled matrix (K, N) zero-padded
+    to (K rounded up to 8, N rounded up to TILE_N), so that a tile is whole
+    16-byte rows; every leaf then zero-padded to a multiple of 4 floats, so
+    that each starts 16-byte aligned."""
+    for i, leaf in enumerate(_leaves(net)):
+        if i in _TILED:
+            k, n = leaf.shape
+            leaf = F.pad(leaf, (0, -n % TILE_N, 0, -k % 8))
+        flat = leaf.reshape(-1)
+        yield F.pad(flat, (0, -flat.numel() % 4))
+
+
 def se_pack(net: SETransformerHeadNet) -> Packed:
-    """`net`'s weights in one buffer on its device (packed once per module)."""
-    return packed(net, _leaves)
+    """`net`'s weights in one buffer on its device in the kernel's layout
+    (`_kernel_leaves`; packed once per module)."""
+    return packed(net, _kernel_leaves)
 
 
 def _check_domain(net: SETransformerHeadNet) -> None:
@@ -113,13 +135,34 @@ def _layernorm(x, g, b, eps=1e-3):
     return (x - mu) * torch.rsqrt(var + eps) * g + b
 
 
-@torch.no_grad()
-def se_transformer_forward_plain(net: SETransformerHeadNet,
-                                 x: torch.Tensor) -> torch.Tensor:
-    """The TPU kernel's arithmetic in plain torch, step by step, every image
-    of the batch at once: token mean and gate, the flattened q/k/v
-    products, each head's softmax attention, the output projection, the
-    tail.  It does not call `SETransformerHeadNet.forward`."""
+def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of a float32 tensor as the kernel splits an operand: hi =
+    tf32(t), lo = tf32(t - hi), both rounded to nearest with ties away from
+    zero (PTX cvt.rna.tf32.f32: 10 stored mantissa bits), returned as
+    float32 tensors.  t - hi is exact in float32, and hi + lo holds t to
+    about 2^-22 relative."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = rna(t)
+    return hi, rna(t - hi)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernel's 3-pass TF32 product: lo.hi + hi.lo + hi.hi of
+    the split operands (the lo.lo term dropped), each product exact in
+    float32, summed in float32."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _forward(net: SETransformerHeadNet, x: torch.Tensor, mm) -> torch.Tensor:
+    """The TPU kernel's arithmetic with every product a @ b as mm(a, b):
+    torch.matmul in the plain version; `matmul_3xtf32` emulates the
+    kernel's tensor-core products (the SE gate's stay fp32, as in the
+    kernel)."""
     _check_domain(net)
     _check_input(net, x)
     spec = net.spec
@@ -132,28 +175,39 @@ def se_transformer_forward_plain(net: SETransformerHeadNet,
     s = torch.relu(pooled @ se1w + se1b)
     s = torch.sigmoid(s @ se2w + se2b)
     t = tokens * s
-    q, k, v = t @ qw + qb, t @ kw + kb, t @ vw + vb             # (B, T, H*D)
+    q, k, v = mm(t, qw) + qb, mm(t, kw) + kb, mm(t, vw) + vb    # (B, T, H*D)
     inv_scale = 1.0 / torch.sqrt(torch.tensor(D, dtype=torch.float32))
     heads = []
     for h in range(H):
         sl = slice(h * D, (h + 1) * D)
-        scores = (q[..., sl] @ k[..., sl].transpose(1, 2)) * inv_scale
-        heads.append(torch.softmax(scores, dim=-1) @ v[..., sl])
-    o = torch.cat(heads, dim=-1) @ ow + ob
+        scores = mm(q[..., sl], k[..., sl].transpose(1, 2)) * inv_scale
+        heads.append(mm(torch.softmax(scores, dim=-1), v[..., sl]))
+    o = mm(torch.cat(heads, dim=-1), ow) + ob
     t1 = _layernorm(t + o, ln1g, ln1b)
-    f = torch.relu(t1 @ f1w + f1b) @ f2w + f2b
+    f = mm(torch.relu(mm(t1, f1w) + f1b), f2w) + f2b
     t2 = _layernorm(t1 + f, ln2g, ln2b)
-    y = torch.relu(t2 @ fcw + fcb) @ outw + outb
+    y = mm(torch.relu(mm(t2, fcw) + fcb), outw) + outb
     return y.reshape(B, Hs, Ws, spec.out_features)
+
+
+@torch.no_grad()
+def se_transformer_forward_plain(net: SETransformerHeadNet,
+                                 x: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's arithmetic in plain torch, step by step, every image
+    of the batch at once: token mean and gate, the flattened q/k/v
+    products, each head's softmax attention, the output projection, the
+    tail.  It does not call `SETransformerHeadNet.forward`."""
+    return _forward(net, x, torch.matmul)
 
 
 @torch.no_grad()
 def se_transformer_forward_cuda(net: SETransformerHeadNet,
                                 x: torch.Tensor) -> torch.Tensor:
     """The kernel: what `se_transformer_forward_plain` computes, on a CUDA
-    device.  Two launches (gate and K/V; attention and the tail) on the
-    current stream, without synchronising.  Raises on anything the kernel
-    does not take, and when a launch fails."""
+    device.  Three launches (the gates; K/V; attention and the tail) on the
+    current stream, or one for 1x1 maps (T = 1: no attention to compute),
+    without synchronising.  Raises on anything the kernel does not take,
+    and when a launch fails."""
     _check_domain(net)
     _check_input(net, x)
     if x.device.type != "cuda":
@@ -162,6 +216,9 @@ def se_transformer_forward_cuda(net: SETransformerHeadNet,
         raise ValueError(f"net is on {net.query.w.device}, x on {x.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError("x must start 16-byte aligned (the kernel stages "
+                         "its rows with 16-byte copies)")
     spec = net.spec
     B, Hs, Ws, C = x.shape
     T = Hs * Ws
@@ -169,8 +226,9 @@ def se_transformer_forward_cuda(net: SETransformerHeadNet,
     out = x.new_empty((B, Hs, Ws, spec.out_features))
     if B * T == 0:
         return out
-    gate = x.new_empty((B, C))
-    kv = x.new_empty((B * T, 2 * hd))
+    # the gate and K/V scratch of the first launch (none for T = 1)
+    gate = x.new_empty((B, C) if T > 1 else (0,))
+    kv = x.new_empty((B * T, 2 * hd) if T > 1 else (0,))
     pack = se_pack(net)
     dims = (C, C // spec.reduction, spec.num_heads, spec.key_dim,
             spec.ff_dim, spec.hidden, spec.out_features)
@@ -194,7 +252,7 @@ def se_transformer_forward(net: SETransformerHeadNet,
     CUDA device, the plain version for a tensor on the CPU.
 
     `se_transformer_forward.launches` counts the calls that launched the
-    kernel (one per call: both of its launches)."""
+    kernel (one per call: its three launches, or the one for T = 1)."""
     if x.device.type == "cpu":
         return se_transformer_forward_plain(net, x)
     return se_transformer_forward_cuda(net, x)

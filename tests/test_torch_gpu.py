@@ -156,12 +156,19 @@ def flagship(cuda):
     return flagship_detector()
 
 
-@pytest.mark.parametrize("case", ["flagship_b1", "flagship_b3", "narrow_b4"])
+def _corpus(b):
+    """b parity-corpus frames (the 112 repeated from the start past 112)."""
+    imgs = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"]
+    return np.concatenate([imgs, imgs])[:b]
+
+
+@pytest.mark.parametrize("case", ["flagship_b1", "flagship_b3",
+                                  "flagship_b128", "narrow_b4"])
 def test_backbone_kernel_matches_plain(cuda, flagship, case):
     if case.startswith("flagship"):
         net = flagship.net.backbone
-        imgs = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"]
-        x = preprocess(torch.from_numpy(imgs[:int(case[-1])]).to(cuda))
+        x = preprocess(torch.from_numpy(_corpus(int(case.split("_b")[1])))
+                       .to(cuda))
     else:
         net = _random_init(BlazeFaceNet(NARROW, device=cuda), 5)
         x = torch.from_numpy(np.random.default_rng(0).uniform(
@@ -173,6 +180,36 @@ def test_backbone_kernel_matches_plain(cuda, flagship, case):
     assert kbb.backbone_forward.launches == before + 1
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("layer", ["stem", "block0", "block1", "block2",
+                                   "block5", "block11", "narrow_block3"])
+def test_stem_and_block_kernels_match_plain(cuda, flagship, layer):
+    """The stem and single blocks through headpose_backbone_stem /
+    headpose_backbone_block (the split-bf16 backbone's fp32 layers) against
+    the plain version's layers: the flagship's 64x64 layers, its stride-2
+    blocks (block 5 takes 42 channels: not a multiple of 4) and a narrow
+    spec's 4x4 block, at rtol 1e-4 / atol 1e-5."""
+    net = (flagship.net.backbone if layer != "narrow_block3"
+           else _random_init(BlazeFaceNet(NARROW, device=cuda), 3))
+    w = list(kbb._leaves(net))
+    rng = np.random.default_rng(len(layer))
+    if layer == "stem":
+        x = preprocess(torch.from_numpy(_corpus(5)).to(cuda))
+        got = kbb.stem_forward_cuda(net, x)
+        want = torch.relu(kbb._stem(x, w[0], w[1]))
+    else:
+        i = int(layer.split("block")[1])
+        sizes = kbb._check_domain(net.spec)
+        h = sizes[i - 1] if i else net.spec.input_size // 2
+        cin = (net.spec.stem_features, *net.spec.block_channels)[i]
+        x = torch.from_numpy(np.abs(rng.normal(0, 1, (3, h, h, cin))).astype(
+            np.float32)).to(cuda)
+        got = kbb.block_forward_cuda(net, i, x)
+        stride = 2 if i in net.spec.downsample_blocks else 1
+        want = kbb._block(x, *w[2 + 4 * i:6 + 4 * i], stride)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("case", ["flagship.head88", "flagship.head96",
@@ -319,24 +356,33 @@ def _se_head(cuda, seed, **fields):
 
 @pytest.mark.parametrize("case", ["flagship88_b1", "flagship96_b1",
                                   "flagship88_b8", "flagship96_b8",
-                                  "rows_n100", "narrow_2x8", "one_head"])
+                                  "flagship88_b128", "flagship96_b128",
+                                  "rows_n1", "rows_n100", "rows_n12800",
+                                  "narrow_2x8", "one_head", "maps_5x5",
+                                  "heads8_kd8", "key_dim32"])
 def test_se_kernel_matches_plain(cuda, flagship, case):
-    """The kernel (another sum order, an online softmax) against its plain
-    version at rtol 1e-4 / atol 1e-5: the flagship's taps at B in {1, 8},
-    T = 1 rows, a 2 x 8 head and a one-head spec on random maps."""
+    """The kernel (3-pass TF32 tensor-core products, another sum order, an
+    online softmax) against its plain version at rtol 1e-4 / atol 1e-5: the
+    flagship's taps at B in {1, 8, 128}, T = 1 rows (the path without
+    attention) at N in {1, 100, 12800}, a 2 x 8 head, a one-head spec, 5x5
+    maps (T = 25: ragged key blocks and query tiles that span images), 8
+    heads of 8 and 2 heads of 32 on random maps."""
     c = 96 if "96" in case or case == "narrow_2x8" else 88
     fields = {"narrow_2x8": dict(num_heads=2, key_dim=8),
-              "one_head": dict(num_heads=1)}.get(case, {})
+              "one_head": dict(num_heads=1),
+              "heads8_kd8": dict(num_heads=8, key_dim=8),
+              "key_dim32": dict(num_heads=2, key_dim=32)}.get(case, {})
     net = _se_head(cuda, 11, in_features=c, **fields)
     if case.startswith("flagship"):
         b = int(case.split("_b")[1])
-        imgs = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"][:b]
         with torch.inference_mode():
-            out = flagship.net(preprocess(torch.from_numpy(imgs).to(cuda)))
+            out = flagship.net(preprocess(torch.from_numpy(_corpus(b))
+                                          .to(cuda)))
         x = out["feat88" if c == 88 else "feat96"].clone()
     else:
-        shape = (100, 1, 1, c) if case == "rows_n100" else (
-            (3, 8, 8, c) if c == 96 else (2, 16, 16, c))
+        shape = ((int(case.split("_n")[1]), 1, 1, c) if case.startswith("rows")
+                 else (3, 5, 5, c) if case == "maps_5x5"
+                 else (3, 8, 8, c) if c == 96 else (2, 16, 16, c))
         x = torch.from_numpy(np.random.default_rng(4).normal(
             0, 1, shape).astype(np.float32)).to(cuda)
     before = kse.se_transformer_forward.launches

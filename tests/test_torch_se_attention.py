@@ -120,7 +120,10 @@ def test_module_matches_jax_apply(form):
 
 def test_pack_is_the_flattened_jax_leaves():
     """Leaf i of the pack is the JAX wrapper's argument i (q/k/v flattened
-    (C, H, D) → (C, H·D), attn_out (H, D, C) → (H·D, C)), row-major."""
+    (C, H, D) → (C, H·D), attn_out (H, D, C) → (H·D, C)), row-major, in the
+    kernel's layout: the matrices it multiplies on the tensor cores zero-
+    padded to (in rounded up to 8, out rounded up to 32), every leaf to a
+    multiple of 4 floats."""
     fields = dict(in_features=96, num_heads=2, key_dim=8)
     params = se_params(fields, 1)
     pack = kse.se_pack(se_net(fields, params))
@@ -134,11 +137,20 @@ def test_pack_is_the_flattened_jax_leaves():
              p["ff2"]["w"], p["ff2"]["b"], p["ln2"]["g"], p["ln2"]["b"],
              p["fc"]["w"], p["fc"]["b"], p["out"]["w"], p["out"]["b"]]
     assert len(pack.offsets) == len(want) == 24
-    assert pack.weights.numel() == sum(w.size for w in want) == sum(
+    assert sum(w.size for w in want) == sum(
         v.size for v in flatten_params(params).values())
-    for off, w in zip(pack.offsets, want):
-        np.testing.assert_array_equal(
-            pack.weights[off:off + w.size].numpy(), w.reshape(-1))
+    ends = list(pack.offsets[1:]) + [pack.weights.numel()]
+    for i, (off, end, w) in enumerate(zip(pack.offsets, ends, want)):
+        assert off % 4 == 0
+        leaf = pack.weights[off:end].numpy()
+        if i in (4, 6, 8, 10, 14, 16, 20, 22):          # tiled matrices
+            k, n = w.shape
+            grid = leaf.reshape(-(-k // 8) * 8, -(-n // 32) * 32)
+            np.testing.assert_array_equal(grid[:k, :n], w)
+            assert not grid[k:].any() and not grid[:, n:].any()
+        else:
+            np.testing.assert_array_equal(leaf[:w.size], w.reshape(-1))
+            assert not leaf[w.size:].any() and leaf.size - w.size < 4
 
 
 def test_leaf_order_matches_the_kernel_enum():
@@ -151,6 +163,16 @@ def test_leaf_order_matches_the_kernel_enum():
     assert names[-1] == "kLeaves" and len(names) - 1 == 24
     assert names[:4] == ["kSe1W", "kSe1B", "kSe2W", "kSe2B"]
     assert names[-3:-1] == ["kOutW", "kOutB"]
+
+
+def test_tile_width_matches_the_kernel():
+    """The pack pads the tiled matrices to the kernel's tile of columns
+    (csrc/se_attention.cu `kTileN`), so that a tile is whole 16-byte rows."""
+    src = open(os.path.join(REPO, "headpose_tpu_torch", "csrc",
+                            "se_attention.cu")).read()
+    assert int(re.search(r"constexpr int kTileN = (\d+);", src)[1]) \
+        == kse.TILE_N
+    assert kse.TILE_N % 4 == 0
 
 
 @pytest.mark.parametrize("fields,message", [
@@ -267,3 +289,70 @@ def test_se_model_profiles(jax_se):
     m = jax_se["map"]["valid"]
     assert np.abs(jax_se["map"]["poses"] - jax_se["survivors"]["poses"]
                   )[m].max() > 1e-2
+
+
+# ------------------------------------------ the kernel's 3-pass TF32 split
+def test_split_tf32_rounds_as_cvt_rna():
+    """hi keeps 10 stored mantissa bits, rounded to nearest with ties away
+    from zero; t - hi is exact; hi + lo holds t to 2^-21 relative."""
+    t = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 3, 4096).astype(np.float32))
+    hi, lo = kse.split_tf32(t)
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert torch.equal(hi + (t - hi), t)
+    assert float(((hi + lo - t).abs() / t.abs()).max()) <= 2.0 ** -21
+    ties = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                         1.0 + 3 * 2.0 ** -11])
+    np.testing.assert_array_equal(kse.split_tf32(ties)[0].numpy(),
+                                  [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                                   1.0 + 2.0 ** -9])
+
+
+SPLIT_CASES = {
+    "head88_16x16": (dict(in_features=88), (2, 16, 16, 88)),
+    "head96_8x8": (dict(in_features=96), (2, 8, 8, 96)),
+    "head88_rows": (dict(in_features=88), (300, 1, 1, 88)),
+    "head96_rows": (dict(in_features=96), (300, 1, 1, 96)),
+}
+
+
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_3xtf32_head_within_kernel_tolerance(name):
+    """The kernel's precision choice, emulated on the CPU: the head with
+    every tensor-core product as lo.hi + hi.lo + hi.hi of TF32 halves, at
+    the flagship's widths, within rtol 1e-4 / atol 1e-5 of the fp32 plain
+    version (measured: at most 0.12 of the tolerance)."""
+    fields, shape = SPLIT_CASES[name]
+    net = se_net(fields, se_params(fields, len(name)))
+    x = torch.from_numpy(np.random.default_rng(len(name)).normal(
+        0, 1, shape).astype(np.float32))
+    want = kse.se_transformer_forward_plain(net, x)
+    with torch.no_grad():
+        got = kse._forward(net, x, kse.matmul_3xtf32)
+    ratio = ((got - want).abs() / (KERNEL_TOL["atol"]
+                                   + KERNEL_TOL["rtol"] * want.abs())).max()
+    assert float(ratio) <= 0.5
+    torch.testing.assert_close(got, want, **KERNEL_TOL)
+
+
+def test_split_bf16_head_misses_kernel_tolerance():
+    """Why not kernel 3's split-bf16 (hi + lo to 2^-17): the same head with
+    its products as 3-pass split-bf16 lies beyond rtol 1e-4 / atol 1e-5 of
+    the fp32 plain version on 16x16x88 maps."""
+    from headpose_tpu_torch.ops.kernels.backbone2 import split_bf16
+
+    def mm(a, b):
+        (a_hi, a_lo), (b_hi, b_lo) = split_bf16(a), split_bf16(b)
+        return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+    fields, shape = SPLIT_CASES["head88_16x16"]
+    net = se_net(fields, se_params(fields, 12))
+    x = torch.from_numpy(np.random.default_rng(12).normal(
+        0, 1, shape).astype(np.float32))
+    want = kse.se_transformer_forward_plain(net, x)
+    with torch.no_grad():
+        got = kse._forward(net, x, mm)
+    ratio = ((got - want).abs() / (KERNEL_TOL["atol"]
+                                   + KERNEL_TOL["rtol"] * want.abs())).max()
+    assert float(ratio) > 1.0

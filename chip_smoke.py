@@ -9,8 +9,10 @@ backbone and pose-head kernels + the postprocess kernel),
 FaceDetector(precision="fast").detect (the split-bf16 segment backbone +
 the pose-head and postprocess kernels), the SE-Transformer model (the
 flagship's backbone with two seeded SE-Transformer heads) through the
-SE-Transformer kernel in both head profiles, and 'unified-best' (99
-ensemble members) under the survivors profile; it exits non-zero on any
+SE-Transformer kernel in both head profiles, 'unified-best' (99 ensemble
+members) under the survivors profile, and the back-camera model
+'unified-back-distilled' (input 256) at "highest" and "fast"; it exits
+non-zero on any
 failure (no phase catches its own failure).  It imports torch, numpy
 and the port: never jax, nor the headpose_tpu package.  Every line it prints
 is one JSON object, except the nvidia-smi line:
@@ -20,16 +22,22 @@ is one JSON object, except the nvidia-smi line:
            source, all started together; ptxas's registers and smem; the
            tensor-core (HMMA) instructions in the SASS of the split-bf16
            and SE-Transformer libraries (the latter must have some);
+  head_routes  how runtime.fused.head_forward runs each served model's
+           heads ("kernel" or "module", from the head's spec);
   kernels  per kernel: holds it against its plain PyTorch version on the
-           card over a set of cases (postprocess_nms bit for bit;
-           backbone_forward at rtol 1e-4 / atol 1e-5; mlp_head_forward at
-           rtol = atol = 1e-5; apply_fused at atol 2e-4 plus 2^-15 of the
-           value (SPLIT_TOL), and at atol 5e-4 against the fp32
-           backbone_forward kernel; se_transformer_forward at rtol 1e-4 /
-           atol 1e-5) and times it (CUDA events) at the main path's shapes
-           beside its plain version and a library yardstick, with each
-           grid's device time (backbone_forward's 17 beside each one's
-           byte floor; se_transformer_forward's by kernel);
+           card over a set of cases (postprocess_nms bit for bit, from the
+           raw network outputs: non-finite inputs,
+           thresholds 0 and 1, max_faces 0, 1, 100 and 256, the back
+           model's 256 anchors; backbone_forward at rtol 1e-4 / atol 1e-5;
+           mlp_head_forward at rtol = atol = 1e-5; apply_fused at SPLIT_TOL
+           (ops/kernels/backbone2.py) on the flagship and the back model,
+           and at atol 5e-4 against the fp32 backbone_forward kernel, or for
+           the back model its cuDNN taps;
+           se_transformer_forward at rtol 1e-4 / atol 1e-5) and times it
+           (CUDA events) at the main path's shapes beside its plain version
+           and a library yardstick, with each grid's device time
+           (backbone_forward's 17 beside each one's byte floor;
+           apply_fused's launches; se_transformer_forward's by kernel);
   parity   flagship_detector().detect on the 112 parity-corpus images
            against the reference detections (set agreement 1.0, pose p99
            and max < 0.1 deg) and on e2e_production.npz; every launch count
@@ -64,12 +72,18 @@ is one JSON object, except the nvidia-smi line:
            detect and detect_fused on 16 corpus frames: the flagship's
            detection sets, poses within 1e-3 deg of the port's CPU
            detector; detect wall time at B=1 and B=128;
+  back     'unified-back-distilled' on the 112 corpus frames resized to
+           256: the "fast" detect in its own launch window (apply_fused,
+           mlp_head_forward and postprocess_nms must launch) against the
+           "highest" one (one detection set, poses within 0.1 deg), each
+           against the port's CPU detector on 16 frames; the B=128
+           network stage and the "fast" detect wall times;
   timing   detect wall time at B=1 and B=128 (host clock around a
            synchronised call) and the per-stage split at B=128;
   then the {"kernels": [...]} summary (launches from the fused phase;
-  apply_fused's from the fast phase, se_transformer_forward's from the se
-  phase's map window), the nvidia-smi line, and last
-  {"ok": true, "device": {...}}.
+  apply_fused's from the fast phase, and its back window's beside them;
+  se_transformer_forward's from the se phase's map window), the
+  nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -77,6 +91,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -94,13 +109,6 @@ IOU_MATCH = 0.5
 FIELDS = ("boxes", "keypoints", "scores", "poses", "valid")
 BACKBONE_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_pallas.py:83-86
 HEAD_TOL = dict(rtol=1e-5, atol=1e-5)       # degrees, another sum order
-# apply_fused against its plain version: the same split-bf16 products, summed
-# in the mma's order.  Wherever the two differ by an ulp before a split, the
-# lo half can round the other way, a step of 2^-17 of the value; on corpus
-# frames the maps reach 22, where one such step is 1.7e-4.  So the bound is
-# 2e-4 (the CPU's, on maps up to 2.7) plus 2^-15 (four steps) of the value;
-# each case also reports whether it is within 2e-4 alone
-SPLIT_TOL = dict(rtol=2.0 ** -15, atol=2e-4)
 # apply_fused against the fp32 backbone: tests/test_pallas.py:111-114
 SPLIT_VS_FP32_TOL = dict(rtol=0.0, atol=5e-4)
 SE_TOL = dict(rtol=1e-4, atol=1e-5)         # tests/test_pallas.py:52
@@ -136,8 +144,10 @@ def fuzz_inputs(b, seed, loc_std=8.0, bias=0.0, quantize=False,
         logits[0, 5] = np.nan
         logits[-1, 7] = -np.inf
         logits[0, 700] = np.inf
+        logits[-1, 9] = 1e30                 # finite, above the largest kept
         loc[0, 3, :] = np.nan
         loc[-1, 11, 2] = np.inf
+        loc[0, 12, 5] = -np.inf
     return logits, loc, pf, pb
 
 
@@ -160,6 +170,12 @@ FUZZ = [
          nonfinite=True),
     dict(name="nonfinite_slab256", b=1, thr=0.0, iou=0.3, mf=256, seed=14,
          nonfinite=True),
+    dict(name="max_faces_0", b=3, thr=0.4, iou=0.3, mf=0, seed=3),
+    dict(name="max_faces_1", b=3, thr=0.4, iou=0.3, mf=1, seed=3),
+    dict(name="back256_b8", b=8, thr=0.4, iou=0.3, mf=100, seed=21,
+         input_size=256),
+    dict(name="back256_nonfinite_threshold_0", b=3, thr=0.0, iou=0.3, mf=256,
+         seed=22, input_size=256, nonfinite=True),
 ]
 
 
@@ -334,73 +350,107 @@ def phase_build() -> dict:
     return built
 
 
-def phase_kernels(dev, anchors, main_inputs, built):
-    """postprocess_nms: the kernel against its twin on the card."""
+def launches_per_call(fn, reps: int = 10) -> float:
+    """CUDA kernels launched by one fn() (torch.profiler over reps warm
+    calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events()) / reps
+
+
+def phase_kernels(dev, anchors, back_anchors, main_inputs, built):
+    """postprocess_nms: the kernel against the plain chain on the card, bit
+    for bit."""
     from headpose_tpu_torch.ops import detection as det
     from headpose_tpu_torch.ops.kernels import postprocess as kern
 
     build_s = built["postprocess_nms"]["build_s"]
     ptxas = built["postprocess_nms"]["ptxas"]
-
+    kw = dict(score_threshold=0.4, iou_threshold=0.3, max_faces=100)
     cases = []
     for case in FUZZ:
         case = dict(case)
         name, thr, iou, mf = (case.pop(k) for k in ("name", "thr", "iou",
                                                     "mf"))
+        size = case.pop("input_size", 128)
         arrays = fuzz_inputs(**case)
         cuda_in = [torch.from_numpy(x).to(dev) for x in arrays]
-        kw = dict(score_threshold=thr, iou_threshold=iou, max_faces=mf)
-        got = kern.postprocess_kernel(*cuda_in, anchors, **kw)
-        want = det.postprocess(*cuda_in, anchors, **kw)
+        ckw = dict(score_threshold=thr, iou_threshold=iou, max_faces=mf,
+                   input_size=size)
+        anc = back_anchors if size == 256 else anchors
+        got = kern.postprocess_kernel(*cuda_in, anc, **ckw)
+        want = det.postprocess(*cuda_in, anc, **ckw)
         torch.cuda.synchronize()
         assert_bitwise(got, want, name)
         cases.append({"case": name, "b": case["b"], "max_faces": mf,
+                      "input_size": size,
                       "survivors": int(want["valid"].sum()),
                       "max_abs_err": max_abs_err(got, want)})
-
-    # the main path's own inputs: flagship outputs for 128 corpus frames
-    kw = dict(score_threshold=0.4, iou_threshold=0.3, max_faces=100)
+    # the main path's own inputs: flagship outputs for 128 frames
     got = kern.postprocess_kernel(*main_inputs, anchors, **kw)
     want = det.postprocess(*main_inputs, anchors, **kw)
     torch.cuda.synchronize()
     assert_bitwise(got, want, "main_path_b128")
-    # the CPU twin (held to JAX bit for bit by the CPU tests): scores may
-    # differ by an ulp of sigmoid between the two devices
-    cpu = det.postprocess(*(t.cpu() for t in main_inputs), anchors.cpu(),
-                          **kw)
-    for k in FIELDS:
-        g, w = got[k].cpu(), cpu[k]
-        if k == "scores":
-            if float((g - w).abs().max()) > 1e-6:
-                raise AssertionError("main_path_b128: scores vs CPU twin")
-        elif not torch.equal(g, w):
-            raise AssertionError(f"main_path_b128: {k} differs from the "
-                                 "CPU twin")
     survivors = int(want["valid"].sum())
     cases.append({"case": "main_path_b128", "b": 128, "max_faces": 100,
                   "survivors": survivors,
                   "max_abs_err": max_abs_err(got, want)})
+    # the CPU chain (held to JAX bit for bit by the CPU tests): scores may
+    # differ by an ulp of sigmoid between the two devices
+    cpu = det.postprocess(*(t.cpu() for t in main_inputs), anchors.cpu(),
+                          **kw)
+    got = kern.postprocess_kernel(*main_inputs, anchors, **kw)
+    for k in FIELDS:
+        g, w = got[k].cpu(), cpu[k]
+        if k == "scores":
+            if float((g - w).abs().max()) > 1e-6:
+                raise AssertionError("main_path_b128: scores vs CPU chain")
+        elif not torch.equal(g, w):
+            raise AssertionError(f"main_path_b128: {k} differs from the "
+                                 "CPU chain")
 
-    # timing at the main path's shapes: B=128, F=100
+    # timing at the main path's shapes, B=128, F=100: the wrapper (host
+    # checks + one launch), the kernel alone (device time), the worst case
+    # (all 896 anchors admitted, suppression defeated: 100 trips an image)
     B, F = 128, 100
-    ms = cuda_ms(lambda: kern.postprocess_kernel(*main_inputs, anchors, **kw),
-                 200)
+    worst = [torch.from_numpy(x).to(dev) for x in fuzz_inputs(B, 99)]
+    wkw = dict(score_threshold=0.0, iou_threshold=0.01, max_faces=F)
+
+    # postprocess_kernel is the drop-in wrapper (it also splits the slab: one
+    # comparison kernel for `valid`); postprocess_slab is what FaceDetector
+    # calls
+    def main_call():
+        return kern.postprocess_kernel(*main_inputs, anchors, **kw)
+
+    def slab_call():
+        return kern.postprocess_slab(*main_inputs, anchors, **kw)
+
+    def worst_call():
+        return kern.postprocess_slab(*worst, anchors, **wkw)
+
+    mine = {"ms": cuda_ms(main_call, 200),
+            "slab_ms": cuda_ms(slab_call, 200),
+            "kernel_only_ms": sum(grid_ms(slab_call, 20).values()),
+            "worst_case_ms": cuda_ms(worst_call, 50),
+            "kernel_only_worst_case_ms": sum(grid_ms(worst_call, 10).values()),
+            "launches_per_call": launches_per_call(slab_call)}
     plain_ms = cuda_ms(lambda: det.postprocess(*main_inputs, anchors, **kw),
                        3)
-    prep = det.prepare_postprocess(*main_inputs, anchors, score_threshold=0.4,
-                                   iou_threshold=0.3, input_size=128)
-    kernel_only_ms = cuda_ms(lambda: kern.nms_slab_cuda(*prep, F), 200)
-    # the worst case: all 896 anchors admitted, suppression defeated, so
-    # every image runs the full 100 trips
-    worst = [torch.from_numpy(x).to(dev) for x in fuzz_inputs(B, 99)]
-    wprep = det.prepare_postprocess(*worst, anchors, score_threshold=0.0,
-                                    iou_threshold=0.01, input_size=128)
-    worst_ms = cuda_ms(lambda: kern.nms_slab_cuda(*wprep, F), 50)
     bytes_moved = (B * 896 * 4 + B * 896 * 16 * 4 + B * 320 * 3 * 4
                    + 896 * 4 * 4                     # inputs, read once
-                   + B * F * (4 + 12 + 1 + 3) * 4 + B * F)   # outputs
-    operations = (2 * B * 896 * 16 * 16              # decode matmul
-                  + survivors * 896 * 13)            # IoU + suppress per trip
+                   + B * F * 21 * 4)                 # the slab, written once
+    # sanitize and threshold (3), the box decode (12) and area (5) of every
+    # anchor; per survivor its slot (16 decodes of 2, a sigmoid of 3) and a
+    # trip: an argmax and an IoU test against each anchor (13 at most)
+    operations = (B * 896 * (3 + 12 + 5)
+                  + survivors * (16 * 2 + 3 + 896 * (1 + 13)))
     bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
     ops_ms = operations / H100_FP32_FLOPS * 1e3
     entry = {
@@ -410,21 +460,26 @@ def phase_kernels(dev, anchors, main_inputs, built):
         "launches": None,                     # filled by the parity phase
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "tolerance": 0.0,
-        "ms": ms, "plain_ms": plain_ms,
+        "ms": mine["ms"], "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,      # no PyTorch call computes greedy NMS
-        "kernel_only_ms": kernel_only_ms,
-        "kernel_only_worst_case_ms": worst_ms,
+        "slab_ms": mine["slab_ms"],
+        "kernel_only_ms": mine["kernel_only_ms"],
+        "kernel_only_worst_case_ms": mine["kernel_only_worst_case_ms"],
+        "worst_case_ms": mine["worst_case_ms"],
+        "launches_per_call": mine["launches_per_call"],
         "bytes": bytes_moved, "operations": operations,
         "shape": {"B": B, "F": F, "survivors": survivors},
         "build_s": build_s, "ptxas": ptxas,
     }
     emit({"phase": "kernels", "kernel": "postprocess_nms", "cases": cases,
-          "ms": ms, "plain_ms": plain_ms, "kernel_only_ms": kernel_only_ms,
-          "kernel_only_worst_case_ms": worst_ms,
+          **mine, "plain_ms": plain_ms,
           "bound_ms": entry["bound_ms"], "build_s": build_s,
           "ptxas": ptxas})
+    if mine["launches_per_call"] != 1.0:
+        raise AssertionError(f"a postprocess call launched "
+                             f"{mine['launches_per_call']} kernels, not 1")
     return entry
 
 
@@ -888,112 +943,173 @@ WIDE_D = dict(block_channels=(24, 28, 32, 36, 42, 48, 56, 64, 72, 80, 88, 96,
 
 
 def segments_work(spec, B):
-    """(tensor-core operations, fp32 operations, bytes) of the four
-    split-bf16 segments for B images: each pointwise multiply-add as 2 on
-    the tensor cores, three times (hi.hi, lo.hi, hi.lo); the depthwise
-    multiply-adds as 2, its bias and the split's subtraction as 1 each, the
-    bias, skip add and ReLU as 1 each, in fp32.  Bytes: the segments' inputs
-    (the stem's output and block 11's) read once, their outputs (the two
-    taps) written once, the weights once (fp32 and the bf16 hi/lo packs)."""
-    from headpose_tpu_torch.ops.kernels.backbone2 import SEGMENTS
+    """(tensor-core operations, fp32 operations, bytes) of the split-bf16
+    segments of `spec`'s plan (kb2.segment_plan) for B images: each
+    pointwise multiply-add as 2 on the tensor cores, three times (hi.hi,
+    lo.hi, hi.lo); the depthwise multiply-adds as 2, its bias and the
+    split's subtraction as 1 each, the bias, skip add and ReLU as 1 each,
+    in fp32.  Bytes: the maps that enter the segments from outside them (the
+    stem's output, an fp32 block's output) read once, the maps that leave
+    them (the two taps, an fp32 block's input) written once, the weights
+    once (fp32 and the bf16 hi/lo packs)."""
+    from headpose_tpu_torch.ops.kernels import backbone2 as kb2
 
+    plan = kb2.segment_plan(spec)
     chans = (spec.stem_features, *spec.block_channels)
-    h, sizes = spec.input_size // 2, []
-    for i in range(len(spec.block_channels)):
+    n = len(spec.block_channels)
+    h, sizes = spec.input_size // 2, []        # the map after each block
+    for i in range(n):
         h //= 2 if i in spec.downsample_blocks else 1
         sizes.append(h)
-    tc = f32 = weights = 0
-    for first, last, _ in SEGMENTS.values():
+    split = {i for first, last, _ in plan.values()
+             for i in range(first, last + 1)}
+    tc = f32 = weights = maps = 0
+    for first, last, h_in in plan.values():
+        if first - 1 not in split:                 # from the stem or fp32
+            maps += h_in * h_in * chans[first]
+        if last == spec.tap88_block or last == n - 1 or last + 1 not in split:
+            maps += sizes[last] ** 2 * chans[last + 1]
         for i in range(first, last + 1):
             cin, cout, pix = chans[i], chans[i + 1], sizes[i] ** 2
             tc += 3 * 2 * pix * cin * cout
             f32 += 2 * 9 * pix * cin + 2 * pix * cin + 3 * pix * cout
             weights += (4 * (10 * cin + cout)
                         + 2 * 2 * (-(-cout // 8) * 8) * (-(-cin // 16) * 16))
-    s2 = spec.input_size // 2
-    maps = (s2 * s2 * chans[0] + sizes[11] ** 2 * chans[12]
-            + sizes[10] ** 2 * chans[11] + sizes[15] ** 2 * chans[16])
     return B * tc, B * f32, 4 * B * maps + weights
 
 
-def phase_kernel_backbone2(dev, flagship, frames128, built):
+def segments_bound(spec, B):
+    """(bound ms, bound by, its terms) of segments_work: bytes over 3.35
+    TB/s, tensor-core operations over 989 TFLOP/s (bf16), fp32 operations
+    over 67 TFLOP/s."""
+    tc_ops, f32_ops, nbytes = segments_work(spec, B)
+    terms = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
+             "tensor-core operations": tc_ops / H100_BF16_FLOPS * 1e3,
+             "fp32 operations": f32_ops / H100_FP32_FLOPS * 1e3}
+    ms = max(terms.values())
+    return ms, "bytes" if terms["bytes"] == ms else "operations", terms
+
+
+def apply_fused_grids(net):
+    """The launches of kb2.apply_fused_cuda(net, .) in order, labelled:
+    the fp32 stem, then per segment each launch's blocks, and each fp32
+    block."""
+    from headpose_tpu_torch.ops.kernels import backbone2 as kb2
+
+    labels = ["stem (fp32)"]
+    plan = kb2.segment_plan(net.spec)
+    for kind, key in kb2._schedule(net.spec):
+        if kind == "fp32":
+            labels.append(f"block{key} (fp32)")
+            continue
+        i = plan[key][0]
+        for size in kb2.segment_launches(net, key):
+            labels.append(f"{key}: block{i}" if size == 1
+                          else f"{key}: blocks {i}-{i + size - 1}")
+            i += size
+    return labels
+
+
+def time_segments(net, x):
+    """The split-bf16 kernel on the main path's shapes for frames x: {"ms":
+    every segment launch alone on its own input, "apply_fused_ms": the
+    whole backbone, "grid_ms": each launch of apply_fused in order}."""
+    from headpose_tpu_torch.ops.kernels import backbone2 as kb2
+
+    pack = kb2.pack_backbone(net)
+    inputs = kb2.segment_inputs(net, x, pack)
+    labels = apply_fused_grids(net)
+    per_grid = grids_in_order(lambda: kb2.apply_fused_cuda(net, x), 10,
+                              len(labels))
+    return {"ms": cuda_ms(lambda: [kb2.run_segment_cuda(net, y, seg, pack)
+                                   for seg, y in inputs.items()], 50),
+            "apply_fused_ms": cuda_ms(lambda: kb2.apply_fused_cuda(net, x),
+                                      50),
+            "grid_ms": dict(zip(labels, per_grid)),
+            "launches_per_call": len(labels)}
+
+
+def phase_kernel_backbone2(dev, flagship, back, frames128, frames256, built):
     """apply_fused: the split-bf16 segment kernels against the plain version
-    (SPLIT_TOL) and against the fp32 backbone_forward kernel (atol 5e-4) on
-    the card, flagship at B in {1, 3, 8, 128} on corpus frames, a narrow
+    (SPLIT_TOL) and against an fp32 backbone (SPLIT_VS_FP32_TOL) on the
+    card: the flagship at B in {1, 3, 8, 128} on corpus frames, a narrow
     random-init spec at B=4 and a random-init spec whose segment D widens to
-    128 channels at B=2; then timed at B=128: the four segment launches
-    alone (the row's ms) and apply_fused whole."""
+    128 channels at B=2 (against the fp32 backbone_forward kernel); the
+    back model (input 256, every block split-bf16) at B in {1, 8, 128} on
+    corpus frames resized to 256 (against its cuDNN BlazeFaceNet taps:
+    kernel #2 does not take that spec).  Then timed at B=128 for both
+    models: the segment launches alone (the row's ms), apply_fused whole,
+    and each launch."""
     from headpose_tpu_torch.models import BlazeFace, BlazeFaceNet
     from headpose_tpu_torch.ops.kernels import backbone as kbb
     from headpose_tpu_torch.ops.kernels import backbone2 as kb2
 
-    net = flagship.net.backbone
+    net, bnet = flagship.net.backbone, back.net.backbone
     narrow = random_init(BlazeFaceNet(BlazeFace(**NARROW2), device=dev), 6)
     wide = random_init(BlazeFaceNet(BlazeFace(**WIDE_D), device=dev), 8)
     xn = torch.from_numpy(np.random.default_rng(1).uniform(
         -1, 1, (4, 128, 128, 3)).astype(np.float32)).to(dev)
     cases, worst = [], {"plain": (0.0, 0.0), "fp32": (0.0, 0.0)}
     with torch.inference_mode():
-        for name, m, x in (("flagship_b1", net, frames128[:1]),
-                           ("flagship_b3", net, frames128[:3]),
-                           ("flagship_b8", net, frames128[:8]),
-                           ("flagship_b128", net, frames128),
-                           ("narrow_b4", narrow, xn),
-                           ("wide_d_b2", wide, frames128[:2])):
-            got = kb2.apply_fused_cuda(m, x)
-            refs = {"plain": (kb2.apply_fused_plain(m, x), SPLIT_TOL),
-                    "fp32": (kbb.backbone_forward_cuda(m, x),
-                             SPLIT_VS_FP32_TOL)}
-            torch.cuda.synchronize()
+        for name, m, x, fp32 in (
+                ("flagship_b1", net, frames128[:1], kbb.backbone_forward_cuda),
+                ("flagship_b3", net, frames128[:3], kbb.backbone_forward_cuda),
+                ("flagship_b8", net, frames128[:8], kbb.backbone_forward_cuda),
+                ("flagship_b128", net, frames128, kbb.backbone_forward_cuda),
+                ("narrow_b4", narrow, xn, kbb.backbone_forward_cuda),
+                ("wide_d_b2", wide, frames128[:2], kbb.backbone_forward_cuda),
+                ("back_b1", bnet, frames256[:1], cudnn_taps),
+                ("back_b8", bnet, frames256[:8], cudnn_taps),
+                ("back_b128", bnet, frames256, cudnn_taps)):
+            want = kb2.apply_fused_plain(m, x)
+            ref = fp32(m, x)
             row = {"case": name, "b": int(x.shape[0])}
-            for key, (want, tol) in refs.items():
-                errs = [close(g, w, **tol) for g, w in zip(got, want)]
-                err, ratio = max(e for e, _ in errs), max(r for _, r in errs)
+            got = kb2.apply_fused_cuda(m, x)
+            torch.cuda.synchronize()
+            for key, (w, tol) in (("plain", (want, kb2.SPLIT_TOL)),
+                                  ("fp32", (ref, SPLIT_VS_FP32_TOL))):
+                errs = [close(g, v, **tol) for g, v in zip(got, w)]
+                err = max(e for e, _ in errs)
+                ratio = max(r for _, r in errs)
                 row[f"max_abs_err_vs_{key}"] = err
                 row[f"tolerance_ratio_vs_{key}"] = ratio
                 worst[key] = (max(worst[key][0], err),
                               max(worst[key][1], ratio))
-            row["within_atol_alone"] = (row["max_abs_err_vs_plain"]
-                                        <= SPLIT_TOL["atol"])
             # the scale of the maps, and how far the plain version itself
             # lies from the fp32 backbone
-            row["max_abs_map"] = max(float(w.abs().max())
-                                     for w in refs["fp32"][0])
-            row["plain_vs_fp32"] = max(
-                float((p - w).abs().max())
-                for p, w in zip(refs["plain"][0], refs["fp32"][0]))
+            row["max_abs_map"] = max(float(w.abs().max()) for w in ref)
+            row["plain_vs_fp32"] = max(float((p - w).abs().max())
+                                       for p, w in zip(want, ref))
             cases.append(row)
-        # the main path's shapes at B=128: the segments' own inputs
-        y0 = kbb.stem_forward_cuda(net, frames128)
-        f88 = kb2.run_segment_cuda(net, kb2.run_segment_cuda(
-            net, kb2.run_segment_cuda(net, y0, "A"), "B"), "C")
-        y11 = kbb.block_forward_cuda(net, 11, f88)
-
-        pack = kb2.pack_backbone(net)    # taken once: the launches alone
-
-        def segments(run):
-            return run(run(run(y0, "A"), "B"), "C"), run(y11, "D")
-
-        ms = cuda_ms(lambda: segments(
-            lambda y, seg: kb2.run_segment_cuda(net, y, seg, pack)), 50)
-        plain_ms = cuda_ms(lambda: segments(
-            lambda y, seg: kb2.run_segment_plain(net, y, seg)), 3)
-        whole_ms = cuda_ms(lambda: kb2.apply_fused_cuda(net, frames128), 50)
+        mine = time_segments(net, frames128)
+        bmine = time_segments(bnet, frames256)
+        inputs = kb2.segment_inputs(net, frames128, kb2.pack_backbone(net))
+        plain_ms = cuda_ms(lambda: [kb2.run_segment_plain(net, y, seg)
+                                    for seg, y in inputs.items()], 3)
         whole_plain_ms = cuda_ms(lambda: kb2.apply_fused_plain(net,
                                                                frames128), 3)
         library_ms = cuda_ms(lambda: cudnn_taps(net, frames128), 50)
+        back_plain_ms = cuda_ms(lambda: kb2.apply_fused_plain(bnet,
+                                                              frames256), 3)
+        back_library_ms = cuda_ms(lambda: cudnn_taps(bnet, frames256), 50)
     B = int(frames128.shape[0])
-    tc_ops, f32_ops, nbytes = segments_work(net.spec, B)
-    times = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
-             "tensor-core operations": tc_ops / H100_BF16_FLOPS * 1e3,
-             "fp32 operations": f32_ops / H100_FP32_FLOPS * 1e3}
-    bound_ms = max(times.values())
-    bound_by = "bytes" if times["bytes"] == bound_ms else "operations"
+    bound_ms, bound_by, times = segments_bound(net.spec, B)
+    back_bound = segments_bound(bnet.spec, B)
+    back_row = {"ms": bmine["ms"], "apply_fused_ms": bmine["apply_fused_ms"],
+                "plain_ms": back_plain_ms, "library_ms": back_library_ms,
+                "bound_ms": back_bound[0], "bound_by": back_bound[1],
+                "bound_terms_ms": back_bound[2], "grid_ms": bmine["grid_ms"],
+                "launches_per_call": bmine["launches_per_call"],
+                "plan": kb2.segment_plan(bnet.spec),
+                "timed": "the four segments (blocks 0-16) at B=128; "
+                         "apply_fused_ms adds the fp32 stem"}
     emit({"phase": "kernels", "kernel": "apply_fused", "cases": cases,
-          "ms": ms, "plain_ms": plain_ms, "apply_fused_ms": whole_ms,
+          "ms": mine["ms"], "plain_ms": plain_ms,
+          "apply_fused_ms": mine["apply_fused_ms"],
           "apply_fused_plain_ms": whole_plain_ms, "library_ms": library_ms,
-          "bound_ms": bound_ms, "bound_terms_ms": times})
-    for key, tol in (("plain", SPLIT_TOL), ("fp32", SPLIT_VS_FP32_TOL)):
+          "bound_ms": bound_ms, "bound_terms_ms": times,
+          "grid_ms": mine["grid_ms"], "back256": back_row})
+    for key, tol in (("plain", kb2.SPLIT_TOL), ("fp32", SPLIT_VS_FP32_TOL)):
         if worst[key][1] > 1.0:
             raise AssertionError(f"apply_fused disagrees with the {key} "
                                  f"version beyond {tol}: {cases}")
@@ -1002,23 +1118,25 @@ def phase_kernel_backbone2(dev, flagship, frames128, built):
         "source": "headpose_tpu_torch/csrc/backbone2.cu",
         "replaces": "headpose_tpu/ops/pallas/backbone2.py:334",
         "launches": None,                     # filled by the fast phase
-        "max_abs_err": worst["plain"][0], "tolerance": SPLIT_TOL,
+        "max_abs_err": worst["plain"][0], "tolerance": kb2.SPLIT_TOL,
         "tolerance_ratio": worst["plain"][1],
-        "max_abs_err_vs_fp32_kernel": worst["fp32"][0],
-        "tolerance_vs_fp32_kernel": SPLIT_VS_FP32_TOL,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "max_abs_err_vs_fp32": worst["fp32"][0],
+        "tolerance_vs_fp32": SPLIT_VS_FP32_TOL,
+        "ms": mine["ms"], "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
         "library": "sequence of calls, not one, of another function: the "
                    "port's cuDNN fp32 BlazeFaceNet stem + 16 blocks to the "
                    "two NHWC taps (no PyTorch call computes a 3-pass "
                    "split-bf16 product)",
-        "timed": "the four segment launches (blocks 0-10, 12-15) at B=128; "
-                 "apply_fused_ms adds the fp32 stem and block 11",
-        "apply_fused_ms": whole_ms, "apply_fused_plain_ms": whole_plain_ms,
-        "bound_terms_ms": times, "tensor_core_operations": tc_ops,
-        "fp32_operations": f32_ops, "bytes": nbytes,
-        "grids_per_launch": 2 + sum(last - first + 1 for first, last, _
-                                    in kb2.SEGMENTS.values()),
+        "timed": "the four segments (blocks 0-10, 12-15) at B=128, each "
+                 "on its own input; apply_fused_ms adds the fp32 stem and "
+                 "block 11",
+        "apply_fused_ms": mine["apply_fused_ms"],
+        "apply_fused_plain_ms": whole_plain_ms,
+        "grid_ms": mine["grid_ms"],
+        "grids_per_launch": mine["launches_per_call"],
+        "back256": back_row,
+        "bound_terms_ms": times,
         "shape": {"B": B, "S": net.spec.input_size},
         "build_s": built["apply_fused"]["build_s"],
         "ptxas": built["apply_fused"]["ptxas"],
@@ -1493,6 +1611,80 @@ def phase_unified_best(flagship, corpus):
     emit(report)
 
 
+BACK_POSE_TOL_DEG = 1e-3       # "highest" on the card vs the CPU detector
+BACK_FAST_POSE_TOL_DEG = 0.02  # "fast" on the card vs the CPU's "fast"
+
+
+def phase_back(back, corpus, frames256):
+    """'unified-back-distilled' (input 256: the corpus frames resized by the
+    preprocess) on the card: detect at "highest" (cuDNN) and at "fast"
+    (every block through the split-bf16 kernel) on the 112 corpus frames,
+    the fast path in its own launch window (apply_fused, mlp_head_forward
+    and postprocess_nms must launch); the two give one detection set, poses
+    within the 0.1 deg budget of each other; each against the port's CPU
+    detector at its precision on 16 frames; then the B=128 network stage
+    and the "fast" detect wall times."""
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+    from headpose_tpu_torch.runtime.fused import fused_network, head_route
+
+    spec, params = back
+    fast = FaceDetector(spec, params, precision="fast")
+    highest = FaceDetector(spec, params)
+    imgs = corpus["imgs"]
+    reset_launches()                         # the back path's window opens
+    got = fast.detect(imgs)
+    launches = read_launches()               # ... and closes
+    if min(launches[k] for k in ("apply_fused", "mlp_head_forward",
+                                 "postprocess_nms")) < 1:
+        raise AssertionError(f"the back model's fast detect missed a "
+                             f"kernel: {launches}")
+    want = highest.detect(imgs)
+    report = {"phase": "back", "model": "unified-back-distilled",
+              "input_size": spec.backbone.input_size, "images": len(imgs),
+              "launches": launches,
+              "head_routes": [head_route(h) for h in (fast.net.head88,
+                                                      fast.net.head96)],
+              "detections": int(want.valid.sum()),
+              "fast_vs_highest": pose_gap(got, want, dict(
+                  rtol=0.0, atol=PARITY_BUDGET_DEG))}
+    if report["detections"] < len(imgs) // 2:
+        raise AssertionError(f"the back model found {report['detections']} "
+                             f"faces on {len(imgs)} frames")
+    for name, det, tol in (("highest", highest, BACK_POSE_TOL_DEG),
+                           ("fast", fast, BACK_FAST_POSE_TOL_DEG)):
+        cpu = FaceDetector(spec, params, device="cpu", precision=name)
+        report[f"{name}_vs_cpu_16"] = pose_gap(
+            det.detect(imgs[:16]), cpu.detect(imgs[:16]),
+            dict(rtol=0.0, atol=tol))
+    with torch.inference_mode():
+        report["b128_network_ms_median"] = {
+            "fast": median_ms(lambda: fused_network(fast.net, frames256,
+                                                    "fast"), 20),
+            "cudnn": median_ms(lambda: fast.net(frames256), 20)}
+    imgs128 = np.concatenate([imgs, imgs[:16]])
+    report["fast_detect_wall"] = detect_walls(fast.detect, imgs128)
+    emit(report)
+    for key in ("fast_vs_highest", "highest_vs_cpu_16", "fast_vs_cpu_16"):
+        if report[key]["tolerance_ratio"] > 1.0:
+            raise AssertionError(f"back {key}: {report[key]}")
+    return launches
+
+
+def head_routes() -> dict:
+    """runtime.fused.head_route of both heads of every model served here."""
+    from headpose_tpu_torch.models.heads import head_net
+    from headpose_tpu_torch.pretrained import (BEST, FLAGSHIP, UNIFIED_BEST,
+                                               load_pretrained)
+    from headpose_tpu_torch.runtime.fused import head_route
+
+    specs = {name: load_pretrained(name)[0] for name in (
+        FLAGSHIP, BEST, UNIFIED_BEST, "unified-back-distilled")}
+    specs["se_transformer (seeded)"] = se_model()[0]
+    return {name: {h: head_route(head_net(getattr(spec, h), device="cpu"))
+                   for h in ("head88", "head96")}
+            for name, spec in specs.items()}
+
+
 def phase_timing(flagship, corpus, card):
     from headpose_tpu_torch.ops.image import preprocess
     from headpose_tpu_torch.ops.kernels import postprocess_kernel
@@ -1528,7 +1720,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from headpose_tpu_torch.pretrained import best_detector, flagship_detector
+    from headpose_tpu_torch.pretrained import (best_detector,
+                                               flagship_detector,
+                                               load_pretrained)
+    from headpose_tpu_torch.runtime.detector import FaceDetector
 
     card = nvidia_smi()
     dev = torch.device("cuda")
@@ -1544,20 +1739,29 @@ def main() -> int:
     built = phase_build()
     flagship = flagship_detector()            # TF32 off from here on
     best = best_detector()
+    with warnings.catch_warnings():           # a synthetic bring-up model
+        warnings.simplefilter("ignore")
+        back_model = load_pretrained("unified-back-distilled")
+    back = FaceDetector(*back_model)
+    emit({"phase": "head_routes", **head_routes()})
 
     # the main path's own inputs: 128 corpus frames, and the network's
-    # outputs for them
+    # outputs for them; the same frames resized to the back model's 256
     imgs128 = np.concatenate([corpus["imgs"], corpus["imgs"][:16]])
     from headpose_tpu_torch.ops.image import preprocess
     with torch.inference_mode():
         frames128 = preprocess(torch.from_numpy(imgs128).to(dev))
+        frames256 = preprocess(torch.from_numpy(imgs128).to(dev),
+                               256).contiguous()     # the resize's view
         o = flagship.net(frames128)
     main_inputs = [o["scores"], o["loc"], o["pose_front"], o["pose_back"]]
 
-    entries = [phase_kernels(dev, flagship.anchors, main_inputs, built),
+    entries = [phase_kernels(dev, flagship.anchors, back.anchors, main_inputs,
+                             built),
                phase_kernel_backbone(dev, flagship, frames128, built),
                phase_kernel_head(dev, flagship, best, frames128, built),
-               phase_kernel_backbone2(dev, flagship, frames128, built),
+               phase_kernel_backbone2(dev, flagship, back, frames128,
+                                      frames256, built),
                phase_kernel_se(dev, flagship, frames128, built)]
     detect_launches = phase_parity(flagship, corpus, production)
     phase_stress(flagship, stress)
@@ -1568,12 +1772,14 @@ def main() -> int:
                                frames128)
     se_launches, se_report = phase_se(corpus)
     phase_unified_best(flagship, corpus)
+    back_launches = phase_back(back_model, corpus, frames256)
     phase_timing(flagship, corpus, card)
 
     for entry in entries[:3]:
         entry["launches"] = fused_launches[entry["name"]]
     entries[0]["launches_detect"] = detect_launches["postprocess_nms"]
     entries[3]["launches"] = fast_launches["apply_fused"]
+    entries[3]["launches_back_window"] = back_launches["apply_fused"]
     entries[4]["launches"] = se_launches["se_transformer_forward"]
     entries[4]["launches_se_windows"] = {
         name: se_report[name]["launches"]["se_transformer_forward"]

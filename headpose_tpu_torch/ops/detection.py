@@ -10,14 +10,13 @@ Port of headpose_tpu/ops/detection.py.  The reference postprocess is
   * pose lookup: anchor → grid cell of its feature map; front anchors map
     2-per-cell on the 16x16 map, back anchors 6-per-cell on 8x8.
 
-It is split in three so that the twin and the kernel share every step
-except the selection itself:
+It is a chain of three steps, which `ops.kernels.postprocess` computes on
+the card in one kernel launch:
 
   prepare_postprocess  sanitize, thresholds rounded to float32 once, decode;
   nms_slab_plain       greedy selection + extraction into a (B, F, 21) slab
                        [16 decoded | 3 pose | logit | valid] — a plain loop
-                       over the batch; `ops.kernels.postprocess` holds the
-                       CUDA kernel that computes the same slab;
+                       over the batch;
   finish_postprocess   in place, the logit channel becomes the score;
   split_slab           the finished slab → {boxes, keypoints, scores, poses,
                        valid}, views of the slab but for valid.
@@ -38,8 +37,9 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["MAX_FACES", "KEYPOINTS", "NUM_ANCHORS", "NUM_ANCHORS_FRONT",
-           "SLAB", "score_threshold_to_logit", "sanitize_model_outputs",
+__all__ = ["MAX_FACES", "MAX_LOGIT", "KEYPOINTS", "NUM_ANCHORS",
+           "NUM_ANCHORS_FRONT", "SLAB", "score_threshold_to_logit",
+           "sanitize_model_outputs",
            "anchor_cells", "prepare_postprocess", "nms_slab_plain",
            "finish_postprocess", "split_slab", "postprocess",
            "cell_index_maps", "gather_survivor_features"]
@@ -75,6 +75,11 @@ def score_threshold_to_logit(score_threshold: float) -> float:
     return float(np.log(score_threshold / (1.0 - score_threshold)))
 
 
+# the largest finite logit the postprocess keeps: float32(log(FLT_MAX)),
+# whose float32 sigmoid is 1.0
+MAX_LOGIT = _f32(np.log(np.finfo(np.float32).max))
+
+
 def sanitize_model_outputs(scores_logits: torch.Tensor, loc: torch.Tensor):
     """Clamp non-finite backbone outputs before any selection arithmetic:
 
@@ -83,9 +88,8 @@ def sanitize_model_outputs(scores_logits: torch.Tensor, loc: torch.Tensor):
       * nan logits → -inf (fails every threshold, like the reference's
         False comparison on nan);
       * non-finite loc entries → 0 (the anchor decodes to its center box)."""
-    big = _f32(np.log(np.finfo(np.float32).max))
     lg = torch.where(torch.isnan(scores_logits), -torch.inf,
-                     torch.clamp(scores_logits, max=big))
+                     torch.clamp(scores_logits, max=MAX_LOGIT))
     lc = torch.where(torch.isfinite(loc), loc, 0.0)
     return lg, lc
 
@@ -159,7 +163,7 @@ def _check_shapes(scores_logits, loc, pose_front, pose_back, anchors):
 def prepare_postprocess(scores_logits, loc, pose_front, pose_back, anchors, *,
                         score_threshold: float, iou_threshold: float,
                         input_size: int):
-    """The prologue shared by the twin and the kernel.
+    """The prologue of the plain chain (the kernel does the same inside).
 
     Returns (logits (B, A), decoded (B, A, 16), pose_front, pose_back,
     logit_thr, iou_thr): sanitized logits, decoded boxes + keypoints, the
@@ -221,8 +225,9 @@ def nms_slab_plain(logits: torch.Tensor, decoded: torch.Tensor,
 
 
 def finish_postprocess(slab: torch.Tensor) -> torch.Tensor:
-    """The epilogue shared by the twin and the kernel, in place on the
-    (B, F, 21) slab: the logit channel becomes sigmoid(logit) * valid."""
+    """The epilogue of the plain chain (the kernel does the same inside),
+    in place on the (B, F, 21) slab: the logit channel becomes
+    sigmoid(logit) * valid."""
     slab[..., C_LOGIT] = torch.sigmoid(slab[..., C_LOGIT]) * slab[..., C_VALID]
     return slab
 

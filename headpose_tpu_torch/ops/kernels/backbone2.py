@@ -2,36 +2,50 @@
 
 `apply_fused(net, x)` is the counterpart of the TPU function
 headpose_tpu/ops/pallas/backbone2.py::apply_fused: the backbone of `net` (a
-`BlazeFaceNet`) over x (B, 128, 128, 3) float32 NHWC, returning NHWC
-(feat88 (B, 16, 16, C88), feat96 (B, 8, 8, C96)).  The stem and block 11 run
-in fp32; the other blocks run in four segments (`SEGMENTS`, `run_segment`)
-whose pointwise 1x1 is a 3-pass split-bf16 product with fp32 accumulation
-(x_hi.w_hi + x_lo.w_hi + x_hi.w_lo, `split_bf16`) and whose depthwise stays
-in fp32.  That is the TPU's 'high' matmul precision, the precision of the
+`BlazeFaceNet`) over x (B, S, S, 3) float32 NHWC, returning NHWC (feat88,
+feat96: the tap block's output and the last block's).  The stem runs in
+fp32; the blocks run in segments (`segment_plan`, `run_segment`) whose
+pointwise 1x1 is a 3-pass split-bf16 product with fp32 accumulation (x_hi.
+w_hi + x_lo.w_hi + x_hi.w_lo, `split_bf16`) and whose depthwise stays in
+fp32.  That is the TPU's 'high' matmul precision, the precision of the
 detector's precision='fast' mode.
+
+The plan follows the spec.  A spec inside the JAX function's own domain (the
+front topology: input 128, 16 blocks, downsample blocks (2, 5, 11), tap
+block 10, block 11 of 89-96 channels) takes its segment table, `SEGMENTS`:
+A 0-2, B 3-5, C 6-10, D 12-15, with block 11 in fp32 as the JAX function
+runs it.  Any other spec within the kernel's limits (a square input that
+every stride-2 layer halves exactly, channels that never narrow, at most 128
+channels) runs every block split-bf16, in segments that start at the first
+block, at each downsample block and after the tap: the JAX detector's "fast"
+composes such a spec densely with every block at 'high'
+(headpose_tpu/runtime/detector.py:268-278), so no block of it has an fp32
+counterpart there.  The back-camera topology (input 256) thus runs A 0-2
+from a 128x128 map, B 3-5, C 6-11 and D 12-16.  A spec outside the limits
+raises ValueError.
 
 A tensor on the CPU goes through the plain versions (`run_segment_plain`,
 `apply_fused_plain`), which repeat the arithmetic in plain torch ops; a
 tensor on a CUDA device goes through the hand-written kernels, or the call
 raises.  Nothing else selects between the two.  On the card the stem and
-block 11 are launches of csrc/backbone.cu (`backbone.stem_forward_cuda`,
-`backbone.block_forward_cuda`) and each segment block one launch of
-csrc/backbone2.cu.
+any fp32 block are launches of csrc/backbone.cu (`backbone.stem_forward_
+cuda`, `backbone.block_forward_cuda`) and each segment one call of
+csrc/backbone2.cu: a persistent launch per large-map or stride-2 block, and
+one launch for each run of stride-1 blocks whose map fits in shared memory
+(`segment_launches`).
 
 The JAX function's lane coalescing (B % 8 == 0), its channel-major flat-gap
 and parity-plane layouts, its block-diagonal I4 (x) W weight planes and its
 `interpret` flag are TPU and Mosaic knobs with no counterpart here: any
-B >= 1 is taken.  Its domain is kept, and a spec outside it raises
-ValueError: input 128, 16 blocks, downsample blocks (2, 5, 11), tap block
-10, channels that never narrow, block 11 of 89-96 channels (the reference
-fixes segment D's input at 96 rows, `backbone2.py:489`), and at most 128
-channels (the kernel's limit).
+B >= 1 is taken.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
+import string
 
 import torch
 
@@ -40,13 +54,24 @@ from ...utils.build import NVCC_FLAGS_FMA, CudaLibrary
 from . import backbone as kbb
 from .packing import Packed, c_ints, packed, stamp
 
-__all__ = ["SEGMENTS", "split_bf16", "pack_backbone", "SegmentPack",
-           "run_segment", "run_segment_plain", "run_segment_cuda",
-           "apply_fused", "apply_fused_plain", "apply_fused_cuda", "LIBRARY"]
+__all__ = ["SEGMENTS", "SPLIT_TOL", "segment_plan", "split_bf16",
+           "pack_backbone", "SegmentPack", "run_segment", "run_segment_plain",
+           "run_segment_cuda", "segment_launches", "segment_inputs",
+           "apply_fused",
+           "apply_fused_plain", "apply_fused_cuda", "LIBRARY"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc", "backbone2.cu")
 MAX_CHANNELS = 128   # 16 n-tiles of 8 output channels in registers
+
+# How far two implementations of the split-bf16 arithmetic may lie apart:
+# wherever they differ by an ulp before a split (another sum order), the lo
+# half can round the other way, a step of 2^-17 of the value.  The JAX
+# function's own Pallas segments lie up to 1.57e-4 from the plain version
+# on the parity corpus's largest maps (21.9, where one step is 1.7e-4;
+# tests/test_torch_backbone2.py): within a bare 2e-4, but with room for one
+# step only.  So the bound is 2e-4 plus four steps (2^-15) of the value.
+SPLIT_TOL = dict(rtol=2.0 ** -15, atol=2e-4)
 
 # Segment: (first block, last block, input resolution), as the JAX table
 # (backbone2.py:93-98).  Block 11 and the stem run outside, in fp32.
@@ -56,14 +81,16 @@ SEGMENTS = {
     "C": (6, 10, 16),
     "D": (12, 15, 8),
 }
-_BLOCKS = tuple(i for first, last, _ in SEGMENTS.values()
-                for i in range(first, last + 1))
 
 
 def _configure(lib: ctypes.CDLL) -> None:
     fn = lib.headpose_backbone2_segment
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.headpose_backbone2_groups
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
 
@@ -74,28 +101,88 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _check_domain(spec: BlazeFace) -> None:
-    """ValueError when the spec lies outside the reference's domain."""
-    want = dict(input_size=128, downsample_blocks=(2, 5, 11), tap88_block=10)
-    for name, value in want.items():
-        if getattr(spec, name) != value:
-            raise ValueError(f"apply_fused serves {name}={value} (the JAX "
-                             f"function's segments), got "
-                             f"{getattr(spec, name)}")
-    if len(spec.block_channels) != 16:
-        raise ValueError(f"apply_fused serves 16 blocks, got "
-                         f"{len(spec.block_channels)}")
-    chans = (spec.stem_features, *spec.block_channels)
+def _channels(spec: BlazeFace) -> tuple[int, ...]:
+    return (spec.stem_features, *spec.block_channels)
+
+
+def _in_sizes(spec: BlazeFace) -> list[int]:
+    """The map size in front of each block."""
+    sizes, h = [], spec.input_size // 2
+    for i in range(len(spec.block_channels)):
+        sizes.append(h)
+        h //= 2 if i in spec.downsample_blocks else 1
+    return sizes
+
+
+def _check_limits(spec: BlazeFace) -> None:
+    """ValueError when the spec lies outside the kernel's limits."""
+    s, n = spec.input_size, len(spec.block_channels)
+    if s <= 0 or s % 2 ** (1 + len(spec.downsample_blocks)):
+        raise ValueError(f"apply_fused needs an input size that the stem and "
+                         f"every downsample block halve exactly, got {s} for "
+                         f"{len(spec.downsample_blocks)} downsample blocks")
+    if not 0 <= spec.tap88_block < n:
+        raise ValueError(f"tap88_block {spec.tap88_block} is not one of the "
+                         f"{n} blocks")
+    chans = _channels(spec)
     for i, (cin, cout) in enumerate(zip(chans, chans[1:])):
         if cout < cin:
             raise ValueError(f"block {i} narrows {cin} -> {cout}")
-    if not 89 <= spec.block_channels[11] <= 96:
-        raise ValueError(f"apply_fused serves block 11 of 89-96 channels "
-                         f"(segment D's input is 96 rows), got "
-                         f"{spec.block_channels[11]}")
     if max(chans) > MAX_CHANNELS:
         raise ValueError(f"apply_fused takes at most {MAX_CHANNELS} channels "
                          "per layer")
+
+
+def _reference_domain(spec: BlazeFace) -> bool:
+    """Does the JAX apply_fused's own segment table serve this spec?"""
+    return (spec.input_size == 128 and spec.downsample_blocks == (2, 5, 11)
+            and spec.tap88_block == 10 and len(spec.block_channels) == 16
+            and 89 <= spec.block_channels[11] <= 96)
+
+
+@functools.lru_cache(maxsize=64)
+def segment_plan(spec: BlazeFace) -> dict[str, tuple[int, int, int]]:
+    """The segments of the split-bf16 backbone of `spec`, in order: name ->
+    (first block, last block, input resolution).  Blocks in no segment run
+    in fp32.  `SEGMENTS` on the JAX function's domain; otherwise every
+    block, split at the downsample blocks and after the tap.  ValueError
+    outside the kernel's limits."""
+    _check_limits(spec)
+    if _reference_domain(spec):
+        return dict(SEGMENTS)
+    sizes, n = _in_sizes(spec), len(spec.block_channels)
+    starts = [i for i in range(n) if i == 0 or i in spec.downsample_blocks
+              or i == spec.tap88_block + 1]
+    ends = starts[1:] + [n]
+    return {name: (first, end - 1, sizes[first])
+            for name, first, end in zip(string.ascii_uppercase, starts, ends)}
+
+
+def _schedule(spec: BlazeFace) -> list[tuple[str, int]]:
+    """The backbone after the stem, in block order: ("segment", name) or
+    ("fp32", block) steps.  Every step ends at or before the tap."""
+    plan = segment_plan(spec)
+    first = {f: name for name, (f, _, _) in plan.items()}
+    steps, i = [], 0
+    while i < len(spec.block_channels):
+        if i in first:
+            steps.append(("segment", first[i]))
+            i = plan[first[i]][1] + 1
+        else:
+            steps.append(("fp32", i))
+            i += 1
+    return steps
+
+
+def _last_block(spec: BlazeFace, step: tuple[str, int]) -> int:
+    kind, key = step
+    return segment_plan(spec)[key][1] if kind == "segment" else key
+
+
+def _split_blocks(spec: BlazeFace) -> tuple[int, ...]:
+    """The split-bf16 blocks of the plan, in order."""
+    return tuple(i for first, last, _ in segment_plan(spec).values()
+                 for i in range(first, last + 1))
 
 
 def split_bf16(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -108,9 +195,11 @@ def split_bf16(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 # ------------------------------------------------------------------ weights
 def _bf16_leaves(net: BlazeFaceNet):
-    """Per segment block: w_hi and w_lo, (Np, Kp) [out][in], zero-padded to
-    the mma tile (Np = Cout rounded up to 8, Kp = Cin rounded up to 16)."""
-    for i in _BLOCKS:
+    """Per split-bf16 block: w_hi and w_lo, (Np, Kp) [out][in], zero-padded
+    to the mma tile (Np = Cout rounded up to 8, Kp = Cin rounded up to 16):
+    each row is a whole number of 16-byte chunks, and each leaf starts at a
+    multiple of 8 elements, so the kernel stages them with 16-byte copies."""
+    for i in _split_blocks(net.spec):
         w = net.blocks[i].pw.weight[:, :, 0, 0]
         cout, cin = w.shape
         pad = w.new_zeros((_round_up(cout, 8), _round_up(cin, 16)))
@@ -124,13 +213,13 @@ def _bf16_leaves(net: BlazeFaceNet):
 class SegmentPack:
     """The backbone's weights in the kernels' layout.  `f32` is the fp32
     backbone's pack (`backbone.backbone_pack`: the stem, then per block dw
-    (3, 3, Cin), dw bias, pw (Cin, Cout), pw bias): the stem, block 11 and
-    the segments' depthwise taps and biases come from it.  `bf16` holds
-    w_hi and w_lo per segment block, in the order of `SEGMENTS`' blocks
-    (0-10, 12-15)."""
+    (3, 3, Cin), dw bias, pw (Cin, Cout), pw bias): the stem, the fp32
+    blocks and the segments' depthwise taps and biases come from it.
+    `bf16` holds w_hi and w_lo per split-bf16 block, in `blocks`' order."""
     f32: Packed
     bf16: Packed
-    shapes: tuple[tuple[int, int], ...]    # (Np, Kp) per segment block
+    blocks: tuple[int, ...]                # the split-bf16 blocks
+    shapes: tuple[tuple[int, int], ...]    # (Np, Kp) per split-bf16 block
 
     def f32_offsets(self, block: int) -> tuple[int, int, int]:
         """Where block `block`'s dw, dw bias and pw bias start in `f32`."""
@@ -146,11 +235,11 @@ class SegmentPack:
 
     def bf16_offsets(self, block: int) -> tuple[int, int]:
         """Where block `block`'s w_hi and w_lo start in `bf16`."""
-        j = _BLOCKS.index(block)
+        j = self.blocks.index(block)
         return self.bf16.offsets[2 * j], self.bf16.offsets[2 * j + 1]
 
     def _w(self, block: int, part: int) -> torch.Tensor:
-        n, k = self.shapes[_BLOCKS.index(block)]
+        n, k = self.shapes[self.blocks.index(block)]
         off = self.bf16_offsets(block)[part]
         return self.bf16.weights[off:off + n * k].view(n, k)
 
@@ -158,24 +247,25 @@ class SegmentPack:
 def pack_backbone(net: BlazeFaceNet) -> SegmentPack:
     """`net`'s weights for the split-bf16 backbone, each pack built once per
     module (re-packed when a parameter changes; `packing.packed`)."""
-    chans = (net.spec.stem_features, *net.spec.block_channels)
+    chans = _channels(net.spec)
+    blocks = _split_blocks(net.spec)
     shapes = tuple((_round_up(chans[i + 1], 8), _round_up(chans[i], 16))
-                   for i in _BLOCKS)
+                   for i in blocks)
     current = stamp(net)             # one walk of the parameters for both
     return SegmentPack(kbb.backbone_pack(net, current),
                        packed(net, _bf16_leaves, torch.bfloat16, current),
-                       shapes)
+                       blocks, shapes)
 
 
 # ------------------------------------------------------------ plain version
 def _check_segment_input(net: BlazeFaceNet, x: torch.Tensor,
                          seg: str) -> tuple[int, int, int, int]:
     """(first, last, H, Cin) of a segment, or ValueError."""
-    _check_domain(net.spec)
-    if seg not in SEGMENTS:
-        raise ValueError(f"seg must be one of {sorted(SEGMENTS)}, got {seg!r}")
-    first, last, h = SEGMENTS[seg]
-    cin = (net.spec.stem_features, *net.spec.block_channels)[first]
+    plan = segment_plan(net.spec)
+    if seg not in plan:
+        raise ValueError(f"seg must be one of {sorted(plan)}, got {seg!r}")
+    first, last, h = plan[seg]
+    cin = _channels(net.spec)[first]
     if x.ndim != 4 or tuple(x.shape[1:]) != (h, h, cin):
         raise ValueError(f"segment {seg} takes (B, {h}, {h}, {cin}), got "
                          f"{tuple(x.shape)}")
@@ -210,42 +300,71 @@ def run_segment_plain(net: BlazeFaceNet, x: torch.Tensor, seg: str):
 
 
 def _check_input(net: BlazeFaceNet, x: torch.Tensor) -> None:
-    _check_domain(net.spec)
-    if x.ndim != 4 or tuple(x.shape[1:]) != (128, 128, 3):
-        raise ValueError(f"x must be (B, 128, 128, 3), got {tuple(x.shape)}")
+    segment_plan(net.spec)
+    s = net.spec.input_size
+    if x.ndim != 4 or tuple(x.shape[1:]) != (s, s, 3):
+        raise ValueError(f"x must be (B, {s}, {s}, 3), got {tuple(x.shape)}")
     if x.dtype != torch.float32:
         raise ValueError(f"x must be float32, got {x.dtype}")
 
 
+def _compose(net: BlazeFaceNet, y: torch.Tensor, segment, fp32_block):
+    """The blocks after the stem, as `_schedule` orders them: (feat88,
+    feat96)."""
+    feat88 = None
+    for step in _schedule(net.spec):
+        kind, key = step
+        y = segment(y, key) if kind == "segment" else fp32_block(y, key)
+        if _last_block(net.spec, step) == net.spec.tap88_block:
+            feat88 = y
+    return feat88, y
+
+
 @torch.no_grad()
 def apply_fused_plain(net: BlazeFaceNet, x: torch.Tensor):
-    """The whole backbone as the JAX apply_fused composes it, in plain torch
-    ops: the fp32 stem, segments A-C, block 11 in fp32, segment D.  It does
-    not call `BlazeFaceNet.forward`."""
+    """The whole backbone as the plan composes it, in plain torch ops: the
+    fp32 stem, then each segment, and each block outside the segments in
+    fp32 (on the front topology: segments A-C, block 11, segment D, as the
+    JAX apply_fused).  It does not call `BlazeFaceNet.forward`."""
     _check_input(net, x)
     w = list(kbb._leaves(net))
-    y = torch.relu(kbb._stem(x, w[0], w[1]))
-    for seg in "ABC":
-        y = run_segment_plain(net, y, seg)
-    feat88 = y
-    y = kbb._block(y, *w[2 + 4 * 11:6 + 4 * 11], _stride(net, 11))
-    return feat88, run_segment_plain(net, y, "D")
+    return _compose(
+        net, torch.relu(kbb._stem(x, w[0], w[1])),
+        lambda y, seg: run_segment_plain(net, y, seg),
+        lambda y, i: kbb._block(y, *w[2 + 4 * i:6 + 4 * i], _stride(net, i)))
 
 
 # ------------------------------------------------------------------ kernel
+def _segment_args(net: BlazeFaceNet, seg: str):
+    first, last, h = segment_plan(net.spec)[seg]
+    blocks = range(first, last + 1)
+    return (blocks, net.spec.block_channels[first:last + 1],
+            [_stride(net, i) for i in blocks], h, _channels(net.spec)[first])
+
+
+def segment_launches(net: BlazeFaceNet, seg: str) -> list[int]:
+    """The kernel launches of segment `seg` on the card: the number of
+    blocks each one runs, in order (a run of stride-1 blocks whose map fits
+    in a CTA's shared memory is one launch of chain_kernel; every other
+    block one of block_kernel).  Builds the library."""
+    _, channels, strides, h, cin = _segment_args(net, seg)
+    sizes = (ctypes.c_int * len(channels))()
+    n = LIBRARY.load().headpose_backbone2_groups(
+        c_ints(channels), c_ints(strides), len(channels), h, cin, sizes)
+    return list(sizes[:n])
+
+
 @torch.no_grad()
 def run_segment_cuda(net: BlazeFaceNet, x: torch.Tensor, seg: str,
                      pack: SegmentPack | None = None) -> torch.Tensor:
-    """The kernel: what `run_segment_plain` computes, on a CUDA device, one
-    launch per block on the current stream, without synchronising.  `pack`
-    is `pack_backbone(net)`, when the caller holds it.  Raises on anything
-    the kernel does not take, and when a launch fails."""
-    first, last, h, cin = _check_segment_input(net, x, seg)
+    """The kernel: what `run_segment_plain` computes, on a CUDA device, on
+    the current stream, without synchronising.  `pack` is
+    `pack_backbone(net)`, when the caller holds it.  Raises on anything the
+    kernel does not take, and when a launch fails."""
+    _check_segment_input(net, x, seg)
     kbb._check_cuda(net, x)
     pack = pack if pack is not None else pack_backbone(net)
-    blocks = range(first, last + 1)
-    channels = net.spec.block_channels[first:last + 1]
-    strides = [_stride(net, i) for i in blocks]
+    blocks, channels, strides, h, cin = _segment_args(net, seg)
     B = x.shape[0]
     sizes, hh = [], h
     for s in strides:
@@ -264,8 +383,8 @@ def run_segment_cuda(net: BlazeFaceNet, x: torch.Tensor, seg: str,
             pack.bf16.weights.data_ptr(),
             c_ints(o for i in blocks for o in pack.bf16_offsets(i)),
             c_ints(channels), c_ints(strides), len(channels), h, cin,
-            buf_a.data_ptr(), buf_b.data_ptr(), out.data_ptr(), B,
-            torch.cuda.current_stream().cuda_stream)
+            buf_a.data_ptr(), buf_b.data_ptr(),
+            out.data_ptr(), B, torch.cuda.current_stream().cuda_stream)
     kbb._raise_on(err, f"segment {seg} kernel")
     run_segment.launches += 1
     return out
@@ -274,19 +393,34 @@ def run_segment_cuda(net: BlazeFaceNet, x: torch.Tensor, seg: str,
 @torch.no_grad()
 def apply_fused_cuda(net: BlazeFaceNet, x: torch.Tensor):
     """The kernels: what `apply_fused_plain` computes, on a CUDA device: the
-    fp32 stem, segments A-C, block 11 in fp32, segment D (17 grids), on the
-    current stream, without synchronising."""
+    fp32 stem, each segment, each fp32 block, on the current stream,
+    without synchronising."""
     _check_input(net, x)
     kbb._check_cuda(net, x)
     pack = pack_backbone(net)        # checked against the weights once
-    y = kbb.stem_forward_cuda(net, x, pack.f32)
-    for seg in "ABC":
-        y = run_segment_cuda(net, y, seg, pack)
-    feat88 = y
-    y = kbb.block_forward_cuda(net, 11, y, pack.f32)
-    feat96 = run_segment_cuda(net, y, "D", pack)
+    taps = _compose(
+        net, kbb.stem_forward_cuda(net, x, pack.f32),
+        lambda y, seg: run_segment_cuda(net, y, seg, pack),
+        lambda y, i: kbb.block_forward_cuda(net, i, y, pack.f32))
     apply_fused.launches += 1
-    return feat88, feat96
+    return taps
+
+
+@torch.no_grad()
+def segment_inputs(net: BlazeFaceNet, x: torch.Tensor,
+                   pack: SegmentPack) -> dict[str, torch.Tensor]:
+    """Each segment's own input for frames x on a CUDA device (one
+    `apply_fused_cuda` pass through the kernels): what the tools time the
+    segments alone on."""
+    inputs = {}
+
+    def segment(y, seg):
+        inputs[seg] = y
+        return run_segment_cuda(net, y, seg, pack)
+
+    _compose(net, kbb.stem_forward_cuda(net, x, pack.f32), segment,
+             lambda y, i: kbb.block_forward_cuda(net, i, y, pack.f32))
+    return inputs
 
 
 def run_segment(net: BlazeFaceNet, x: torch.Tensor, seg: str) -> torch.Tensor:
@@ -299,11 +433,11 @@ def run_segment(net: BlazeFaceNet, x: torch.Tensor, seg: str) -> torch.Tensor:
 
 
 def apply_fused(net: BlazeFaceNet, x: torch.Tensor):
-    """(feat88, feat96) NHWC of x (B, 128, 128, 3): the CUDA kernels for a
+    """(feat88, feat96) NHWC of x (B, S, S, 3): the CUDA kernels for a
     tensor on a CUDA device, the plain version for a tensor on the CPU.
 
     `apply_fused.launches` counts the calls that launched the kernels (one
-    per call: the stem, the four segments and block 11)."""
+    per call: the stem, every segment and every fp32 block)."""
     if x.device.type == "cpu":
         return apply_fused_plain(net, x)
     return apply_fused_cuda(net, x)

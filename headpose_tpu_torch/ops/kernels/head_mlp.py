@@ -22,7 +22,7 @@ from ...utils.build import NVCC_FLAGS_FMA, CudaLibrary
 from .packing import Packed, c_ints, packed
 
 __all__ = ["mlp_head_forward", "mlp_head_forward_plain",
-           "mlp_head_forward_cuda", "head_pack", "LIBRARY"]
+           "mlp_head_forward_cuda", "head_pack", "domain_error", "LIBRARY"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc", "head_mlp.cu")
@@ -50,6 +50,19 @@ def _leaves(net: MLPHeadNet):
 def head_pack(net: MLPHeadNet) -> Packed:
     """`net`'s weights in one buffer on its device (packed once per module)."""
     return packed(net, _leaves)
+
+
+def domain_error(net: MLPHeadNet) -> str | None:
+    """Why the kernel does not take this head, or None when it does (at
+    most MAX_LAYERS layers of at most MAX_WIDTH features).  The wrapper and
+    `runtime.fused.head_route` both decide with it."""
+    spec = net.spec
+    widths = [w for w, _ in spec.layers]
+    if len(widths) > MAX_LAYERS or max(widths + [spec.in_features]) > MAX_WIDTH:
+        return (f"mlp_head_forward takes at most {MAX_LAYERS} layers of at "
+                f"most {MAX_WIDTH} features, got {len(widths)} layers of up "
+                f"to {max(widths + [spec.in_features])}")
+    return None
 
 
 def _check_input(net: MLPHeadNet, x: torch.Tensor) -> None:
@@ -84,11 +97,11 @@ def mlp_head_forward_cuda(net: MLPHeadNet, x: torch.Tensor) -> torch.Tensor:
                          f"{x.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
+    problem = domain_error(net)
+    if problem is not None:
+        raise ValueError(problem)
     spec = net.spec
     widths = [w for w, _ in spec.layers]
-    if len(widths) > MAX_LAYERS or max(widths + [spec.in_features]) > MAX_WIDTH:
-        raise ValueError(f"mlp_head_forward takes at most {MAX_LAYERS} layers "
-                         f"of at most {MAX_WIDTH} features")
     acts = [activation_id(a) for _, a in spec.layers]
     n = x.shape[0]
     out = x.new_empty((n, widths[-1]))

@@ -25,7 +25,7 @@ from .packing import Packed, c_ints, packed
 
 __all__ = ["se_transformer_forward", "se_transformer_forward_plain",
            "se_transformer_forward_cuda", "se_pack", "split_tf32",
-           "matmul_3xtf32", "LIBRARY"]
+           "matmul_3xtf32", "domain_error", "LIBRARY"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc", "se_attention.cu")
@@ -100,8 +100,9 @@ def se_pack(net: SETransformerHeadNet) -> Packed:
     return packed(net, _kernel_leaves)
 
 
-def _check_domain(net: SETransformerHeadNet) -> None:
-    """ValueError when the head lies outside the kernel's domain."""
+def domain_error(net: SETransformerHeadNet) -> str | None:
+    """Why the kernel does not take this head, or None when it does.  The
+    wrapper and `runtime.fused.head_route` both decide with it."""
     s = net.spec
     problems = []
     if s.num_heads not in NUM_HEADS:
@@ -117,8 +118,16 @@ def _check_domain(net: SETransformerHeadNet) -> None:
         problems.append(f"ff_dim <= {MAX_FF}, hidden <= {MAX_HIDDEN} and "
                         f"out_features <= {MAX_OUT} are required")
     if problems:
-        raise ValueError("se_transformer_forward does not take this head: "
-                         + "; ".join(problems))
+        return ("se_transformer_forward does not take this head: "
+                + "; ".join(problems))
+    return None
+
+
+def _check_domain(net: SETransformerHeadNet) -> None:
+    """ValueError when the head lies outside the kernel's domain."""
+    problem = domain_error(net)
+    if problem is not None:
+        raise ValueError(problem)
 
 
 def _check_input(net: SETransformerHeadNet, x: torch.Tensor) -> None:

@@ -131,8 +131,10 @@ class FaceDetector:
 
     @classmethod
     def from_native(cls, path: str, **kwargs) -> "FaceDetector":
-        """Load a native model directory of the port (spec.json +
-        params.npz, tools.convert.save_native)."""
+        """Load a native model directory of the port: spec.json (the JAX
+        package's spec format, copied from its artifact) and params.npz
+        (written by `tools.convert.save_npz`, as the command in CHANGES.md
+        converts the JAX package's checkpoints)."""
         model, params = load_native(path)
         return cls(model, params, **kwargs)
 

@@ -20,10 +20,13 @@ kernel entry points compose:
                                  ops/pallas/head_mlp.py), an
                                  `SETransformerHeadNet` through ops.kernels.
                                  se_transformer_forward (TPU kernel
-                                 ops/pallas/se_attention.py), any other head
-                                 (the residual, skip and SE-MLP families,
-                                 ensembles) as its module, as the JAX
-                                 package runs them through XLA
+                                 ops/pallas/se_attention.py), each while its
+                                 spec lies in the kernel's domain
+                                 (`head_route`); any other head (the
+                                 residual, skip and SE-MLP families,
+                                 ensembles, and heads outside a kernel's
+                                 domain) as its module, as the JAX package
+                                 runs them through XLA
 
 On a CUDA device the kernels launch (or the call raises); on the CPU their
 plain versions run.  `FaceDetector.detect_fused` serves it end to end, and
@@ -39,10 +42,11 @@ from ..models.heads import MLPHeadNet, SETransformerHeadNet
 from ..models.unified import UnifiedPoseNet
 from ..ops.kernels.backbone import backbone_forward
 from ..ops.kernels.backbone2 import apply_fused
+from ..ops.kernels import head_mlp, se_attention
 from ..ops.kernels.head_mlp import mlp_head_forward
 from ..ops.kernels.se_attention import se_transformer_forward
 
-__all__ = ["fused_network", "head_forward", "PRECISIONS"]
+__all__ = ["fused_network", "head_forward", "head_route", "PRECISIONS"]
 
 PRECISIONS = ("highest", "fast")   # fp32; split-bf16 segment pointwise
 
@@ -54,17 +58,31 @@ def _ssd(conv: torch.nn.Conv2d, feat: torch.Tensor) -> torch.Tensor:
     return y.reshape(feat.shape[0], -1)
 
 
+def head_route(head: torch.nn.Module) -> str:
+    """How `head_forward` runs `head`: "kernel" for an `MLPHeadNet` or an
+    `SETransformerHeadNet` whose spec lies in its kernel's domain (the
+    predicate the kernel's wrapper checks), "module" for any other head.
+    Decided from the spec alone, before any launch."""
+    if isinstance(head, MLPHeadNet):
+        problem = head_mlp.domain_error(head)
+    elif isinstance(head, SETransformerHeadNet):
+        problem = se_attention.domain_error(head)
+    else:
+        return "module"
+    return "kernel" if problem is None else "module"
+
+
 def head_forward(head: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """A pose head over (B, H, W, C) maps or (N, C) rows, through its kernel
-    where the head has one."""
+    """A pose head over (B, H, W, C) maps or (N, C) rows: through its kernel
+    where `head_route` says so, else as its module."""
+    if head_route(head) == "module":
+        return head(x)
     if isinstance(head, MLPHeadNet):
         rows = mlp_head_forward(head, x.reshape(-1, x.shape[-1]))
         return rows.reshape(*x.shape[:-1], rows.shape[-1])
-    if isinstance(head, SETransformerHeadNet):
-        if x.ndim == 2:              # each row a 1x1 map
-            return se_transformer_forward(head, x[:, None, None, :])[:, 0, 0]
-        return se_transformer_forward(head, x)
-    return head(x)
+    if x.ndim == 2:                  # each row a 1x1 map
+        return se_transformer_forward(head, x[:, None, None, :])[:, 0, 0]
+    return se_transformer_forward(head, x)
 
 
 @torch.no_grad()

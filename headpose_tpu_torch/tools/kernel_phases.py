@@ -4,19 +4,29 @@ built beside the real library and timed on the card.  The variants compute
 wrong results; only their device times are read.
 
     python -m headpose_tpu_torch.tools.kernel_phases backbone
+    python -m headpose_tpu_torch.tools.kernel_phases backbone2
+    python -m headpose_tpu_torch.tools.kernel_phases backbone2 --batch 1
     python -m headpose_tpu_torch.tools.kernel_phases se
     git show 80a87fd:headpose_tpu_torch/csrc/backbone.cu > build/bb_v1.cu
     python -m headpose_tpu_torch.tools.kernel_phases backbone-v1 \\
         --source build/bb_v1.cu
 
 `backbone` and `backbone-v1` (the kernel's first design, one thread per
-staged float and per depthwise output) time backbone_forward over 128 random
-128x128 frames with the flagship's weights, `se` se_transformer_forward
-over 128 random 16x16x88 maps with a seeded SETransformerHead(88).  One
-JSON line per variant: the device ms of one call (the sum of its kernels,
-torch.profiler over 10 warm calls) and each launch's ms in order; the card
-(nvidia-smi) first.  A phase's share is full minus the variant without it;
-phases overlap, so the shares need not sum to the whole.
+staged float and per depthwise output) time backbone_forward over `--batch`
+(default 128) random 128x128 frames with the flagship's weights,
+`backbone2` the split-bf16 segments of apply_fused (run_segment over each
+segment's own input; the stem and block 11 run once, outside the timing)
+for the same frames, `se` se_transformer_forward over `--batch` random
+16x16x88 maps with a seeded SETransformerHead(88).  In `backbone2` each
+phase is disabled in both of csrc/backbone2.cu's kernels (block_kernel and
+chain_kernel), and the variant `one_launch_per_block` runs every block
+through block_kernel (no chain_kernel launch; its results stay right).
+One JSON line per variant: the device ms of one call (the sum of its
+kernels, torch.profiler over 10 warm calls), each launch's ms in order,
+and the ms of one call between two CUDA events (median of 50 warm calls:
+launch gaps and host work count); the card (nvidia-smi) first.  A phase's
+share is full minus the variant without it; phases overlap, so the shares
+need not sum to the whole.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels import backbone as kbb
+from ..ops.kernels import backbone2 as kb2
 from ..ops.kernels import se_attention as kse
 from ..utils.build import BUILD_DIR, NVCC_FLAGS_FMA, CudaLibrary
 
@@ -47,6 +58,29 @@ VARIANTS = {
         "no_staging": [("i < n_in;", "i < 0;")],
         "no_depthwise": [("i < n_pix * Cin;", "i < 0;")],
         "no_pointwise": [("tile * kPix < n_pix;", "tile * kPix < 0;")],
+    },
+    "backbone2": {
+        "full": [],
+        "no_staging": [
+            ("i < n; i += 4 * kThreads)", "i < 0; i += 4 * kThreads)"),
+            ("i < l.in_rows * row_f; i += kThreads)",
+             "i < 0; i += kThreads)"),
+            ("i < n_pix * c4n; i += kChainThreads)\n        cp_async16",
+             "i < 0; i += kChainThreads)\n        cp_async16")],
+        "no_depthwise": [("i < n_dw; i += kThreads) {", "i < 0; i += kThreads) {"),
+                         ("i < n_dw; i += kChainThreads) {",
+                          "i < 0; i += kChainThreads) {")],
+        "no_pointwise": [("mt * 16 < n_pix; mt += kWarps) {",
+                          "mt * 16 < 0; mt += kWarps) {"),
+                         ("u < mts * ngs; u += kChainWarps) {",
+                          "u < 0; u += kChainWarps) {")],
+        # not a phase: block_kernel without its cap of 128 registers, so
+        # that one CTA fits on an SM (its results stay right)
+        "one_cta_per_sm": [("__launch_bounds__(kThreads, 2)\nblock_kernel",
+                            "__launch_bounds__(kThreads)\nblock_kernel")],
+        # not a phase: no run of small-map blocks chained into one launch
+        "one_launch_per_block": [("chain_fits(channels, i, last + 1, H, ci))",
+                                  "false)")],
     },
     "se": {
         "full": [],
@@ -76,14 +110,33 @@ def device_ms(fn, reps: int = 10) -> tuple[float, list[float]]:
     return sum(per) / reps, last
 
 
-def _workload(kernel: str, dev: torch.device):
+def event_ms(fn, reps: int = 50) -> float:
+    """Median ms of one warm fn() between two CUDA events."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _workload(kernel: str, dev: torch.device, batch: int):
     rng = np.random.default_rng(0)
     if kernel.startswith("backbone"):
         from ..pretrained import flagship_detector
 
         net = flagship_detector(device=dev).net.backbone
-        x = torch.from_numpy(rng.uniform(-1, 1, (128, 128, 128, 3)).astype(
+        x = torch.from_numpy(rng.uniform(-1, 1, (batch, 128, 128, 3)).astype(
             np.float32)).to(dev)
+        if kernel == "backbone2":      # the inputs once, with the real library
+            pack = kb2.pack_backbone(net)
+            inputs = kb2.segment_inputs(net, x, pack)
+            return kb2, lambda: [kb2.run_segment_cuda(net, y, seg, pack)
+                                 for seg, y in inputs.items()]
         return kbb, lambda: kbb.backbone_forward_cuda(net, x)
     from ..models.heads import SETransformerHead, SETransformerHeadNet
 
@@ -92,7 +145,7 @@ def _workload(kernel: str, dev: torch.device):
         for p in net.parameters():
             p.copy_(torch.from_numpy(rng.normal(0, 0.1, tuple(p.shape)).astype(
                 np.float32)))
-    x = torch.from_numpy(rng.normal(0, 1, (128, 16, 16, 88)).astype(
+    x = torch.from_numpy(rng.normal(0, 1, (batch, 16, 16, 88)).astype(
         np.float32)).to(dev)
     return kse, lambda: kse.se_transformer_forward_cuda(net, x)
 
@@ -102,11 +155,13 @@ def main(argv=None) -> int:
     ap.add_argument("kernel", choices=sorted(VARIANTS))
     ap.add_argument("--source", help="the CUDA source to vary (default: "
                     "this tree's)")
+    ap.add_argument("--batch", type=int, default=128,
+                    help="frames (maps for `se`) per call (default 128)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_phases: no CUDA device is available")
     dev = torch.device("cuda")
-    mod, call = _workload(args.kernel, dev)
+    mod, call = _workload(args.kernel, dev, args.batch)
     src = open(args.source or mod.SOURCE).read()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -129,8 +184,11 @@ def main(argv=None) -> int:
                                       real._configure, NVCC_FLAGS_FMA)
             with torch.inference_mode():
                 ms, grids = device_ms(call)
+                wall = event_ms(call)
             print(json.dumps({"kernel": args.kernel, "variant": name,
-                              "device_ms": ms, "grid_ms": grids}), flush=True)
+                              "batch": args.batch, "device_ms": ms,
+                              "event_ms": wall, "grid_ms": grids}),
+                  flush=True)
     finally:
         mod.LIBRARY = real
     return 0

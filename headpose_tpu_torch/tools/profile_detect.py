@@ -12,8 +12,10 @@ frames under
 torch.profiler and prints one JSON object: the wall time of the profiled
 window, the device's busy time (the union of its kernel intervals) and idle
 share, the kernels that take the most device time, grouped by name, and the
-last call's device kernels in launch order with their times.  Needs a CUDA
-device; it fails without one.
+last call's device kernels in launch order with their times; then the
+postprocess alone (`ops.kernels.postprocess.postprocess_slab` on the
+network's outputs for the same frames): its CUDA kernels per call and their
+device time.  Needs a CUDA device; it fails without one.
 """
 from __future__ import annotations
 
@@ -92,6 +94,7 @@ def main() -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     kernels.sort(key=lambda e: e.time_range.start)
     last_call = kernels[-(len(kernels) // args.iters):]
+    post = _postprocess_launches(det, imgs, args.iters)
     print(json.dumps({
         "path": "detect_fused" if args.fused else "detect",
         "model": model, "head_eval": det.head_eval,
@@ -111,7 +114,43 @@ def main() -> None:
                         for n, (t, c) in top],
         "last_call": [{"name": e.name[:80],
                        "us": e.time_range.end - e.time_range.start}
-                      for e in last_call]}))
+                      for e in last_call],
+        "postprocess": post}))
+
+
+def _postprocess_launches(det, imgs, iters: int) -> dict:
+    """The CUDA kernels one postprocess call launches, and their device ms,
+    on the network's outputs for `imgs` (torch.profiler over `iters` warm
+    calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..ops.image import preprocess
+    from ..ops.kernels.postprocess import postprocess_slab
+
+    with torch.inference_mode():
+        out = det.net(preprocess(torch.from_numpy(imgs).to(det.device),
+                                 det.input_size, det.channel_order))
+
+        def call():
+            return postprocess_slab(
+                out["scores"], out["loc"], out["pose_front"],
+                out["pose_back"], det.anchors,
+                score_threshold=det.score_threshold,
+                iou_threshold=det.iou_threshold, input_size=det.input_size,
+                max_faces=det.max_faces)
+
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"kernels_per_call": len(kernels) / iters,
+            "device_ms_per_call": sum(e.time_range.end - e.time_range.start
+                                      for e in kernels) / iters / 1e3,
+            "kernels": sorted({e.name[:80] for e in kernels})}
 
 
 if __name__ == "__main__":

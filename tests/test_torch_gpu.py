@@ -3,10 +3,11 @@ and FaceDetector.detect through the kernel against the same pipeline through
 the twin, both bit for bit; the fused backbone and pose-head kernels against
 their plain versions (rtol 1e-4 / atol 1e-5 and rtol = atol = 1e-5: the
 kernels sum in another order than cuBLAS), and detect_fused against detect;
-the split-bf16 segment kernel (apply_fused) against its plain version (atol
-2e-4) and the fp32 backbone kernel (atol 5e-4), and the "fast" detector
-against the "highest" one; the SE-Transformer head kernel
-(se_transformer_forward) against its plain version (rtol 1e-4 / atol 1e-5),
+the split-bf16 segment kernel (apply_fused) against its plain version
+(SPLIT_TOL) and an fp32 backbone (atol 5e-4), on the flagship and the back
+model, and the "fast" detector against the "highest" one; the
+SE-Transformer head kernel (se_transformer_forward) against its plain
+version (rtol 1e-4 / atol 1e-5),
 and the SE-Transformer model's detect_fused in both head profiles.
 
 Marked `gpu`.  Each test skips in the `cuda` fixture when no CUDA device is
@@ -59,7 +60,9 @@ def _inputs(b, seed, loc_std=8.0, quantize=False, nonfinite=False):
     pb = rng.normal(0, 0.5, (b, 8, 8, 3)).astype(np.float32)
     if nonfinite:
         logits[0, 5], logits[-1, 7], logits[0, 700] = np.nan, -np.inf, np.inf
+        logits[-1, 9] = 1e30
         loc[0, 3, :] = np.nan
+        loc[-1, 11, 2], loc[0, 12, 5] = np.inf, -np.inf
     return logits, loc, pf, pb
 
 
@@ -75,13 +78,24 @@ def _assert_equal(got, want):
     dict(b=128, thr=0.4, iou=0.3, mf=100, seed=1),
     dict(b=128, thr=0.4, iou=0.3, mf=32, seed=11, quantize=True),
     dict(b=3, thr=0.0, iou=0.3, mf=256, seed=14, nonfinite=True),
+    dict(b=3, thr=0.4, iou=0.3, mf=1, seed=3),
+    dict(b=8, thr=0.4, iou=0.3, mf=100, seed=21, size=256),
 ])
 def test_kernel_matches_twin(cuda, case):
+    """The kernel, from the raw network outputs to the finished slab in one
+    launch, bit for bit against the plain chain: thresholds 0 and 1, exact
+    score ties, non-finite logits and loc, one slot, 256 slots, the back
+    model's anchors."""
+    from headpose_tpu_torch.models.anchors import BACK_CONFIG, FRONT_CONFIG
+
     case = dict(case)
+    size = case.pop("size", 128)
     kw = dict(score_threshold=case.pop("thr"), iou_threshold=case.pop("iou"),
-              max_faces=case.pop("mf"))
+              max_faces=case.pop("mf"), input_size=size)
     args = [torch.from_numpy(x).to(cuda) for x in _inputs(**case)]
-    anchors = torch.tensor(generate_anchors().astype(np.float32), device=cuda)
+    anchors = torch.tensor(generate_anchors(
+        BACK_CONFIG if size == 256 else FRONT_CONFIG).astype(np.float32),
+        device=cuda)
     before = kern.postprocess_kernel.launches
     got = kern.postprocess_kernel(*args, anchors, **kw)
     want = det.postprocess(*args, anchors, **kw)
@@ -111,11 +125,22 @@ def test_detect_through_kernel_equals_twin(cuda):
 def test_kernel_rejects_what_it_does_not_take(cuda):
     logits, loc, pf, pb = (torch.from_numpy(x).to(cuda)
                            for x in _inputs(2, 0))
-    decoded = torch.zeros((2, 16, 896), device=cuda).transpose(1, 2)
+    anchors = torch.tensor(generate_anchors().astype(np.float32), device=cuda)
+    strided = torch.zeros((2, 16, 896), device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
-        kern.nms_slab_cuda(logits, decoded, pf, pb, 0.0, 0.3, 16)
+        kern.postprocess_slab_cuda(logits, strided, pf, pb, anchors)
     with pytest.raises(ValueError):
-        kern.nms_slab_cuda(logits, loc.cpu(), pf, pb, 0.0, 0.3, 16)
+        kern.postprocess_slab_cuda(logits, loc.cpu(), pf, pb, anchors)
+    with pytest.raises(ValueError, match="power-of-two"):
+        kern.postprocess_slab_cuda(logits, loc, pf, pb, anchors,
+                                   input_size=192)
+    # an expanded (batch stride 0) pose map is taken as it is
+    got = kern.postprocess_slab_cuda(logits, loc, pf[:1].expand(2, -1, -1, -1),
+                                     pb, anchors, score_threshold=0.0)
+    want = det.postprocess(logits, loc, pf[:1].expand(2, -1, -1, -1), pb,
+                           anchors, score_threshold=0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got[..., 16:19], want["poses"])
 
 
 def test_empty_batch_launches_nothing(cuda):
@@ -287,31 +312,47 @@ WIDE_D = BlazeFace(block_channels=(24, 28, 32, 36, 42, 48, 56, 64, 72, 80,
 
 
 @pytest.mark.parametrize("case", ["flagship_b1", "flagship_b8",
-                                  "wide_d_b2"])
+                                  "wide_d_b2", "back_b1", "back_b8"])
 def test_apply_fused_kernel_matches_plain(cuda, flagship, case):
     """The segment kernels (mma.sync bf16 -> fp32, another sum order than
-    the plain version's fp32 matmuls) within atol 2e-4 of the plain version
-    and 5e-4 of the fp32 backbone kernel, on corpus frames.  The random-init
-    wide spec's maps have no bound on their scale, so it is held as
-    chip_smoke.py holds the kernel: atol 2e-4 plus 2^-15 of the value (one
-    split-bf16 rounding step is 2^-17 of it)."""
+    the plain version's fp32 matmuls; per-block launches on the large maps,
+    one launch for each run of small-map blocks), within SPLIT_TOL of the plain version and 5e-4 of an fp32 backbone (the
+    fp32 backbone_forward kernel; for the back model, whose taps that kernel
+    does not take, its cuDNN BlazeFaceNet), on corpus frames (resized to
+    256 for the back model) and a random-init spec whose segment D widens
+    to 128 channels."""
+    import warnings
+
+    from headpose_tpu_torch.pretrained import load_pretrained
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+
     b = int(case.split("_b")[1])
     imgs = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"][:b]
-    x = preprocess(torch.from_numpy(imgs).to(cuda))
-    if case.startswith("flagship"):
+    if case.startswith("back"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            net = FaceDetector(*load_pretrained(
+                "unified-back-distilled")).net.backbone
+    elif case.startswith("flagship"):
         net = flagship.net.backbone
     else:
         net = _random_init(BlazeFaceNet(WIDE_D, device=cuda), 7)
+    x = preprocess(torch.from_numpy(imgs).to(cuda),
+                   net.spec.input_size).contiguous()   # the resize's view
     before = (kb2.apply_fused.launches, kb2.run_segment.launches)
     got = kb2.apply_fused(net, x)
     want = kb2.apply_fused_plain(net, x)
-    fp32 = kbb.backbone_forward_cuda(net, x)
+    if case.startswith("back"):
+        with torch.inference_mode():
+            out = net(x)
+        fp32 = (out["feat88"], out["feat96"])
+    else:
+        fp32 = kbb.backbone_forward_cuda(net, x)
     torch.cuda.synchronize()
     assert (kb2.apply_fused.launches,
             kb2.run_segment.launches) == (before[0] + 1, before[1] + 4)
-    rtol = 0.0 if case.startswith("flagship") else 2.0 ** -15
     for g, w, f in zip(got, want, fp32):
-        torch.testing.assert_close(g, w, rtol=rtol, atol=2e-4)
+        torch.testing.assert_close(g, w, **kb2.SPLIT_TOL)
         torch.testing.assert_close(g, f, rtol=0, atol=5e-4)
 
 
@@ -326,6 +367,28 @@ def test_fast_detect_matches_highest(cuda, flagship):
     got = fast.detect(img)
     assert kb2.apply_fused.launches == before + 1
     want = flagship.detect(img)
+    assert torch.equal(got.valid, want.valid)
+    assert int(want.valid.sum()) >= 1
+    assert float((got.poses - want.poses).abs().max()) < 0.05
+
+
+def test_back_fast_detect_matches_highest(cuda):
+    """unified-back-distilled (input 256) at "fast" (every block through
+    the split-bf16 kernel) and "highest" (cuDNN) on 16 corpus frames:
+    identical detection sets, at least one face, poses within 0.05."""
+    import warnings
+
+    from headpose_tpu_torch.pretrained import load_pretrained
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        spec, params = load_pretrained("unified-back-distilled")
+    imgs = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"][:16]
+    before = kb2.apply_fused.launches
+    got = FaceDetector(spec, params, precision="fast").detect(imgs)
+    assert kb2.apply_fused.launches == before + 1
+    want = FaceDetector(spec, params).detect(imgs)
     assert torch.equal(got.valid, want.valid)
     assert int(want.valid.sum()) >= 1
     assert float((got.poses - want.poses).abs().max()) < 0.05

@@ -291,6 +291,88 @@ def test_se_model_profiles(jax_se):
                   )[m].max() > 1e-2
 
 
+def _seeded(spec, seed):
+    """JAX-layout params of a head spec: the port's shapes, normal(0, 0.2)
+    leaves from the seed (numpy)."""
+    from headpose_tpu_torch.models.heads import head_net
+    from headpose_tpu_torch.tools.convert import params_to_jax
+
+    shapes = params_to_jax(spec, head_net(spec, device="cpu").state_dict())
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda a: rng.normal(0, 0.2, a.shape).astype(
+        np.float32), shapes)
+
+
+def _outside_model(family):
+    """The flagship's backbone and SSD weights with heads outside their
+    kernels' domains: SETransformerHead(88|96, num_heads=3), or an MLP head
+    of khead.MAX_LAYERS + 1 layers (both maps)."""
+    from headpose_tpu_torch.models import MLPHead
+    from headpose_tpu_torch.ops.kernels import head_mlp as khead
+
+    if family == "se_heads3":
+        heads = {c: SETransformerHead(c, num_heads=3) for c in (88, 96)}
+    else:
+        heads = {c: MLPHead(c, ((16, "tanh"),) * khead.MAX_LAYERS
+                            + ((3, "linear"),)) for c in (88, 96)}
+    spec, params = load_pretrained(FLAGSHIP)
+    params = {"backbone": params["backbone"],
+              "head88": _seeded(heads[88], 88),
+              "head96": _seeded(heads[96], 96)}
+    return UnifiedPoseModel(backbone=spec.backbone, head88=heads[88],
+                            head96=heads[96]), params
+
+
+@pytest.mark.parametrize("family", ["se_heads3", "mlp_deep"])
+@pytest.mark.parametrize("head_eval", ["map", "survivors"])
+def test_heads_outside_the_kernel_domain_serve_fast(corpus4, family,
+                                                    head_eval):
+    """precision="fast" serves heads outside their kernel's domain as their
+    modules (head_route "module", decided from the spec), in both profiles:
+    the "highest" detect's detection sets, poses within 0.05 (the bound the
+    shipped models' "fast" is held to against "highest"; seeded heads, so
+    not degrees); detect_fused at "highest" runs them as modules too."""
+    from headpose_tpu_torch.runtime.fused import head_route
+
+    spec, params = _outside_model(family)
+    fast = FaceDetector(spec, params, head_eval=head_eval, device="cpu",
+                        precision="fast")
+    highest = FaceDetector(spec, params, head_eval=head_eval, device="cpu")
+    assert [head_route(h) for h in (fast.net.head88, fast.net.head96)] == \
+        ["module", "module"]
+    got, want = _np(fast.detect(corpus4)), _np(highest.detect(corpus4))
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+    assert want["valid"].sum() >= 4
+    np.testing.assert_allclose(got["poses"], want["poses"], rtol=0, atol=0.05)
+    fused = _np(highest.detect_fused(corpus4))
+    np.testing.assert_array_equal(fused["valid"], want["valid"])
+    np.testing.assert_allclose(fused["poses"], want["poses"], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("fields,route", [
+    (dict(in_features=88), "kernel"),
+    (dict(in_features=96, num_heads=2, key_dim=32), "kernel"),
+    (dict(in_features=88, num_heads=3), "module"),
+    (dict(in_features=96, key_dim=12), "module"),
+    (dict(in_features=88, num_heads=8, key_dim=16), "module")])
+def test_head_route_follows_the_kernel_domain(fields, route):
+    """head_route and the wrapper decide with the same predicate
+    (kse.domain_error): a head routed to the kernel passes the wrapper's
+    check, a head routed to its module is one the wrapper refuses."""
+    from headpose_tpu_torch.runtime.fused import head_route
+
+    net = SETransformerHeadNet(SETransformerHead(**fields), device="cpu")
+    assert head_route(net) == route
+    assert (kse.domain_error(net) is None) == (route == "kernel")
+    x = torch.zeros((1, 2, 2, net.spec.in_features))
+    if route == "module":
+        with pytest.raises(ValueError, match="does not take this head"):
+            kse.se_transformer_forward(net, x)
+    else:
+        assert kse.se_transformer_forward(net, x).shape == (1, 2, 2, 3)
+
+
 # ------------------------------------------ the kernel's 3-pass TF32 split
 def test_split_tf32_rounds_as_cvt_rna():
     """hi keeps 10 stored mantissa bits, rounded to nearest with ties away

@@ -35,7 +35,9 @@ PORT = os.path.join(REPO, "headpose_tpu_torch")
 @pytest.mark.parametrize("name,leaves,count", [
     ("unified-stoqa9pt-hrchr82r", 84, 110964),
     ("unified-best-distilled", 86, 215572),
-    ("unified-best", 786, 979619)])
+    ("unified-best", 786, 979619),
+    ("unified-back-distilled", 88, 111804)])
+@pytest.mark.filterwarnings("ignore:'unified-back-distilled' is a synthetic")
 def test_npz_is_bitwise_the_orbax_checkpoint(name, leaves, count):
     jspec, jparams = jax_load_pretrained(name)
     want = flatten_params(jax.tree.map(np.asarray, jparams))
@@ -48,6 +50,29 @@ def test_npz_is_bitwise_the_orbax_checkpoint(name, leaves, count):
         assert got[k].dtype == v.dtype == np.float32, k
         np.testing.assert_array_equal(got[k], v, err_msg=k)
     assert dataclasses.asdict(spec) == dataclasses.asdict(jspec)
+
+
+@pytest.mark.parametrize("name", ["unified-stoqa9pt-hrchr82r",
+                                  "unified-best-distilled", "unified-best",
+                                  "unified-back-distilled"])
+def test_pretrained_quality_matches_jax(name):
+    """pretrained_quality reads the tier the JAX package reads, and
+    load_pretrained warns exactly on the synthetic bring-up artifact (as the
+    JAX load_pretrained does, headpose_tpu/pretrained.py:116-123)."""
+    import warnings
+
+    from headpose_tpu.pretrained import pretrained_quality as jax_quality
+    from headpose_tpu_torch.pretrained import pretrained_quality
+
+    assert pretrained_quality(name) == jax_quality(name)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        load_pretrained(name)
+    ours = [w for w in caught if issubclass(w.category, UserWarning)
+            and "synthetic-imagery bring-up" in str(w.message)]
+    assert len(ours) == (name == "unified-back-distilled")
+    with pytest.raises(FileNotFoundError):
+        pretrained_quality("no-such-model")
 
 
 def test_bridge_round_trips(tmp_path):

@@ -29,7 +29,10 @@ is one JSON object, except the nvidia-smi line:
            raw network outputs: non-finite inputs,
            thresholds 0 and 1, max_faces 0, 1, 100 and 256, the back
            model's 256 anchors; backbone_forward at rtol 1e-4 / atol 1e-5;
-           mlp_head_forward at rtol = atol = 1e-5; apply_fused at SPLIT_TOL
+           mlp_head_forward at rtol = atol = 1e-5 (both shipped MLP-head
+           models, ragged N, padded widths under every activation, the
+           32- and 16-row tiles, 8 layers, unaligned rows); apply_fused at
+           SPLIT_TOL
            (ops/kernels/backbone2.py) on the flagship and the back model,
            and at atol 5e-4 against the fp32 backbone_forward kernel, or for
            the back model its cuDNN taps;
@@ -37,7 +40,9 @@ is one JSON object, except the nvidia-smi line:
            (CUDA events) at the main path's shapes beside its plain version
            and a library yardstick, with each grid's device time
            (backbone_forward's 17 beside each one's byte floor;
-           apply_fused's launches; se_transformer_forward's by kernel);
+           apply_fused's launches; se_transformer_forward's by kernel;
+           mlp_head_forward's per head, for the flagship's heads and for
+           best_detector()'s);
   parity   flagship_detector().detect on the 112 parity-corpus images
            against the reference detections (set agreement 1.0, pose p99
            and max < 0.1 deg) and on e2e_production.npz; every launch count
@@ -50,14 +55,16 @@ is one JSON object, except the nvidia-smi line:
            best_detector().detect_fused against its own detect on 8 corpus
            images; every launch count is reset just before and read just
            after, and each of the three kernels must have launched; then
-           the B=128 network stage of both paths (CUDA events);
+           the B=128 network stage of both paths, and best_detector()'s
+           fused and cuDNN networks (CUDA events);
   fast     flagship_detector(precision="fast").detect through the same
            parity and stress gates, and best_detector(precision="fast")
            against its own "highest" detect on 8 corpus images; launch
            counts reset just before and read just after (apply_fused,
            mlp_head_forward and postprocess_nms must have launched); the
            B=128 network stage of the three networks and the "fast" detect
-           wall time at B=1 and B=128;
+           wall time at B=1 and B=128 (best_detector()'s "fast" network
+           too);
   se       the SE-Transformer model on the 112 parity-corpus frames
            through detect_fused at head_eval "map" and "survivors" and
            through the "fast" detect (map): set agreement 1.0 against the
@@ -655,11 +662,62 @@ def head_work(heads, rows):
     return ops, nbytes
 
 
+# the head kernel's edges: (name, layers, C, N) of random heads; ragged N on
+# unified-best-distilled's head88 and the 88 -> 37 -> 5 -> 3 widths under
+# every activation are added in phase_kernel_head
+HEAD_EDGES = [
+    ("tile32_512x640", ((640, "relu"), (3, "linear")), 512, 100),
+    ("tile16_896x896", ((896, "gelu"), (8, "tanh"), (3, "linear")), 896, 70),
+    ("eight_layers", ((40, "elu"), (24, "swish"), (13, "sigmoid"),
+                      (30, "softplus"), (9, "selu"), (17, "leaky_relu"),
+                      (6, "softsign"), (3, "linear")), 96, 130),
+    ("c37", ((16, "tanh"), (3, "linear")), 37, 65),
+]
+HEAD_RAGGED = (1, 15, 63, 64, 65, 513)
+
+
+def time_heads(heads, rows):
+    """The pair of heads over their rows: the wrapper calls (CUDA events),
+    each launch's device time (profiler), the plain version, the library
+    yardstick (the modules), the bound and the kernels per call."""
+    from headpose_tpu_torch.ops.kernels import head_mlp as khead
+
+    def pair():
+        return [khead.mlp_head_forward_cuda(h, x) for h, x in zip(heads, rows)]
+
+    before = khead.mlp_head_forward.launches
+    pair()
+    wrapper_launches = khead.mlp_head_forward.launches - before
+    per_launch = grids_in_order(pair, 20, len(heads))
+    ops, nbytes = head_work(heads, [x.shape[0] for x in rows])
+    bound_ms, bound_by = bound(ops, nbytes)
+    return {"ms": cuda_ms(pair, 200),
+            "kernel_ms": sum(per_launch),
+            "kernel_ms_per_head": dict(zip(("head88", "head96"), per_launch)),
+            "plain_ms": cuda_ms(lambda: [khead.mlp_head_forward_plain(h, x)
+                                         for h, x in zip(heads, rows)], 20),
+            "library_ms": cuda_ms(lambda: [h(x) for h, x in zip(heads, rows)],
+                                  200),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "operations": ops, "bytes": nbytes,
+            "wrapper_launches_per_call": wrapper_launches,
+            "launches_per_call": launches_per_call(pair),
+            "shape": {"rows88": int(rows[0].shape[0]),
+                      "rows96": int(rows[1].shape[0]),
+                      "head88": [heads[0].spec.in_features,
+                                 *(w for w, _ in heads[0].spec.layers)],
+                      "head96": [heads[1].spec.in_features,
+                                 *(w for w, _ in heads[1].spec.layers)]}}
+
+
 def phase_kernel_head(dev, flagship, best, frames128, built):
-    """mlp_head_forward: the kernel against the plain version on the card,
-    both shipped models' heads on the flagship's B=128 feature maps, every
-    activation id and ragged N on random heads; then timed at the
-    flagship's B=128 shapes."""
+    """mlp_head_forward: the kernel against the plain version on the card:
+    both shipped models' heads on the flagship's B=128 feature maps; ragged
+    N (HEAD_RAGGED) on best's head88; every activation id on a 16-wide
+    hidden layer and on the padded widths 88 -> 37 -> 5 -> 3; the 32- and
+    16-row tiles of wide layers, 8 layers, C = 37 and rows that do not start
+    16-byte aligned.  Then timed at B=128 for the flagship's heads and for
+    best_detector()'s (unified-best-distilled's)."""
     from headpose_tpu_torch.core.activations import ACTIVATION_IDS
     from headpose_tpu_torch.models.heads import MLPHead, MLPHeadNet
     from headpose_tpu_torch.ops.kernels import head_mlp as khead
@@ -669,16 +727,32 @@ def phase_kernel_head(dev, flagship, best, frames128, built):
     rows = {88: out["feat88"].reshape(-1, 88).contiguous(),
             96: out["feat96"].reshape(-1, 96).contiguous()}
     rng = np.random.default_rng(7)
+
+    def rand_rows(n, c, offset=0):
+        flat = torch.from_numpy(rng.normal(0, 2, n * c + offset).astype(
+            np.float32)).to(dev)
+        return flat[offset:].view(n, c)
+
+    def rand_head(c, layers, seed):
+        return random_init(MLPHeadNet(MLPHead(c, layers), device=dev), seed)
+
     cases = [(f"{model}.{h}", getattr(d.net, h), rows[k])
              for model, d in (("flagship", flagship), ("best", best))
              for h, k in (("head88", 88), ("head96", 96))]
+    cases += [(f"best.head88_n{n}", best.net.head88, rows[88][:n])
+              for n in HEAD_RAGGED]
     for i, act in enumerate(ACTIVATION_IDS):
         n = 513 + 32 * i                 # ragged: never a multiple of 32
-        net = random_init(MLPHeadNet(MLPHead(88, ((16, act), (3, "linear"))),
-                                     device=dev), 10 + i)
-        x = torch.from_numpy(rng.normal(0, 2, (n, 88)).astype(
-            np.float32)).to(dev)
-        cases.append((f"act_{act}_n{n}", net, x))
+        cases.append((f"act_{act}_n{n}",
+                      rand_head(88, ((16, act), (3, "linear")), 10 + i),
+                      rand_rows(n, 88)))
+        cases.append((f"padded_{act}_n{n}",
+                      rand_head(88, ((37, act), (5, act), (3, "linear")),
+                                30 + i), rand_rows(n, 88)))
+    for i, (name, layers, c, n) in enumerate(HEAD_EDGES):
+        cases.append((name, rand_head(c, layers, 50 + i), rand_rows(n, c)))
+    cases.append(("unaligned_rows", flagship.net.head88,
+                  rand_rows(65, 88, offset=1)))
     report, worst = [], (0.0, 0.0)
     with torch.inference_mode():
         for name, net, x in cases:
@@ -689,22 +763,24 @@ def phase_kernel_head(dev, flagship, best, frames128, built):
             report.append({"case": name, "n": int(x.shape[0]),
                            "max_abs_err": err, "tolerance_ratio": ratio})
             worst = (max(worst[0], err), max(worst[1], ratio))
-        heads = (flagship.net.head88, flagship.net.head96)
         both = (rows[88], rows[96])
-        ms = cuda_ms(lambda: [khead.mlp_head_forward_cuda(h, x)
-                              for h, x in zip(heads, both)], 200)
-        plain_ms = cuda_ms(lambda: [khead.mlp_head_forward_plain(h, x)
-                                    for h, x in zip(heads, both)], 20)
-        library_ms = cuda_ms(lambda: [h(x) for h, x in zip(heads, both)],
-                             200)
-    ops, nbytes = head_work(heads, [x.shape[0] for x in both])
-    bound_ms, bound_by = bound(ops, nbytes)
+        models = {name: time_heads((d.net.head88, d.net.head96), both)
+                  for name, d in (("flagship", flagship), ("best", best))}
     emit({"phase": "kernels", "kernel": "mlp_head_forward", "cases": report,
-          "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-          "bound_ms": bound_ms})
+          "models": models})
     if worst[1] > 1.0:
         raise AssertionError(f"mlp_head_forward disagrees with its plain "
                              f"version beyond {HEAD_TOL}: {report}")
+    for name, m in models.items():
+        # the profiler's count is a mean over 10 calls, and it drops an
+        # event now and then
+        if (m["wrapper_launches_per_call"] != 2
+                or round(m["launches_per_call"]) != 2):
+            raise AssertionError(f"{name}'s two heads launched "
+                                 f"{m['wrapper_launches_per_call']} kernels "
+                                 f"(CUDA kernels per call: "
+                                 f"{m['launches_per_call']}), not 2")
+    main = models["flagship"]
     return {
         "name": "mlp_head_forward", "route": "cuda",
         "source": "headpose_tpu_torch/csrc/head_mlp.cu",
@@ -712,14 +788,16 @@ def phase_kernel_head(dev, flagship, best, frames128, built):
         "launches": None,                     # filled by the fused phase
         "max_abs_err": worst[0], "tolerance": HEAD_TOL,
         "tolerance_ratio": worst[1],
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms,
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
         "library": "sequence of calls, not one: the MLPHeadNet modules' "
                    "Linear + activation chain",
-        "timed": "head88 over B*256 rows + head96 over B*64 rows, B=128",
-        "operations": ops, "bytes": nbytes,
-        "shape": {"rows88": int(both[0].shape[0]),
-                  "rows96": int(both[1].shape[0])},
+        "timed": "head88 over B*256 rows + head96 over B*64 rows, B=128, "
+                 "the flagship's maps; per model under 'models'",
+        "kernel_ms": main["kernel_ms"],
+        "operations": main["operations"], "bytes": main["bytes"],
+        "shape": main["shape"], "models": models,
         "build_s": built["mlp_head_forward"]["build_s"],
         "ptxas": built["mlp_head_forward"]["ptxas"],
     }
@@ -925,11 +1003,15 @@ def phase_fused(flagship, best, corpus, production, stress, frames128):
         fused_ms = median_ms(lambda: fused_network(flagship.net, frames128),
                              20)
         cudnn_ms = median_ms(lambda: flagship.net(frames128), 20)
+        best_ms = {"fused": median_ms(lambda: fused_network(best.net,
+                                                            frames128), 20),
+                   "cudnn": median_ms(lambda: best.net(frames128), 20)}
     del parity["phase"], stressed["phase"]
     emit({"phase": "fused", "launches": launches, "parity": parity,
           "stress": stressed,
           "best": {"images": 8, "detections": int(m.sum()), **best_err},
-          "b128_network_ms_median": {"fused": fused_ms, "cudnn": cudnn_ms}})
+          "b128_network_ms_median": {"fused": fused_ms, "cudnn": cudnn_ms,
+                                     "best": best_ms}})
     return launches
 
 
@@ -1210,7 +1292,9 @@ def phase_fast(flagship, best, corpus, production, stress, frames128):
                                                     "fast"), 20),
             "fused_highest": median_ms(lambda: fused_network(flagship.net,
                                                              frames128), 20),
-            "cudnn": median_ms(lambda: flagship.net(frames128), 20)}
+            "cudnn": median_ms(lambda: flagship.net(frames128), 20),
+            "best_fast": median_ms(lambda: fused_network(best.net, frames128,
+                                                         "fast"), 20)}
     imgs128 = np.concatenate([corpus["imgs"], corpus["imgs"][:16]])
     del parity["phase"], stressed["phase"]
     emit({"phase": "fast", "launches": launches, "parity": parity,

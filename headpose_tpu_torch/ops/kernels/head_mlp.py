@@ -15,6 +15,7 @@ import ctypes
 import os
 
 import torch
+import torch.nn.functional as F
 
 from ...core.activations import activation_id, get_activation
 from ...models.heads import MLPHeadNet
@@ -27,29 +28,45 @@ __all__ = ["mlp_head_forward", "mlp_head_forward_plain",
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc", "head_mlp.cu")
 MAX_LAYERS = 8
-MAX_WIDTH = 896      # 2 buffers x 32 rows x 896 floats fill 227 KB
+MAX_WIDTH = 896      # 2 buffers x 16 rows x 896 floats, the smallest tile
 
 
 def _configure(lib: ctypes.CDLL) -> None:
     fn = lib.headpose_mlp_head
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 5)
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("head_mlp", [SOURCE], _configure, NVCC_FLAGS_FMA)
 
 
-def _leaves(net: MLPHeadNet):
-    """Per layer: the weights (in, out), then the bias (out,)."""
+def _kernel_leaves(net: MLPHeadNet):
+    """Per layer: the weights (in, out) with zero columns up to a multiple
+    of 4 (the kernel stages them by 16-byte rows), then the bias with zeros
+    likewise; every leaf then starts 16-byte aligned."""
     for layer in net.layers:
-        yield layer.weight.t()
-        yield layer.bias
+        pad = -layer.weight.shape[0] % 4
+        yield F.pad(layer.weight.t(), (0, pad))
+        yield F.pad(layer.bias, (0, pad))
+
+
+def _table(net: MLPHeadNet, offsets: tuple[int, ...]) -> ctypes.Array:
+    """The launch's layer table (csrc/head_mlp.cu): the number of layers,
+    C, then per layer its width, activation id and the starts of its
+    weights and bias in the pack."""
+    ints = [len(net.spec.layers), net.spec.in_features]
+    for (width, act), w, b in zip(net.spec.layers, offsets[0::2],
+                                  offsets[1::2]):
+        ints += [width, activation_id(act), w, b]
+    return c_ints(ints)
 
 
 def head_pack(net: MLPHeadNet) -> Packed:
-    """`net`'s weights in one buffer on its device (packed once per module)."""
-    return packed(net, _leaves)
+    """`net`'s weights in one buffer on its device in the kernel's layout
+    (`_kernel_leaves`), with the launch's layer table (`Packed.table`);
+    both built once per module."""
+    return packed(net, _kernel_leaves, table=_table)
 
 
 def domain_error(net: MLPHeadNet) -> str | None:
@@ -100,11 +117,8 @@ def mlp_head_forward_cuda(net: MLPHeadNet, x: torch.Tensor) -> torch.Tensor:
     problem = domain_error(net)
     if problem is not None:
         raise ValueError(problem)
-    spec = net.spec
-    widths = [w for w, _ in spec.layers]
-    acts = [activation_id(a) for _, a in spec.layers]
     n = x.shape[0]
-    out = x.new_empty((n, widths[-1]))
+    out = x.new_empty((n, net.spec.layers[-1][0]))
     if n == 0:
         return out
     pack = head_pack(net)
@@ -112,9 +126,7 @@ def mlp_head_forward_cuda(net: MLPHeadNet, x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         err = lib.headpose_mlp_head(
             x.data_ptr(), pack.weights.data_ptr(), out.data_ptr(), n,
-            spec.in_features, len(widths), c_ints(widths), c_ints(acts),
-            c_ints(pack.offsets[0::2]), c_ints(pack.offsets[1::2]),
-            torch.cuda.current_stream().cuda_stream)
+            pack.table, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"mlp_head kernel launch failed: "
                            f"{'unsupported head' if err < 0 else 'CUDA error'}"

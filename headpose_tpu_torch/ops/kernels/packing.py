@@ -5,14 +5,16 @@ A kernel takes one device pointer and the start of each weight in it
 that `leaves(module)` yields, in the kernel's layout, once per module and
 layout: the pack is cached beside the module, keyed by `leaves` and the
 element type, and rebuilt only when a parameter changes (another storage,
-or an in-place write such as `load_state_dict`).
+or an in-place write such as `load_state_dict`).  A kernel whose launch
+takes a table built from the module and the offsets gets it built once,
+with the pack (`table`).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import weakref
-from typing import Callable, Iterable
+from typing import Any, Callable, Iterable
 
 import torch
 from torch import nn
@@ -25,6 +27,7 @@ class Packed:
     weights: torch.Tensor                  # (total,) contiguous
     offsets: tuple[int, ...]               # start of each leaf, in
                                            # elements; each leaf row-major
+    table: Any = None                      # table(module, offsets), if given
 
 
 _CACHE: "weakref.WeakKeyDictionary[nn.Module, dict]" = \
@@ -45,10 +48,14 @@ def stamp(module: nn.Module) -> tuple:
 def packed(module: nn.Module,
            leaves: Callable[[nn.Module], Iterable[torch.Tensor]],
            dtype: torch.dtype = torch.float32,
-           current: tuple | None = None) -> Packed:
+           current: tuple | None = None,
+           table: Callable[[nn.Module, tuple[int, ...]], Any] | None = None
+           ) -> Packed:
     """The module's weights as `leaves` lays them out, in one `dtype` buffer
     on the module's device (cached per module, `leaves` and `dtype`).
-    `current` is `stamp(module)` when the caller has just taken it."""
+    `current` is `stamp(module)` when the caller has just taken it;
+    `table(module, offsets)`, when given, is built with the pack and kept
+    in it."""
     current = stamp(module) if current is None else current
     packs = _CACHE.setdefault(module, {})
     hit = packs.get((leaves, dtype))
@@ -60,8 +67,9 @@ def packed(module: nn.Module,
         for t in parts:
             offsets.append(start)
             start += t.numel()
-        pack = Packed(torch.cat([t.reshape(-1) for t in parts]),
-                      tuple(offsets))
+        offsets = tuple(offsets)
+        pack = Packed(torch.cat([t.reshape(-1) for t in parts]), offsets,
+                      None if table is None else table(module, offsets))
     packs[(leaves, dtype)] = (current, pack)
     return pack
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from ...models.heads import SETransformerHeadNet
 from ...utils.build import NVCC_FLAGS_FMA, CudaLibrary
 from .packing import Packed, c_ints, packed
+from .tf32 import matmul_3xtf32, split_tf32
 
 __all__ = ["se_transformer_forward", "se_transformer_forward_plain",
            "se_transformer_forward_cuda", "se_pack", "split_tf32",
@@ -142,29 +143,6 @@ def _layernorm(x, g, b, eps=1e-3):
     mu = x.mean(dim=-1, keepdim=True)
     var = (x - mu).square().mean(dim=-1, keepdim=True)
     return (x - mu) * torch.rsqrt(var + eps) * g + b
-
-
-def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) of a float32 tensor as the kernel splits an operand: hi =
-    tf32(t), lo = tf32(t - hi), both rounded to nearest with ties away from
-    zero (PTX cvt.rna.tf32.f32: 10 stored mantissa bits), returned as
-    float32 tensors.  t - hi is exact in float32, and hi + lo holds t to
-    about 2^-22 relative."""
-    def rna(v):
-        bits = v.contiguous().view(torch.int32)
-        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-    hi = rna(t)
-    return hi, rna(t - hi)
-
-
-def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b as the kernel's 3-pass TF32 product: lo.hi + hi.lo + hi.hi of
-    the split operands (the lo.lo term dropped), each product exact in
-    float32, summed in float32."""
-    a_hi, a_lo = split_tf32(a)
-    b_hi, b_lo = split_tf32(b)
-    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
 
 
 def _forward(net: SETransformerHeadNet, x: torch.Tensor, mm) -> torch.Tensor:

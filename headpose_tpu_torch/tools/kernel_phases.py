@@ -7,6 +7,7 @@ wrong results; only their device times are read.
     python -m headpose_tpu_torch.tools.kernel_phases backbone2
     python -m headpose_tpu_torch.tools.kernel_phases backbone2 --batch 1
     python -m headpose_tpu_torch.tools.kernel_phases se
+    python -m headpose_tpu_torch.tools.kernel_phases head --model best
     git show 80a87fd:headpose_tpu_torch/csrc/backbone.cu > build/bb_v1.cu
     python -m headpose_tpu_torch.tools.kernel_phases backbone-v1 \\
         --source build/bb_v1.cu
@@ -17,10 +18,14 @@ staged float and per depthwise output) time backbone_forward over `--batch`
 `backbone2` the split-bf16 segments of apply_fused (run_segment over each
 segment's own input; the stem and block 11 run once, outside the timing)
 for the same frames, `se` se_transformer_forward over `--batch` random
-16x16x88 maps with a seeded SETransformerHead(88).  In `backbone2` each
+16x16x88 maps with a seeded SETransformerHead(88), `head` the two MLP
+heads of a shipped model (`--model flagship` or `best`, the latter
+unified-best-distilled's) through mlp_head_forward over the rows of
+`--batch` maps (B*256 rows of 88, B*64 of 96, N(0, 1)).  In `backbone2` each
 phase is disabled in both of csrc/backbone2.cu's kernels (block_kernel and
 chain_kernel), and the variant `one_launch_per_block` runs every block
-through block_kernel (no chain_kernel launch; its results stay right).
+through block_kernel (no chain_kernel launch; its results stay right);
+in `head`, `four_ctas_per_sm` caps the kernel at 64 registers a thread.
 One JSON line per variant: the device ms of one call (the sum of its
 kernels, torch.profiler over 10 warm calls), each launch's ms in order,
 and the ms of one call between two CUDA events (median of 50 warm calls:
@@ -40,6 +45,7 @@ import torch
 
 from ..ops.kernels import backbone as kbb
 from ..ops.kernels import backbone2 as kb2
+from ..ops.kernels import head_mlp as khead
 from ..ops.kernels import se_attention as kse
 from ..utils.build import BUILD_DIR, NVCC_FLAGS_FMA, CudaLibrary
 
@@ -87,13 +93,34 @@ VARIANTS = {
         "no_attention": [("    attention<D, H>(xs, px, kv, ring, L, d, row0, rows, img0, n_img);", "")],
         "one_pass_dense": [("        mma_tf32(lo[j], al, bh);\n        mma_tf32(lo[j], ah, bl);\n", "")],
     },
+    "head": {
+        "full": [],
+        "no_products": [("step(w, k0 + kk, kk);", ";")],
+        "no_weight_staging": [("i < rows * q; i += kThreads) {", "i < 0; i += kThreads) {")],
+        "no_activation": [("if (act == kLinear) return;", "return;")],
+        "no_row_staging": [("if (i < total && r < rows)", "if (false)")],
+        # not a phase: every pass narrow (4 x 4 sums a thread), no wide
+        # pass of 4 x 8 (its results stay right)
+        "narrow_passes_only": [("const int wide = np / kWide;",
+                                "const int wide = 0;")],
+        # not a phase: at most 64 registers a thread, four CTAs an SM where
+        # the shared memory allows (its results stay right)
+        "four_ctas_per_sm": [("__launch_bounds__(kThreads, 2)",
+                              "__launch_bounds__(kThreads, 4)")],
+    },
 }
 
 
-def device_ms(fn, reps: int = 10) -> tuple[float, list[float]]:
+def device_ms(fn, reps: int = 20) -> tuple[float, list[float]]:
     """(device ms of one fn(), each launch's ms in order), torch.profiler
-    over reps warm calls."""
+    over reps warm calls; only calls whose launches it recorded whole count
+    (it drops events now and then)."""
     from torch.profiler import ProfilerActivity, profile
+
+    def launches(prof):
+        return sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
 
     fn()
     torch.cuda.synchronize()
@@ -101,13 +128,17 @@ def device_ms(fn, reps: int = 10) -> tuple[float, list[float]]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ev = sorted((e for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA),
-                key=lambda e: e.time_range.start)
-    per = [(e.time_range.end - e.time_range.start) / 1e3 for e in ev]
-    n = len(per) // reps
-    last = per[len(per) - n:]
-    return sum(per) / reps, last
+    ev = launches(prof)
+    n = round(len(ev) / reps)            # launches a call
+    if n == 0:
+        raise RuntimeError(f"the profiler recorded {len(ev)} launches of "
+                           f"{reps} calls")
+    calls = [ev[i:i + n] for i in range(len(ev) - n, -1, -n)]
+    names = [e.name for e in calls[0]]
+    whole = [c for c in calls if [e.name for e in c] == names]
+    per = [sum(c[i].time_range.end - c[i].time_range.start for c in whole)
+           / len(whole) / 1e3 for i in range(n)]
+    return sum(per), per
 
 
 def event_ms(fn, reps: int = 50) -> float:
@@ -124,8 +155,18 @@ def event_ms(fn, reps: int = 50) -> float:
     return float(np.median(times))
 
 
-def _workload(kernel: str, dev: torch.device, batch: int):
+def _workload(kernel: str, dev: torch.device, batch: int, model: str):
     rng = np.random.default_rng(0)
+    if kernel == "head":
+        from ..pretrained import best_detector, flagship_detector
+
+        net = (best_detector if model == "best" else flagship_detector)(
+            device=dev).net
+        heads = (net.head88, net.head96)
+        rows = [torch.from_numpy(rng.normal(0, 1, (batch * n, c)).astype(
+            np.float32)).to(dev) for n, c in ((256, 88), (64, 96))]
+        return khead, lambda: [khead.mlp_head_forward_cuda(h, x)
+                               for h, x in zip(heads, rows)]
     if kernel.startswith("backbone"):
         from ..pretrained import flagship_detector
 
@@ -157,11 +198,13 @@ def main(argv=None) -> int:
                     "this tree's)")
     ap.add_argument("--batch", type=int, default=128,
                     help="frames (maps for `se`) per call (default 128)")
+    ap.add_argument("--model", choices=("flagship", "best"),
+                    default="flagship", help="the heads of `head`")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_phases: no CUDA device is available")
     dev = torch.device("cuda")
-    mod, call = _workload(args.kernel, dev, args.batch)
+    mod, call = _workload(args.kernel, dev, args.batch, args.model)
     src = open(args.source or mod.SOURCE).read()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -185,8 +228,9 @@ def main(argv=None) -> int:
             with torch.inference_mode():
                 ms, grids = device_ms(call)
                 wall = event_ms(call)
+            model = {"model": args.model} if args.kernel == "head" else {}
             print(json.dumps({"kernel": args.kernel, "variant": name,
-                              "batch": args.batch, "device_ms": ms,
+                              "batch": args.batch, **model, "device_ms": ms,
                               "event_ms": wall, "grid_ms": grids}),
                   flush=True)
     finally:

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from headpose_tpu_torch.core.activations import ACTIVATIONS
 from headpose_tpu_torch.models import BlazeFace, BlazeFaceNet, MLPHead
 from headpose_tpu_torch.models.anchors import generate_anchors
 from headpose_tpu_torch.models.heads import (MLPHeadNet, SETransformerHead,
@@ -261,6 +262,64 @@ def test_head_kernel_matches_plain(cuda, case):
         x = np.random.default_rng(1).normal(
             0, 2, (513 if case == "ragged_513" else 64, 88)).astype(np.float32)
     x = torch.from_numpy(x).to(cuda)
+    before = khead.mlp_head_forward.launches
+    got = khead.mlp_head_forward(net, x)
+    want = khead.mlp_head_forward_plain(net, x)
+    torch.cuda.synchronize()
+    assert khead.mlp_head_forward.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _edge_head(case, cuda, flagship):
+    """(net, rows) of a case on the kernel's edges: unified-best-distilled's
+    heads on the flagship's B=128 maps, ragged N on its head88, widths that
+    are not multiples of 4 under each activation, the 32- and 16-row tiles
+    of wide layers, 8 layers, C % 4 != 0 and rows not 16-byte aligned."""
+    from headpose_tpu_torch.pretrained import BEST, load_pretrained
+    from headpose_tpu_torch.tools.convert import params_from_jax
+
+    rng = np.random.default_rng(len(case))
+    if case.startswith("best") or case.startswith("n"):
+        spec, params = load_pretrained(BEST)
+        head = case.split(".")[1].split("_")[0] if "." in case else "head88"
+        hspec = getattr(spec, head)
+        net = MLPHeadNet(hspec, device=cuda)
+        net.load_state_dict(params_from_jax(hspec, params[head]))
+        if case.startswith("best"):
+            with torch.inference_mode():
+                o = flagship.net(preprocess(torch.from_numpy(
+                    _corpus(128)).to(cuda)))
+            k = hspec.in_features
+            return net, o[f"feat{k}"].reshape(-1, k).contiguous()
+        x = rng.normal(0, 1, (int(case[1:]), 88))
+        return net, torch.from_numpy(x.astype(np.float32)).to(cuda)
+    layers, c, n = {
+        "tile32": (((640, "relu"), (3, "linear")), 512, 100),
+        "tile16": (((896, "gelu"), (8, "tanh"), (3, "linear")), 896, 70),
+        "eight_layers": (tuple((w, a) for w, a in zip(
+            (40, 24, 13, 30, 9, 17, 6), ("elu", "swish", "sigmoid",
+                                         "softplus", "selu", "leaky_relu",
+                                         "softsign"))) + ((3, "linear"),),
+            96, 130),
+        "c37": (((16, "tanh"), (3, "linear")), 37, 65),
+        "unaligned": (((64, "softsign"), (3, "linear")), 88, 65),
+    }.get(case, (((37, case[7:]), (5, case[7:]), (3, "linear")), 88, 200))
+    net = _random_init(MLPHeadNet(MLPHead(c, layers), device=cuda), 3)
+    flat = torch.from_numpy(rng.normal(0, 2, n * c + 1).astype(
+        np.float32)).to(cuda)
+    x = (flat[1:] if case == "unaligned" else flat[:-1]).view(n, c)
+    return net, x
+
+
+EDGE_CASES = (["best.head88_b128", "best.head96_b128", "n1", "n15", "n63",
+               "n64", "n65", "n513", "tile32", "tile16", "eight_layers",
+               "c37", "unaligned"] + [f"padded_{a}" for a in ACTIVATIONS])
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_head_kernel_edges_match_plain(cuda, flagship, case):
+    """One launch each, within rtol = atol = 1e-5 of the plain version."""
+    net, x = _edge_head(case, cuda, flagship)
     before = khead.mlp_head_forward.launches
     got = khead.mlp_head_forward(net, x)
     want = khead.mlp_head_forward_plain(net, x)

@@ -10,10 +10,11 @@ FaceDetector(precision="fast").detect (the split-bf16 segment backbone +
 the pose-head and postprocess kernels), the SE-Transformer model (the
 flagship's backbone with two seeded SE-Transformer heads) through the
 SE-Transformer kernel in both head profiles, 'unified-best' (99 ensemble
-members) under the survivors profile, and the back-camera model
-'unified-back-distilled' (input 256) at "highest" and "fast"; it exits
-non-zero on any
-failure (no phase catches its own failure).  It imports torch, numpy
+members) under the survivors profile, the back-camera model
+'unified-back-distilled' (input 256) at "highest" and "fast", the HTTP
+serving runtime (PoseServer, DynamicBatcher, PoseClient) and the offline
+timeline (detect_stream, IoU tracking, process_frames); it exits non-zero
+on any failure (no phase catches its own failure).  It imports torch, numpy
 and the port: never jax, nor the headpose_tpu package.  Every line it prints
 is one JSON object, except the nvidia-smi line:
 
@@ -87,10 +88,34 @@ is one JSON object, except the nvidia-smi line:
            network stage and the "fast" detect wall times;
   timing   detect wall time at B=1 and B=128 (host clock around a
            synchronised call) and the per-stage split at B=128;
+  serve    the serving path: PoseClient → PoseServer(max_batch=128) →
+           DynamicBatcher → FaceDetector.detect, its kernels launched from
+           the dispatcher thread → trim() → JSON, for the flagship at
+           "highest" and best_detector() at "fast"; the 112 corpus frames
+           through detect_many at concurrency 32 and as one detect_batch:
+           every answer against the detector's direct detect (sets
+           identical, boxes and scores within 1e-5, poses within 1e-3 deg),
+           the flagship's against the corpus reference (set agreement 1.0,
+           pose p99 < 0.1 deg), 224 frames served, no error, fewer
+           dispatches than frames; launch counts reset just before and read
+           just after: postprocess_nms once a dispatch, and at "fast"
+           apply_fused once and mlp_head_forward twice; frames per
+           dispatch, request latency p50/p99 (/v1/stats), frames/s; then
+           the CLI (python -m headpose_tpu_torch.runtime.http --model
+           unified-best-distilled --precision fast) in a process of its
+           own, 16 frames against direct detect;
+  stream   detect_stream over the corpus in batches of 16 (pinned staging,
+           a side copy stream), each slab against that batch's detect
+           (within 1e-6), in its own launch window; process_frames
+           (detect_stream → IoU tracking → EMA) on the card against the
+           same call on the port's CPU detector: valid identical, final
+           track states identical, smoothed poses within 1e-3 deg and boxes
+           within 1e-5; wall times;
   then the {"kernels": [...]} summary (launches from the fused phase;
   apply_fused's from the fast phase, and its back window's beside them;
-  se_transformer_forward's from the se phase's map window), the
-  nvidia-smi line, and last {"ok": true, "device": {...}}.
+  se_transformer_forward's from the se phase's map window; the serve
+  phase's beside them), the nvidia-smi line, and last
+  {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -844,8 +869,24 @@ PRODUCTION_TOL = {"scores": 1e-4, "boxes": 1e-4, "poses": 5e-4}
 def check_parity(detect, corpus, production, phase, production_tol=None):
     """The parity corpus and e2e_production.npz through `detect`, the
     latter at `production_tol` (default PRODUCTION_TOL, the fp32 path's)."""
-    per = detect(corpus["imgs"]).trim()
+    report = corpus_parity(detect(corpus["imgs"]).trim(), corpus, phase)
     res = detect(production["img"]).trim()[0]
+
+    # e2e_production.npz at the tolerances of tests/test_detection.py:280-282
+    if len(res) != len(production["scores"]):
+        raise AssertionError("e2e_production: detection count differs")
+    for k, tol in (production_tol or PRODUCTION_TOL).items():
+        err = float(np.abs(getattr(res, k) - production[k]).max())
+        report[f"e2e_production_{k}_err"] = err
+        if not err <= tol:
+            raise AssertionError(f"e2e_production: {k} err {err} > {tol}")
+    report["e2e_production_detections"] = len(res)
+    return report
+
+
+def corpus_parity(per, corpus, phase):
+    """Ragged Results of the parity corpus against its reference detections:
+    set agreement 1.0, pose p99 and max within the budget."""
     agree, pose, box, score = 0, [], [], []
     for i, ours in enumerate(per):
         c = int(corpus["counts"][i])
@@ -866,16 +907,6 @@ def check_parity(detect, corpus, production, phase, production_tol=None):
     if not (report["pose_deg"]["p99"] < PARITY_BUDGET_DEG
             and report["pose_deg"]["max"] < PARITY_BUDGET_DEG):
         raise AssertionError(f"pose error over budget: {report['pose_deg']}")
-
-    # e2e_production.npz at the tolerances of tests/test_detection.py:280-282
-    if len(res) != len(production["scores"]):
-        raise AssertionError("e2e_production: detection count differs")
-    for k, tol in (production_tol or PRODUCTION_TOL).items():
-        err = float(np.abs(getattr(res, k) - production[k]).max())
-        report[f"e2e_production_{k}_err"] = err
-        if not err <= tol:
-            raise AssertionError(f"e2e_production: {k} err {err} > {tol}")
-    report["e2e_production_detections"] = len(res)
     return report
 
 
@@ -1800,6 +1831,274 @@ def phase_timing(flagship, corpus, card):
     emit(out)
 
 
+# ------------------------------------------------- serving and timeline
+SERVE_TOL = {"boxes": 1e-5, "scores": 1e-5, "poses": 1e-3}   # deg for poses
+
+
+def served_vs_direct(answers, direct) -> dict:
+    """Served answers against the same detector's direct detect: identical
+    detection sets (count, then each row within SERVE_TOL)."""
+    worst = {k: 0.0 for k in SERVE_TOL}
+    for i, (got, want) in enumerate(zip(answers, direct)):
+        if len(got) != len(want):
+            raise AssertionError(f"frame {i}: {len(got)} served detections, "
+                                 f"{len(want)} direct")
+        for k in worst:
+            if len(want):
+                worst[k] = max(worst[k], float(np.abs(
+                    getattr(got, k) - getattr(want, k)).max()))
+    for k, tol in SERVE_TOL.items():
+        if not worst[k] <= tol:
+            raise AssertionError(f"served {k} {worst[k]} from direct detect")
+    return worst
+
+
+def serve_clients(url: str, n: int):
+    """In a process of its own (a remote client does not share the server's
+    interpreter): the first n corpus frames through PoseClient.detect_many at
+    concurrency 32, then as one detect_batch; the answers, each call's
+    seconds and /v1/stats."""
+    from headpose_tpu_torch.runtime.client import PoseClient
+
+    frames = list(np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"]
+                  [:n])
+    with PoseClient(url) as client:
+        client.health()
+        t0 = time.perf_counter()
+        many = client.detect_many(frames, concurrency=32)
+        t1 = time.perf_counter()
+        batch = client.detect_batch(np.stack(frames))
+        t2 = time.perf_counter()
+        return many, batch, t1 - t0, t2 - t1, client.stats()
+
+
+def serve_one(name, det, corpus, card):
+    """PoseServer(max_batch=128) over `det`, its clients in another process
+    (serve_clients); the kernels' launch counts are reset just before the
+    clients start and read just after they finish."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from headpose_tpu_torch.runtime.http import PoseServer
+
+    frames = list(corpus["imgs"])
+    spawn = multiprocessing.get_context("spawn")
+    with PoseServer(det, port=0, max_batch=128, max_delay=0.005) as srv, \
+            ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        pool.submit(time.sleep, 0).result()   # the client process is up
+        batcher = srv.batcher
+        warm = {}
+        for w in batcher.widths:              # outside the window: each
+            warm[w] = []                      # width's first dispatch in the
+            for _ in range(2):                # dispatcher thread, and again
+                t0 = time.perf_counter()
+                for fut in [batcher.submit(f) for f in (frames * 2)[:w]]:
+                    fut.result(timeout=600)
+                warm[w].append((time.perf_counter() - t0) * 1e3)
+        served0, dispatches0 = batcher.frames_served, batcher.dispatches
+        reset_launches()                      # the serve path's window opens
+        many, batch, many_s, batch_s, stats = pool.submit(
+            serve_clients, srv.url, len(frames)).result(timeout=600)
+        launches = read_launches()            # ... and closes
+        dispatches = batcher.dispatches - dispatches0
+        served = batcher.frames_served - served0
+    direct = det.detect(np.stack(frames)).trim()
+    report = {"model": name, "precision": det.precision, "card": card,
+              "frames": "112 parity-corpus frames, 128x128 uint8 BGR",
+              "launches": launches, "dispatches": dispatches,
+              "frames_served": served, "errors": stats["errors"],
+              "frames_per_dispatch": served / max(dispatches, 1),
+              "warmup_dispatch_ms_first_second": warm,
+              "latency_ms": stats.get("latency_ms"),
+              "detect_many_c32": {"s": many_s,
+                                  "frames_per_s": len(frames) / many_s},
+              "detect_batch_112": {"s": batch_s,
+                                   "frames_per_s": len(frames) / batch_s},
+              "many_vs_direct": served_vs_direct(many, direct),
+              "batch_vs_direct": served_vs_direct(batch, direct)}
+    if not (served == 2 * len(frames) and stats["errors"] == 0
+            and dispatches < served):
+        raise AssertionError(f"serve {name}: {served} frames served in "
+                             f"{dispatches} dispatches, {stats['errors']} "
+                             "errors")
+    want = {"postprocess_nms": dispatches}
+    if det.precision == "fast":
+        want.update(apply_fused=dispatches, mlp_head_forward=2 * dispatches)
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"serve {name}: {k} launched "
+                                 f"{launches[k]} times for {dispatches} "
+                                 "dispatches")
+    return report, many, batch
+
+
+def serve_cli(det, frames) -> dict:
+    """The CLI as a user starts it, `python -m headpose_tpu_torch.runtime.
+    http --model unified-best-distilled --precision fast` (on the card: it
+    has no device flag), on a free port: 16 frames through PoseClient
+    against `det`'s direct detect; the process is stopped at the end."""
+    import select
+
+    from headpose_tpu_torch.runtime.client import PoseClient
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "headpose_tpu_torch.runtime.http", "--model",
+         "unified-best-distilled", "--precision", "fast", "--port", "0"],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        out, deadline = [], time.monotonic() + 300
+        while not (out and out[-1].startswith("serving on ")):
+            ready, _, _ = select.select([proc.stdout], [], [],
+                                        max(0.0, deadline - time.monotonic()))
+            line = proc.stdout.readline() if ready else ""
+            if not line:
+                raise AssertionError("the CLI did not start: "
+                                     + "".join(out)[-3000:])
+            out.append(line)
+        url = out[-1].split()[2]
+        with PoseClient(url) as client:
+            got = client.detect_many(frames[:16], concurrency=8)
+            stats = client.stats()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    direct = det.detect(np.stack(frames[:16])).trim()
+    return {"command": "python -m headpose_tpu_torch.runtime.http --model "
+                       "unified-best-distilled --precision fast --port 0",
+            "frames": 16, "dispatches": stats["dispatches"],
+            "errors": stats["errors"],
+            "vs_direct": served_vs_direct(got, direct)}
+
+
+def phase_serve(flagship, corpus, card):
+    """The serving path on the card: client → PoseServer → DynamicBatcher
+    → FaceDetector.detect (its kernels launched from the dispatcher thread)
+    → trim() → JSON, for the flagship at "highest" (kernel #1) and
+    best_detector() at "fast" (kernels #3, #4 and #1).  The flagship's
+    served answers also hold the parity corpus's gates."""
+    from headpose_tpu_torch.pretrained import best_detector
+
+    out = {}
+    for name, det in (("flagship", flagship),
+                      ("best_fast", best_detector(precision="fast"))):
+        report, many, batch = serve_one(name, det, corpus, card)
+        if name == "flagship":
+            for route, per in (("detect_many", many), ("detect_batch", batch)):
+                parity = corpus_parity(per, corpus, "serve")
+                del parity["phase"]
+                report[f"parity_{route}"] = parity
+        if name == "best_fast":
+            report["cli"] = serve_cli(det, list(corpus["imgs"]))
+            if report["cli"]["errors"]:
+                raise AssertionError(f"serve cli: {report['cli']}")
+        out[name] = report
+    emit({"phase": "serve", **out})
+    return {name: r["launches"] for name, r in out.items()}
+
+
+STREAM_POSE_TOL_DEG = 1e-3     # the card's timeline vs the CPU's
+STREAM_BOX_TOL = 1e-5
+
+
+def phase_stream(flagship, corpus, card):
+    """detect_stream over the 112 corpus frames in batches of 16 against
+    each batch's detect; process_frames (detect_stream → track_sequence)
+    on the card against the same call on the port's CPU detector: valid
+    identical, final track states identical, smoothed values within
+    STREAM_POSE_TOL_DEG / STREAM_BOX_TOL."""
+    from headpose_tpu_torch.pretrained import flagship_detector
+    from headpose_tpu_torch.runtime.offline import (_smooth_timeline,
+                                                    process_frames)
+    from headpose_tpu_torch.runtime.streaming import detect_stream
+
+    imgs = corpus["imgs"]
+    batches = [imgs[i:i + 16] for i in range(0, len(imgs), 16)]
+    list(detect_stream(flagship, batches[:2]))          # warm
+    torch.cuda.synchronize()
+    reset_launches()                          # the stream path's window opens
+    slabs = [r.slab for r in detect_stream(flagship, batches, prefetch=2)]
+    torch.cuda.synchronize()
+    launches = read_launches()                # ... and closes
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def stream():
+        for _ in detect_stream(flagship, batches, prefetch=2):
+            pass
+
+    def loop():
+        for b in batches:
+            flagship.detect(b)
+
+    walls = {"stream": [], "loop": []}        # loop, stream, stream, loop
+    for order in (("loop", "stream"), ("stream", "loop")) * 3:
+        for name in order:
+            walls[name].append(wall(stream if name == "stream" else loop))
+    stream_s = statistics.median(walls["stream"])
+    worst = 0.0
+    for b, slab in zip(batches, slabs):
+        want = flagship.detect(b)
+        if not torch.equal(slab[..., 20] > 0.5, want.valid):
+            raise AssertionError("detect_stream: detection sets differ")
+        worst = max(worst, float((slab - want.slab).abs().max()))
+    if not worst <= 1e-6:
+        raise AssertionError(f"detect_stream: {worst} from detect")
+    if launches["postprocess_nms"] != len(batches):
+        raise AssertionError(f"detect_stream: {launches}")
+
+    cpu = flagship_detector(device="cpu")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_res = process_frames(flagship, imgs, batch_size=64)
+    card_s = time.perf_counter() - t0
+    cpu_res = process_frames(cpu, imgs, batch_size=64)
+    if not np.array_equal(card_res.valid, cpu_res.valid):
+        raise AssertionError("process_frames: valid differs from the CPU's")
+    v = cpu_res.valid
+    gap = {"poses_deg": float(np.abs(card_res.poses - cpu_res.poses)[v].max()),
+           "boxes": float(np.abs(card_res.boxes - cpu_res.boxes)[v].max())}
+    if not (gap["poses_deg"] <= STREAM_POSE_TOL_DEG
+            and gap["boxes"] <= STREAM_BOX_TOL):
+        raise AssertionError(f"process_frames: card vs CPU {gap}")
+    # the final track states of both timelines
+    raw = {dev: process_frames(det, imgs, batch_size=64, smooth_alpha=None)
+           for dev, det in (("cuda", flagship), ("cpu", cpu))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, st_card = _smooth_timeline(raw["cuda"], 0.15, True, return_state=True,
+                                  device=flagship.device)
+    torch.cuda.synchronize()
+    track_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, st_cpu = _smooth_timeline(raw["cpu"], 0.15, True, return_state=True)
+    track_cpu_s = time.perf_counter() - t0
+    for field in ("active", "age"):
+        if not torch.equal(getattr(st_card, field).cpu(),
+                           getattr(st_cpu, field)):
+            raise AssertionError(f"track state {field} differs")
+    for k, init in st_cpu.ema.initialized.items():
+        if not torch.equal(st_card.ema.initialized[k].cpu(), init):
+            raise AssertionError(f"track slot occupancy ({k}) differs")
+    emit({"phase": "stream", "card": card, "launches": launches,
+          "detect_stream_16x7": {"s_median": stream_s,
+                                 "frames_per_s": len(imgs) / stream_s,
+                                 "max_abs_err_vs_detect": worst},
+          "walls_s": walls,
+          "process_frames_b64": {"s": card_s,
+                                 "frames_per_s": len(imgs) / card_s,
+                                 "track_sequence_s": track_s,
+                                 "track_sequence_cpu_s": track_cpu_s,
+                                 "detections": int(v.sum()),
+                                 "card_vs_cpu": gap,
+                                 "active_tracks": int(st_cpu.active.sum())}})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1858,6 +2157,8 @@ def main() -> int:
     phase_unified_best(flagship, corpus)
     back_launches = phase_back(back_model, corpus, frames256)
     phase_timing(flagship, corpus, card)
+    serve_launches = phase_serve(flagship, corpus, card)
+    phase_stream(flagship, corpus, card)
 
     for entry in entries[:3]:
         entry["launches"] = fused_launches[entry["name"]]
@@ -1865,6 +2166,11 @@ def main() -> int:
     entries[3]["launches"] = fast_launches["apply_fused"]
     entries[3]["launches_back_window"] = back_launches["apply_fused"]
     entries[4]["launches"] = se_launches["se_transformer_forward"]
+    entries[0]["launches_serve"] = {
+        name: n["postprocess_nms"] for name, n in serve_launches.items()}
+    for entry in entries[2:4]:
+        entry["launches_serve_best_fast"] = \
+            serve_launches["best_fast"][entry["name"]]
     entries[4]["launches_se_windows"] = {
         name: se_report[name]["launches"]["se_transformer_forward"]
         for name in ("map", "survivors", "fast_map")}

@@ -31,7 +31,8 @@ import warnings
 from .tools.convert import load_native
 
 __all__ = ["PRETRAINED_DIR", "FLAGSHIP", "BEST", "UNIFIED_BEST",
-           "load_pretrained", "pretrained_quality", "flagship_detector",
+           "load_pretrained", "pretrained_quality", "resolve_model_path",
+           "flagship_path", "load_flagship", "flagship_detector",
            "best_detector"]
 
 PRETRAINED_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -72,6 +73,29 @@ def pretrained_quality(name: str) -> str:
         raise FileNotFoundError(f"pretrained model missing: {path}")
     with open(path) as f:
         return json.load(f).get("metadata", {}).get("quality", "unlabeled")
+
+
+def resolve_model_path(model_path: str | None) -> str | None:
+    """Map a pretrained registry name (e.g. 'unified-best') to its shipped
+    model directory; paths that exist on disk (and None) pass through.
+    The --model flags of the serving and offline entry points route through
+    this, so registry names work anywhere a path does."""
+    if model_path is not None and not os.path.exists(model_path):
+        registry = os.path.join(PRETRAINED_DIR, model_path)
+        if os.path.isdir(registry):
+            return registry
+    return model_path
+
+
+def flagship_path() -> str | None:
+    path = os.path.join(PRETRAINED_DIR, FLAGSHIP)
+    return path if os.path.isdir(path) else None
+
+
+def load_flagship():
+    """(UnifiedPoseModel spec, params in JAX layout) of the production
+    model."""
+    return load_pretrained(FLAGSHIP)
 
 
 def flagship_detector(**kwargs):

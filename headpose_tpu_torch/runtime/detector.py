@@ -138,6 +138,13 @@ class FaceDetector:
         model, params = load_native(path)
         return cls(model, params, **kwargs)
 
+    @property
+    def batch_granularity(self) -> int:
+        """Every detect() batch must be a multiple of this: 1, the port
+        serves one device.  Batching front ends (runtime.server.
+        DynamicBatcher) build their pad ladder on it."""
+        return 1
+
     def detect(self, images) -> BatchResults:
         """images: (B, H, W, 3) or (H, W, 3), uint8/float 0-255, BGR by
         default; a numpy array or a tensor.  Returns the slabs on the
@@ -159,15 +166,7 @@ class FaceDetector:
     def _detect(self, images, network, heads) -> BatchResults:
         """`network(x, heads=...)` is the network's dict; `heads(head, x)`
         runs one pose head on rows under the survivors profile."""
-        if isinstance(images, torch.Tensor):
-            x = images
-        else:
-            arr = np.asarray(images)
-            # torch takes neither read-only buffers (np.broadcast_to) nor
-            # negative strides (a channel flip img[..., ::-1])
-            if not (arr.flags.writeable and arr.flags.c_contiguous):
-                arr = np.array(arr, order="C")
-            x = torch.from_numpy(arr)
+        x = host_tensor(images)
         if x.ndim == 3:
             x = x[None]
         if x.ndim != 4 or x.shape[-1] != 3:
@@ -217,6 +216,19 @@ class FaceDetector:
         """Run one batch of the given shape (cuDNN picks its algorithms and
         the kernel is built on the first call)."""
         self.detect(np.zeros(shape, np.uint8))
+
+
+def host_tensor(images) -> torch.Tensor:
+    """A tensor as it is, a numpy array (or anything np.asarray takes) as a
+    CPU tensor sharing its memory where torch can."""
+    if isinstance(images, torch.Tensor):
+        return images
+    arr = np.asarray(images)
+    # torch takes neither read-only buffers (np.broadcast_to) nor negative
+    # strides (a channel flip img[..., ::-1])
+    if not (arr.flags.writeable and arr.flags.c_contiguous):
+        arr = np.array(arr, order="C")
+    return torch.from_numpy(arr)
 
 
 def _module_forward(head: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,8 @@
 `BatchResults` holds the one fixed-size (B, F, 21) slab the detector's
 postprocess produces, on the detector's device; its fields are views of it.
 `trim()` turns it into the reference's ragged per-image `Results` (numpy)
-with ONE synchronising device→host copy of the slab.
+with ONE synchronising device→host copy of the slab; `from_ragged` is its
+inverse, on the CPU.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.detection import C_LOGIT, C_POSE, C_VALID, KEYPOINTS
+from ..ops.detection import (C_LOGIT, C_POSE, C_VALID, KEYPOINTS,
+                             MAX_FACES, SLAB)
 
 __all__ = ["Results", "BatchResults"]
 
@@ -69,6 +71,30 @@ class BatchResults:
     @property
     def counts(self) -> torch.Tensor:
         return self.valid.sum(dim=-1)
+
+    @classmethod
+    def from_ragged(cls, results: list, max_faces: int = MAX_FACES
+                    ) -> "BatchResults":
+        """Inverse of trim(): ragged per-image Results -> one (B, F, 21)
+        slab on the CPU.
+
+        Lets anything that produced host-side ragged results (a remote
+        PoseClient, a deserialized log) re-enter the slab pipeline
+        (smoothing, tracking).  max_faces defaults to the reference's
+        MAX_FACE_NUM; images with more detections than max_faces keep their
+        top rows (detections are score-descending by construction).  Rows
+        past an image's count are zero, as the postprocess leaves them."""
+        B, F = len(results), int(max_faces)
+        slab = np.zeros((B, F, SLAB), np.float32)
+        for b, r in enumerate(results):
+            n = min(len(r), F)
+            slab[b, :n, :4] = r.boxes[:n]
+            slab[b, :n, 4:C_POSE] = np.reshape(r.keypoints[:n],
+                                               (n, 2 * KEYPOINTS))
+            slab[b, :n, C_POSE:C_LOGIT] = r.poses[:n]
+            slab[b, :n, C_LOGIT] = r.scores[:n]
+            slab[b, :n, C_VALID] = 1.0
+        return cls(torch.from_numpy(slab))
 
     def trim(self) -> list[Results]:
         """Host-side conversion to the reference's ragged per-image contract:

@@ -8,7 +8,10 @@ the split-bf16 segment kernel (apply_fused) against its plain version
 model, and the "fast" detector against the "highest" one; the
 SE-Transformer head kernel (se_transformer_forward) against its plain
 version (rtol 1e-4 / atol 1e-5),
-and the SE-Transformer model's detect_fused in both head profiles.
+and the SE-Transformer model's detect_fused in both head profiles;
+runtime.streaming.detect_stream against detect, and the tracking and
+smoothing of runtime.tracking and runtime.smoothing on CUDA tensors against
+the same on CPU tensors.
 
 Marked `gpu`.  Each test skips in the `cuda` fixture when no CUDA device is
 present (never at import: every xdist worker must collect the same tests).
@@ -556,3 +559,90 @@ def test_se_model_detect_fused_launches_the_kernel(cuda, flagship,
         assert float((getattr(got, k) - getattr(want, k)).abs().max()) \
             <= 1e-4, k
     torch.testing.assert_close(got.poses, want.poses, rtol=1e-4, atol=1e-4)
+
+
+def test_detect_stream_matches_detect(cuda, flagship):
+    """detect_stream over 48 corpus frames in batches of 16 (pinned staging,
+    copies on a side stream, prefetch 2): each slab equals that batch's
+    detect, and the results come in order."""
+    from headpose_tpu_torch.runtime.streaming import detect_stream
+
+    imgs = _corpus(48)
+    batches = [imgs[i:i + 16] for i in range(0, 48, 16)]
+    got = list(detect_stream(flagship, iter(batches), prefetch=2))
+    assert len(got) == len(batches)
+    for batch, out in zip(batches, got):
+        want = flagship.detect(batch)
+        assert out.slab.device.type == "cuda"
+        assert torch.equal(out.valid, want.valid)
+        torch.testing.assert_close(out.slab, want.slab, rtol=0.0, atol=1e-6)
+
+
+def _timeline_gpu(seed, N=12, F=6, faces=8):
+    """Seeded boxes, validity and poses with duplicate boxes (IoU ties) and
+    more faces than slots when tracked with 5 slots."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0.2, 0.8, (faces, 2))
+    half = rng.uniform(0.05, 0.12, (faces, 1))
+    boxes = rng.uniform(0.0, 1.0, (N, F, 4)).astype(np.float32)
+    poses = rng.normal(0.0, 30.0, (N, F, 3)).astype(np.float32)
+    valid = np.zeros((N, F), bool)
+    for t in range(N):
+        present = [k for k in range(faces) if rng.random() < 0.7][:F]
+        rng.shuffle(present)
+        for f, k in enumerate(present):
+            c = centers[k] + rng.normal(0, 0.005, 2)
+            boxes[t, f] = np.round(np.concatenate([c - half[k],
+                                                   c + half[k]]) * 32) / 32
+            valid[t, f] = True
+        if len(present) >= 2 and t % 3 == 1:
+            boxes[t, 1] = boxes[t, 0]
+    return boxes, valid, poses
+
+
+@pytest.mark.parametrize("source", ["seeded", "detections"])
+def test_tracking_on_the_card_matches_cpu(cuda, flagship, source):
+    """track_sequence (in two chunks with the state carried) and
+    smooth_sequence on CUDA tensors against the same calls on CPU tensors:
+    states and slot occupancy identical, values within 1e-6 — on a seeded
+    timeline with ties and slot stealing (5 slots), and on the flagship's
+    detections of 32 corpus frames (100 slots per frame)."""
+    from headpose_tpu_torch.runtime.smoothing import smooth_sequence
+    from headpose_tpu_torch.runtime.tracking import track_sequence
+
+    if source == "seeded":
+        boxes, valid, poses = _timeline_gpu(3)
+        slots = 5
+    else:
+        out = flagship.detect(_corpus(32))
+        boxes, valid, poses = (out.boxes.cpu().numpy(),
+                               out.valid.cpu().numpy(),
+                               out.poses.cpu().numpy())
+        slots = None
+
+    def run(dev):
+        b, v = torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev)
+        sig = {"poses": torch.from_numpy(poses).to(dev), "boxes": b}
+        h = len(boxes) // 2
+        first, st = track_sequence(b[:h], v[:h], {k: x[:h] for k, x in
+                                                   sig.items()}, 0.3,
+                                   num_slots=slots, max_missed=2,
+                                   return_state=True)
+        second, st = track_sequence(b[h:], v[h:], {k: x[h:] for k, x in
+                                                    sig.items()}, 0.3,
+                                    num_slots=slots, max_missed=2,
+                                    state=st, return_state=True)
+        return first, second, st, smooth_sequence(sig, 0.3, valid=v)
+
+    (f0, s0, st0, sm0), (f1, s1, st1, sm1) = run("cpu"), run(cuda)
+    assert torch.equal(st1.active.cpu(), st0.active)
+    assert torch.equal(st1.age.cpu(), st0.age)
+    for a, b in ((st1.boxes, st0.boxes),
+                 *((st1.ema.value[k], st0.ema.value[k]) for k in sm0),
+                 *((f1[k], f0[k]) for k in sm0),
+                 *((s1[k], s0[k]) for k in sm0),
+                 *((sm1[k], sm0[k]) for k in sm0)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-6)
+    for k in sm0:
+        assert torch.equal(st1.ema.initialized[k].cpu(),
+                           st0.ema.initialized[k])

@@ -175,6 +175,16 @@ spec, params = load_pretrained("unified-best")
 ub = FaceDetector(spec, params, device="cpu")
 assert ub.head_eval == "survivors"
 assert len(ub.detect_single(img)) == len(res)
+from headpose_tpu_torch.runtime import PoseClient, PoseServer
+from headpose_tpu_torch.runtime.offline import process_frames
+
+det = flagship_detector(device="cpu")
+with PoseServer(det, port=0) as srv, \
+        PoseClient(srv.url, timeout=120) as client:
+    served = client.detect(img)
+assert len(served) == len(res)
+assert abs(served.poses - res.poses).max() < 1e-4
+assert process_frames(det, img[None], batch_size=1).valid.sum() == len(res)
 leaked = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "headpose_tpu")]
 assert not leaked, leaked
@@ -196,8 +206,11 @@ def test_entry_points_without_a_card_raise(monkeypatch):
     """device=None means the card; with none present the entry points raise
     instead of carrying on on the CPU."""
     from headpose_tpu_torch.pretrained import best_detector, flagship_detector
+    from headpose_tpu_torch.runtime.http import _build_detector
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for factory in (flagship_detector, best_detector):
+    for factory in (flagship_detector, best_detector,
+                    lambda: _build_detector(None),
+                    lambda: _build_detector("unified-best-distilled")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             factory()

@@ -12,8 +12,11 @@ flagship's backbone with two seeded SE-Transformer heads) through the
 SE-Transformer kernel in both head profiles, 'unified-best' (99 ensemble
 members) under the survivors profile, the back-camera model
 'unified-back-distilled' (input 256) at "highest" and "fast", the HTTP
-serving runtime (PoseServer, DynamicBatcher, PoseClient) and the offline
-timeline (detect_stream, IoU tracking, process_frames); it exits non-zero
+serving runtime (PoseServer, DynamicBatcher, PoseClient), the offline
+timeline (detect_stream, IoU tracking, process_frames) and
+precision="turbo" and "max" (the split-bf16 segments cut around a
+single-pass bf16 island whose blocks run through the island kernel,
+csrc/dense_bf16.cu); it exits non-zero
 on any failure (no phase catches its own failure).  It imports torch, numpy
 and the port: never jax, nor the headpose_tpu package.  Every line it prints
 is one JSON object, except the nvidia-smi line:
@@ -21,8 +24,9 @@ is one JSON object, except the nvidia-smi line:
   device   the card (name, power limit), torch and CUDA versions;
   build    every kernel library built from csrc/ with nvcc, one nvcc per
            source, all started together; ptxas's registers and smem; the
-           tensor-core (HMMA) instructions in the SASS of the split-bf16
-           and SE-Transformer libraries (the latter must have some);
+           tensor-core (HMMA) instructions in the SASS of the split-bf16,
+           SE-Transformer and island libraries (the last two must have
+           some);
   head_routes  how runtime.fused.head_forward runs each served model's
            heads ("kernel" or "module", from the head's spec);
   kernels  per kernel: holds it against its plain PyTorch version on the
@@ -37,7 +41,10 @@ is one JSON object, except the nvidia-smi line:
            (ops/kernels/backbone2.py) on the flagship and the back model,
            and at atol 5e-4 against the fp32 backbone_forward kernel, or for
            the back model its cuDNN taps;
-           se_transformer_forward at rtol 1e-4 / atol 1e-5) and times it
+           se_transformer_forward at rtol 1e-4 / atol 1e-5; dense_block,
+           the island kernel, block by block on the same input at 1e-5 of
+           the map's largest value, every block of both models at B=128
+           and a spec widening to 128 channels) and times it
            (CUDA events) at the main path's shapes beside its plain version
            and a library yardstick, with each grid's device time
            (backbone_forward's 17 beside each one's byte floor;
@@ -104,6 +111,16 @@ is one JSON object, except the nvidia-smi line:
            the CLI (python -m headpose_tpu_torch.runtime.http --model
            unified-best-distilled --precision fast) in a process of its
            own, 16 frames against direct detect;
+  turbo    flagship_detector(precision="turbo") and "max" through the
+           parity corpus against JAX's certificate (turbo: set agreement
+           1.0, pose p99 <= 0.43 deg; max: >= 108/112 images, pose p99 <=
+           1.35 deg), the stress corpus per axis printed beside it; the
+           launches of one detect by count and by kernel name (turbo:
+           kernel #3 over A, B, C 6-9, 6 island launches, #4 twice, #1
+           once; max: 16 island launches, no #3); turbo_island=() bitwise
+           "fast"; best_detector() and the back model at both modes against
+           their "highest"; the B=128 network stage and detect walls of
+           "fast", "turbo" and "max";
   stream   detect_stream over the corpus in batches of 16 (pinned staging,
            a side copy stream), each slab against that batch's detect
            (within 1e-6), in its own launch window; process_frames
@@ -113,8 +130,9 @@ is one JSON object, except the nvidia-smi line:
            within 1e-5; wall times;
   then the {"kernels": [...]} summary (launches from the fused phase;
   apply_fused's from the fast phase, and its back window's beside them;
-  se_transformer_forward's from the se phase's map window; the serve
-  phase's beside them), the nvidia-smi line, and last
+  se_transformer_forward's from the se phase's map window; dense_block's
+  from the turbo phase's "turbo" window, its "max" window beside them;
+  the serve phase's beside them), the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 """
 import json
@@ -238,18 +256,24 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def wrappers() -> dict:
-    """Each kernel's wrapper; its `launches` counts the kernel's launches."""
+    """Each kernel's wrapper; its `launches` counts the kernel's launches
+    (for kernel #3 both apply_fused, a call that ran a segment, and
+    run_segment, a segment)."""
     from headpose_tpu_torch.ops.kernels import (apply_fused,
                                                 backbone_forward,
+                                                dense_block,
                                                 mlp_head_forward,
                                                 postprocess_kernel,
                                                 se_transformer_forward)
+    from headpose_tpu_torch.ops.kernels.backbone2 import run_segment
 
     return {"postprocess_nms": postprocess_kernel,
             "backbone_forward": backbone_forward,
             "mlp_head_forward": mlp_head_forward,
             "apply_fused": apply_fused,
-            "se_transformer_forward": se_transformer_forward}
+            "se_transformer_forward": se_transformer_forward,
+            "dense_block": dense_block,
+            "run_segment": run_segment}
 
 
 def reset_launches() -> None:
@@ -353,12 +377,14 @@ def median_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------- phases
 def phase_build() -> dict:
     """Every kernel library, one nvcc per source, all started together."""
-    from headpose_tpu_torch.ops.kernels import (backbone, backbone2, head_mlp,
+    from headpose_tpu_torch.ops.kernels import (backbone, backbone2,
+                                                dense_bf16, head_mlp,
                                                 postprocess, se_attention)
 
     mods = {"postprocess_nms": postprocess, "backbone_forward": backbone,
             "mlp_head_forward": head_mlp, "apply_fused": backbone2,
-            "se_transformer_forward": se_attention}
+            "se_transformer_forward": se_attention,
+            "dense_block": dense_bf16}
 
     def build(mod):
         t0 = time.perf_counter()
@@ -373,11 +399,12 @@ def phase_build() -> dict:
                               if "registers" in ln or "smem" in ln]}
              for name, mod in mods.items()}
     # the tensor-core kernels' mma instructions in their SASS
-    for name in ("apply_fused", "se_transformer_forward"):
+    for name in ("apply_fused", "se_transformer_forward", "dense_block"):
         built[name]["sass_hmma"] = sass_count(mods[name].LIBRARY, "HMMA")
-    if built["se_transformer_forward"]["sass_hmma"] == 0:
-        raise AssertionError("libse_attention has no tensor-core "
-                             "instruction (HMMA) in its SASS")
+    for name in ("se_transformer_forward", "dense_block"):
+        if built[name]["sass_hmma"] == 0:
+            raise AssertionError(f"{name}'s library has no tensor-core "
+                                 "instruction (HMMA) in its SASS")
     emit({"phase": "build", **built})
     return built
 
@@ -1256,6 +1283,202 @@ def phase_kernel_backbone2(dev, flagship, back, frames128, frames256, built):
     }
 
 
+# ------------------------------------------------ single-pass bf16 island
+# the island kernel against its plain version (the same bf16 operands; the
+# fp32 sum order is the only freedom): |diff| <= 1e-5 of the map's largest
+# |value|, block by block on the same input
+ISLAND_TOL_FRAC = 1e-5
+U32 = 2.0 ** -24
+
+
+def island_work(net, i, h, B):
+    """(tensor-core operations, bytes) of island block i of `net` on an h x h
+    map for B images: each multiply-add of the dense 3x3 conv as 2 (bf16 on
+    the tensor cores; the bias, skip and ReLU are below 1% of them); the
+    input read once, the output written once (fp32), the bf16 kernel and
+    the fp32 bias once."""
+    blk = net.blocks[i]
+    cin, cout, s = blk.dw.weight.shape[0], blk.pw.weight.shape[0], blk.stride
+    ho = h // s
+    return (2 * B * ho * ho * 9 * cin * cout,
+            4 * B * (h * h * cin + ho * ho * cout) + 2 * 9 * cin * cout
+            + 4 * cout)
+
+
+def island_bound(works):
+    """(bound ms, bound by, terms) of the summed island_work of blocks:
+    bytes over 3.35 TB/s, tensor-core operations over 989 TFLOP/s."""
+    ops = sum(w[0] for w in works)
+    nbytes = sum(w[1] for w in works)
+    terms = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
+             "tensor-core operations": ops / H100_BF16_FLOPS * 1e3}
+    ms = max(terms.values())
+    return ms, "bytes" if terms["bytes"] == ms else "operations", {
+        **terms, "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
+
+
+def island_library(net, i, x):
+    """The library yardsticks of island block i on NHWC x, each one cuDNN
+    call on operands prepared outside it: ("bf16", its conv of the composed
+    kernel in bf16, channels-last, output rounded to bf16: a second
+    rounding the function does not make) and ("fp32", its fp32 conv of the
+    bf16-rounded operands with TF32 off: the function's products, on the
+    CUDA cores); both pad 1/1 (at stride 2 the function pads 0/1: the time,
+    not the edge, is the point)."""
+    import torch.nn.functional as F
+    from headpose_tpu_torch.models.blazeface import bf16_round
+
+    blk = net.blocks[i]
+    K, bias = (t.detach() for t in blk.composed())
+    xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)          # channels-last
+    Kb = K.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    xf = bf16_round(x).permute(0, 3, 1, 2)
+    Kf = bf16_round(K).contiguous(memory_format=torch.channels_last)
+    bb = bias.to(torch.bfloat16)
+    return {"bf16": lambda: F.conv2d(xb, Kb, bb, blk.stride, 1),
+            "fp32": lambda: F.conv2d(xf, Kf, bias, blk.stride, 1)}
+
+
+def island_scale(net, i, x):
+    """The sum of |terms| of island block i on NHWC x (|products| + |bias|
+    + |skip|), on the card in fp32: the scale of its fp32 sum order."""
+    import torch.nn.functional as F
+    from headpose_tpu_torch.models.blazeface import (_pad_same, bf16_round,
+                                                     fp32_exact)
+
+    blk = net.blocks[i]
+    K, bias = (t.detach() for t in blk.composed())
+    xa = bf16_round(x).abs().permute(0, 3, 1, 2)
+    with fp32_exact():
+        mag = (blk._conv3(xa, bf16_round(K).abs())
+               + bias.abs()[:, None, None])
+    skip = x.abs().permute(0, 3, 1, 2)
+    if blk.stride == 2:
+        skip = F.max_pool2d(skip, 2, 2)
+    skip = F.pad(skip, (0, 0, 0, 0, 0, mag.shape[1] - skip.shape[1]))
+    return (mag + skip).permute(0, 2, 3, 1)
+
+
+def phase_kernel_dense(dev, flagship, back, frames128, frames256, built):
+    """dense_block: the island kernel against its plain version
+    (dense_block_plain: the module's island step, cuDNN fp32 on the rounded
+    operands, TF32 off) block by block, each on the same input: every block
+    of the flagship and of the back model at B=128 (the "max" plan's inputs,
+    from a pass through the kernels, cover every block shape of both
+    specs), the flagship at B=1 and 3 on its "turbo" island, and a
+    random-init spec widening to 128 channels (the kernel's widest: two
+    slices of 64) at B=2; ISLAND_TOL_FRAC of the map's largest |value|, and
+    the difference in units of fp32 roundoff of the sum of |terms| beside
+    it.  Then timed at B=128 per block (CUDA events): the kernel, the plain
+    version, the two cuDNN yardsticks, each block's bound, and the
+    kernel's device time alone (the profiler: at small maps the wrapper's
+    host work exceeds it); summed over the front model's "turbo" island
+    (the row's ms) and over each "max"."""
+    from headpose_tpu_torch.models import BlazeFace, BlazeFaceNet
+    from headpose_tpu_torch.ops.kernels import backbone2 as kb2
+    from headpose_tpu_torch.ops.kernels import dense_bf16 as kd
+    from headpose_tpu_torch.runtime.fused import island_of
+
+    net, bnet = flagship.net.backbone, back.net.backbone
+    wide = random_init(BlazeFaceNet(BlazeFace(**WIDE_D), device=dev), 8)
+    cases, worst = [], (0.0, 0.0, 0.0)
+    timed = {}
+    with torch.inference_mode():
+        for name, m, x, blocks in (
+                ("flagship_b128", net, frames128, range(16)),
+                ("back_b128", bnet, frames256, range(17)),
+                ("flagship_b1", net, frames128[:1], range(10, 16)),
+                ("flagship_b3", net, frames128[:3], range(10, 16)),
+                ("wide_b2", wide, frames128[:2], range(16))):
+            island = tuple(range(len(m.blocks)))
+            inputs = kb2.segment_inputs(m, x, kb2.pack_backbone(m), island)
+            dpack = kd.dense_pack(m)
+            for i in blocks:
+                y = inputs[i]
+                got = kd.dense_block_cuda(m, i, y, dpack)
+                want = kd.dense_block_plain(m, i, y)
+                torch.cuda.synchronize()
+                scale = float(want.abs().max())
+                err, ratio = close(got, want, 0.0, ISLAND_TOL_FRAC * scale)
+                units = float(((got - want).abs()
+                               / (U32 * island_scale(m, i, y))).max())
+                worst = (max(worst[0], err), max(worst[1], ratio),
+                         max(worst[2], units))
+                cases.append({"case": name, "block": i,
+                              "in": list(y.shape[1:]),
+                              "max_abs_err": err, "max_abs_map": scale,
+                              "tolerance_ratio": ratio,
+                              "sum_order_units": units})
+                if x.shape[0] == 128 and m is not wide:
+                    lib = island_library(m, i, y)
+                    h = int(y.shape[1])
+                    work = island_work(m, i, h, 128)
+                    one = island_bound([work])
+                    grids = grid_ms(lambda: kd.dense_block_cuda(
+                        m, i, y, dpack), 20)
+                    timed[(name, i)] = {
+                        "block": i, "in": list(y.shape[1:]),
+                        "ms": cuda_ms(lambda: kd.dense_block_cuda(
+                            m, i, y, dpack), 50),
+                        "kernel_ms": sum(v for k, v in grids.items()
+                                         if "dense_kernel" in k),
+                        "plain_ms": cuda_ms(lambda: kd.dense_block_plain(
+                            m, i, y), 10),
+                        "library_bf16_ms": cuda_ms(lib["bf16"], 50),
+                        "library_fp32_ms": cuda_ms(lib["fp32"], 20),
+                        "bound_ms": one[0], "bound_by": one[1],
+                        "work": work}
+    def total(name, blocks):
+        rows = [timed[(name, i)] for i in blocks]
+        b = island_bound([r["work"] for r in rows])
+        return {"blocks": list(blocks),
+                **{k: sum(r[k] for r in rows) for k in (
+                    "ms", "kernel_ms", "plain_ms", "library_bf16_ms",
+                    "library_fp32_ms")},
+                "bound_ms": b[0], "bound_by": b[1], "bound_terms": b[2]}
+
+    sums = {"front_turbo": total("flagship_b128",
+                                 island_of(net.spec, "turbo")),
+            "front_max": total("flagship_b128", range(16)),
+            "back_turbo": total("back_b128", island_of(bnet.spec, "turbo")),
+            "back_max": total("back_b128", range(17))}
+    per_block = {f"{name}.block{i}": {k: v for k, v in row.items()
+                                      if k != "work"}
+                 for (name, i), row in timed.items()}
+    emit({"phase": "kernels", "kernel": "dense_block", "cases": cases,
+          "sums_b128": sums, "per_block_b128": per_block})
+    if worst[1] > 1.0:
+        bad = [c for c in cases if c["tolerance_ratio"] > 1.0]
+        raise AssertionError(f"dense_block disagrees with its plain version "
+                             f"beyond {ISLAND_TOL_FRAC} of the map: {bad}")
+    main = sums["front_turbo"]
+    return {
+        "name": "dense_block", "route": "cuda",
+        "source": "headpose_tpu_torch/csrc/dense_bf16.cu",
+        "replaces": "headpose_tpu/models/blazeface.py:162 (no Pallas "
+                    "kernel: an island block is XLA's conv at "
+                    "Precision.DEFAULT in BlazeFace.apply)",
+        "launches": None,                     # filled by the turbo phase
+        "max_abs_err": worst[0], "tolerance_frac_of_map": ISLAND_TOL_FRAC,
+        "tolerance_ratio": worst[1], "sum_order_units": worst[2],
+        "ms": main["ms"], "kernel_ms": main["kernel_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_bf16_ms"],
+        "library": "cuDNN bf16 conv per block (torch.nn.functional.conv2d, "
+                   "channels-last; output rounded to bf16), summed; "
+                   "library_fp32_ms: cuDNN fp32 conv of the rounded "
+                   "operands",
+        "library_fp32_ms": main["library_fp32_ms"],
+        "timed": "the front model's turbo island (blocks 10-15) at B=128, "
+                 "each block on its own input, summed",
+        "sums_b128": sums, "bound_terms_ms": main["bound_terms"],
+        "build_s": built["dense_block"]["build_s"],
+        "ptxas": built["dense_block"]["ptxas"],
+        "sass_hmma": built["dense_block"]["sass_hmma"],
+    }
+
+
 def detect_walls(detect, imgs128) -> dict:
     """detect wall time at B=1 and B=128 (host clock around a synchronised
     call; median of 50 and 20 warm calls)."""
@@ -1785,6 +2008,209 @@ def phase_back(back, corpus, frames256):
     return launches
 
 
+# precision="turbo" and "max": JAX's certificate (docs/certification.json,
+# measured on a TPU) is the contract, with room for another card's sum order
+TURBO_POSE_P99_DEG = 0.43      # twice JAX's certified turbo p99 (0.216)
+MAX_POSE_P99_DEG = 1.35        # twice JAX's certified max p99 (0.676)
+MAX_AGREE_MIN = 108            # JAX's certified max: 108 of 112 images
+
+
+def kernel_names_per_call(fn) -> dict:
+    """The CUDA kernels one warm fn() launches, counted by kind
+    (torch.profiler): "split_bf16" (csrc/backbone2.cu's block_kernel and
+    chain_kernel), "island" (csrc/dense_bf16.cu), "stem", "mlp_head", and
+    every other kernel under its own name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts: dict[str, int] = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name
+        if "chain_kernel" in name or ("block_kernel" in name
+                                      and "bfloat16" in name):
+            kind = "split_bf16"
+        elif "dense_kernel" in name:
+            kind = "island"
+        elif "stem_kernel" in name:
+            kind = "stem"
+        elif "mlp_head_kernel" in name:
+            kind = "mlp_head"
+        else:
+            kind = name.replace("(anonymous namespace)::", "").split(
+                "(")[0][:60]
+        counts[kind] = counts.get(kind, 0) + 1
+    return counts
+
+
+def versus(got, want) -> dict:
+    """Ragged Results `got` against `want` (another mode of the same model)
+    image by image: images whose detection sets agree (IoU matching, as the
+    certificate's), and the pose differences of the matched detections."""
+    from headpose_tpu_torch.tools.certify_modes import dist, match_image
+
+    agree, pose = 0, []
+    for g, w in zip(got, want):
+        pairs, full = match_image({"boxes": w.boxes, "scores": w.scores}, g)
+        agree += full
+        pose += [float(np.abs(w.poses[ri] - g.poses[oi]).max())
+                 for ri, oi in pairs]
+    return {"images": len(want), "agree_images": agree,
+            "detections": int(sum(len(w.scores) for w in want)),
+            "pose_deg": dist(pose)}
+
+
+def jax_certificate(mode: str) -> dict:
+    """JAX's certificate of a mode, measured on a TPU (docs/
+    certification.json): printed beside the card's figures, not the
+    port's own."""
+    with open(os.path.join(HERE, "docs", "certification.json")) as f:
+        cert = json.load(f)
+    par, st = cert["modes"][mode], cert["stress"]["modes"][mode]
+    return {"agree_images": round(par["set_agreement"] * par["images"]),
+            "pose_deg": par["pose_deg"],
+            "stress_agree": {a: st[a]["agree_images"] for a in (
+                "threshold", "nms", "saturation", "overflow")},
+            "stress_pose_max": {a: st[a]["pose_deg"]["max"] for a in (
+                "threshold", "nms", "saturation", "overflow")},
+            "overflow_order": st["overflow_order"]["order_exact"]}
+
+
+def phase_turbo(flagship, best, back_model, corpus, stress, frames128,
+                card):
+    """precision="turbo" and "max" on the card.  The flagship at "turbo"
+    and at "max" over the parity corpus, each in its own launch window:
+    "turbo" needs set agreement 1.0 and pose p99 <= TURBO_POSE_P99_DEG,
+    "max" at least MAX_AGREE_MIN images agreeing and pose p99 <=
+    MAX_POSE_P99_DEG; the stress corpus per axis and the overflow order
+    beside JAX's certificate (reported, not gated: the certificate puts
+    these modes outside the stress contract).  Launches of one detect (B=8),
+    by the wrappers' counts and by the profiler's kernel names: "turbo" runs
+    kernel #3 over segments A, B and C 6-9 (as many grids as
+    segment_launches gives), 6 island launches, #4 twice and #1 once; "max"
+    16 island launches and no #3.  turbo_island=() gives the "fast" slabs
+    bit for bit on the corpus.  best_detector() at both modes against its
+    own "highest" (0 errors; sets and poses printed); the back model
+    (input 256) at both modes: at least one detection, finite slabs, poses
+    against its "highest" beside docs/certification_back.json.  Then the
+    B=128 network stage (fused_network) and the detect wall time at B=1
+    and B=128 of "fast", "turbo" and "max"."""
+    from headpose_tpu_torch.ops.kernels import backbone2 as kb2
+    from headpose_tpu_torch.pretrained import best_detector, flagship_detector
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+    from headpose_tpu_torch.runtime.fused import fused_network, island_of
+    from headpose_tpu_torch.tools.certify_modes import (certify_parity,
+                                                        certify_stress)
+
+    dets = {mode: flagship_detector(precision=mode)
+            for mode in ("fast", "turbo", "max")}
+    report = {"phase": "turbo", "card": card}
+    windows = {}
+    for mode in ("turbo", "max"):
+        reset_launches()                     # the mode's window opens
+        par = certify_parity(dets[mode].detect, corpus)
+        windows[mode] = read_launches()      # ... and closes
+        st = certify_stress(dets[mode].detect, stress)
+        report[mode] = {
+            "parity": par, "launches_parity_window": windows[mode],
+            "stress_agree": {a: st[a]["agree_images"] for a in (
+                "threshold", "nms", "saturation", "overflow")},
+            "stress_pose_max": {a: st[a]["pose_deg"].get("max") for a in (
+                "threshold", "nms", "saturation", "overflow")},
+            "overflow_order": st["overflow_order"]["order_exact"],
+            "jax_tpu_certificate": jax_certificate(mode)}
+
+    # launches of one detect at B=8, by count and by kernel name
+    imgs8 = corpus["imgs"][:8]
+    net = flagship.net.backbone
+    for mode in ("turbo", "max"):
+        island = island_of(net.spec, mode)
+        plan = kb2.segment_plan(net.spec, island)
+        reset_launches()
+        dets[mode].detect(imgs8)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        names = kernel_names_per_call(lambda: dets[mode].detect(imgs8))
+        want = {"split_bf16": sum(len(kb2.segment_launches(net, seg, island))
+                                  for seg in plan),
+                "island": len(island), "mlp_head": 2}
+        report[mode]["per_detect"] = {"counts": counts, "kernels": names,
+                                      "plan": plan,
+                                      "expected_grids": want}
+        expected = {"run_segment": len(plan), "dense_block": len(island),
+                    "mlp_head_forward": 2, "postprocess_nms": 1,
+                    "apply_fused": 1 if plan else 0, "backbone_forward": 0}
+        bad = {k: counts[k] for k, v in expected.items() if counts[k] != v}
+        bad.update({k: names.get(k, 0) for k, v in want.items()
+                    if names.get(k, 0) != v})
+        report[mode]["per_detect"]["mismatch"] = bad
+
+    # the empty island is "fast", bit for bit
+    empty = flagship_detector(precision="turbo", turbo_island=())
+    a, b = empty.detect(corpus["imgs"]), dets["fast"].detect(corpus["imgs"])
+    report["empty_island_bitwise_fast"] = all(
+        torch.equal(getattr(a, k), getattr(b, k)) for k in FIELDS)
+
+    # best_detector() and the back model at both modes
+    best_per = best.detect(corpus["imgs"]).trim()
+    with open(os.path.join(HERE, "docs", "certification_back.json")) as f:
+        back_cert = json.load(f)["trained_modes"]
+    spec, params = back_model
+    back_high = FaceDetector(spec, params).detect(corpus["imgs"]).trim()
+    for mode in ("turbo", "max"):
+        got = best_detector(precision=mode).detect(corpus["imgs"]).trim()
+        report[mode]["best_vs_its_highest"] = versus(got, best_per)
+        bdet = FaceDetector(spec, params, precision=mode)
+        slab = bdet.detect(corpus["imgs"])
+        finite = all(bool(torch.isfinite(getattr(slab, k)).all())
+                     for k in ("boxes", "keypoints", "scores", "poses"))
+        report[mode]["back"] = {
+            "detections": int(slab.valid.sum()), "finite": finite,
+            "vs_its_highest": versus(slab.trim(), back_high),
+            "jax_tpu_certificate_vs_highest": {
+                k: back_cert[mode][k] for k in ("pose_front_deg",
+                                                "pose_back_deg")}}
+
+    # times, in this one call: the network stage and detect walls
+    imgs128 = np.concatenate([corpus["imgs"], corpus["imgs"][:16]])
+    with torch.inference_mode():
+        report["b128_network_ms_median"] = {
+            mode: median_ms(lambda: fused_network(flagship.net, frames128,
+                                                  mode), 20)
+            for mode in ("fast", "turbo", "max")}
+    report["detect_wall"] = {mode: detect_walls(dets[mode].detect, imgs128)
+                             for mode in ("fast", "turbo", "max")}
+    emit(report)
+
+    t, m = report["turbo"], report["max"]
+    if not (t["parity"]["set_agreement"] == 1.0
+            and t["parity"]["pose_deg"]["p99"] <= TURBO_POSE_P99_DEG):
+        raise AssertionError(f"turbo on the parity corpus: {t['parity']}")
+    if not (m["parity"]["agree_images"] >= MAX_AGREE_MIN
+            and m["parity"]["pose_deg"]["p99"] <= MAX_POSE_P99_DEG):
+        raise AssertionError(f"max on the parity corpus: {m['parity']}")
+    for mode in ("turbo", "max"):
+        if report[mode]["per_detect"]["mismatch"]:
+            raise AssertionError(f"{mode}: launches per detect "
+                                 f"{report[mode]['per_detect']}")
+        if min(windows[mode][k] for k in ("dense_block", "mlp_head_forward",
+                                          "postprocess_nms")) < 1:
+            raise AssertionError(f"{mode} missed a kernel: {windows[mode]}")
+        back = report[mode]["back"]
+        if back["detections"] < 1 or not back["finite"]:
+            raise AssertionError(f"back model at {mode}: {back}")
+    if windows["turbo"]["run_segment"] < 1:
+        raise AssertionError(f"turbo missed kernel #3: {windows['turbo']}")
+    if not report["empty_island_bitwise_fast"]:
+        raise AssertionError("turbo_island=() differs from fast")
+    return windows
+
+
 def head_routes() -> dict:
     """runtime.fused.head_route of both heads of every model served here."""
     from headpose_tpu_torch.models.heads import head_net
@@ -2145,7 +2571,9 @@ def main() -> int:
                phase_kernel_head(dev, flagship, best, frames128, built),
                phase_kernel_backbone2(dev, flagship, back, frames128,
                                       frames256, built),
-               phase_kernel_se(dev, flagship, frames128, built)]
+               phase_kernel_se(dev, flagship, frames128, built),
+               phase_kernel_dense(dev, flagship, back, frames128, frames256,
+                                  built)]
     detect_launches = phase_parity(flagship, corpus, production)
     phase_stress(flagship, stress)
     phase_best(flagship, best, corpus)
@@ -2156,6 +2584,8 @@ def main() -> int:
     se_launches, se_report = phase_se(corpus)
     phase_unified_best(flagship, corpus)
     back_launches = phase_back(back_model, corpus, frames256)
+    turbo_launches = phase_turbo(flagship, best, back_model, corpus, stress,
+                                 frames128, card)
     phase_timing(flagship, corpus, card)
     serve_launches = phase_serve(flagship, corpus, card)
     phase_stream(flagship, corpus, card)
@@ -2171,6 +2601,11 @@ def main() -> int:
     for entry in entries[2:4]:
         entry["launches_serve_best_fast"] = \
             serve_launches["best_fast"][entry["name"]]
+    entries[3]["launches_turbo_window"] = turbo_launches["turbo"][
+        "apply_fused"]
+    entries[3]["launches_max_window"] = turbo_launches["max"]["apply_fused"]
+    entries[5]["launches"] = turbo_launches["turbo"]["dense_block"]
+    entries[5]["launches_max_window"] = turbo_launches["max"]["dense_block"]
     entries[4]["launches_se_windows"] = {
         name: se_report[name]["launches"]["se_transformer_forward"]
         for name in ("map", "survivors", "fast_map")}

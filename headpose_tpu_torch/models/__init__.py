@@ -1,5 +1,6 @@
 from .anchors import AnchorConfig, BACK_CONFIG, FRONT_CONFIG, generate_anchors
-from .blazeface import BLAZEFACE_BACK, BLAZEFACE_FRONT, BlazeFace, BlazeFaceNet
+from .blazeface import (BLAZEFACE_BACK, BLAZEFACE_FRONT, TURBO_FAST_BLOCKS,
+                        BlazeFace, BlazeFaceNet, turbo_fast_blocks)
 from .heads import (EnsembleHead, EnsembleHeadNet, MLPHead, MLPHeadNet,
                     ResidualMLPHead, ResidualMLPHeadNet, SEMLPHead,
                     SEMLPHeadNet, SETransformerHead, SETransformerHeadNet,
@@ -8,6 +9,7 @@ from .unified import UnifiedPoseModel, UnifiedPoseNet
 
 __all__ = ["AnchorConfig", "BACK_CONFIG", "FRONT_CONFIG", "generate_anchors",
            "BLAZEFACE_BACK", "BLAZEFACE_FRONT", "BlazeFace", "BlazeFaceNet",
+           "TURBO_FAST_BLOCKS", "turbo_fast_blocks",
            "MLPHead", "MLPHeadNet", "ResidualMLPHead", "ResidualMLPHeadNet",
            "SkipMLPHead", "SkipMLPHeadNet", "SEMLPHead", "SEMLPHeadNet",
            "SETransformerHead", "SETransformerHeadNet", "EnsembleHead",

@@ -21,9 +21,29 @@ the convs run NCHW inside.  Two details carry TF semantics over:
   * the SSD outputs are flattened anchor-major from NHWC (cell-major, then
     anchors of a cell), as the reference reshapes them.  Flattening the NCHW
     conv output directly would scramble the anchors.
+
+`forward(x, dense=..., fast_blocks=...)` mirrors the JAX `BlazeFace.apply`
+on the CPU:
+
+  * dense=True composes each block's depthwise 3x3 and pointwise 1x1 into
+    one dense 3x3 conv, K[co, ci, a, b] = pw[co, ci] * dw[ci, a, b] formed
+    in fp32, with bias pw @ dw_bias + pw_bias (`BlazeBlock.composed`);
+  * fast_blocks lists the blocks that run at single-pass bf16 (an island):
+    each of their convs takes bf16(x) and bf16(kernel), both rounded to
+    nearest even, and multiplies them in fp32 (the products of two bf16
+    values are exact in fp32), bias unrounded.  That is the JAX function
+    at `simulate_fast=True`, the model of the MXU's Precision.DEFAULT.
+    When an island is given, the four SSD 1x1 heads run so too;
+  * `turbo_fast_blocks(spec)` is the island of the detector's "turbo" mode.
+
+The dense island block (`BlazeBlock.forward(x, dense=True, fast=True)`) is
+the plain version of the island kernel (ops/kernels/dense_bf16.py).  TF32
+is off inside every single-pass conv (`fp32_exact`), so the products stay
+exact on a CUDA device too.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -32,7 +52,9 @@ from torch import nn
 
 from ..utils.device import resolve_device
 
-__all__ = ["BlazeFace", "BlazeFaceNet", "BLAZEFACE_FRONT", "BLAZEFACE_BACK"]
+__all__ = ["BlazeFace", "BlazeFaceNet", "BLAZEFACE_FRONT", "BLAZEFACE_BACK",
+           "turbo_fast_blocks", "TURBO_FAST_BLOCKS", "bf16_round",
+           "fp32_exact"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +85,43 @@ BLAZEFACE_BACK = BlazeFace(
 )
 
 
+def turbo_fast_blocks(spec: BlazeFace) -> tuple[int, ...]:
+    """The single-pass bf16 island of the "turbo" mode: the block that
+    feeds the last downsample block, that block, and every block after it
+    (the front spec's 10-15, the back spec's 11-16), as the JAX package
+    defines it (models/blazeface.py::turbo_fast_blocks)."""
+    return tuple(range(spec.downsample_blocks[-1] - 1,
+                       len(spec.block_channels)))
+
+
+TURBO_FAST_BLOCKS = turbo_fast_blocks(BLAZEFACE_FRONT)   # (10, ..., 15)
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (to nearest, ties to even), as float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+@contextlib.contextmanager
+def fp32_exact():
+    """TF32 off for cuDNN convs and matrix products inside the block, the
+    previous settings restored after it (no-ops on the CPU).  When both are
+    off already, as a CUDA `FaceDetector` leaves them, it sets nothing: a
+    setter call costs host time on the serving path."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    if saved == (False, False):
+        yield
+        return
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
 def _pad_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
     """TF SAME zero padding of an NCHW map for a k x k window at stride s:
     the smaller half before, the larger half after."""
@@ -88,13 +147,49 @@ class BlazeBlock(nn.Module):
                             device=device)
         self.pw = nn.Conv2d(cin, cout, 1, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def composed(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The dense 3x3 conv this block's depthwise and pointwise compose
+        to, in fp32: K (Cout, Cin, 3, 3) = pw[co, ci] * dw[ci, a, b] (one
+        product each, exact as in the JAX function), and its bias pw @
+        dw_bias + pw_bias (elementwise products summed, so no TF32)."""
+        pw = self.pw.weight[:, :, 0, 0]                        # (Cout, Cin)
+        K = pw[:, :, None, None] * self.dw.weight[:, 0][None]
+        return K, (pw * self.dw.bias[None, :]).sum(1) + self.pw.bias
+
+    def _conv3(self, x: torch.Tensor, w: torch.Tensor, groups: int = 1):
+        if self.stride == 2:
+            return F.conv2d(_pad_same(x, 3, 2), w, stride=2, groups=groups)
+        return F.conv2d(x, w, padding=1, groups=groups)
+
+    def forward(self, x: torch.Tensor, dense: bool = False,
+                fast: bool = False) -> torch.Tensor:
+        """The block over NCHW x: separable (the default) or `dense`
+        (`composed`); `fast` runs its convs at single-pass bf16.  With both,
+        the island step: the composed conv of bf16(x) and bf16(K) in fp32
+        (TF32 off) plus the fp32 bias, then the skip and the ReLU, the plain
+        version of the island kernel (ops/kernels/dense_bf16.py)."""
+        r = bf16_round if fast else (lambda t: t)
+        with fp32_exact() if fast else contextlib.nullcontext():
+            if dense:
+                K, bias = self.composed()
+                t = self._conv3(r(x), r(K)) + bias[:, None, None]
+            elif fast:
+                t = (self._conv3(r(x), r(self.dw.weight), self.dw.groups)
+                     + self.dw.bias[:, None, None])
+                t = (F.conv2d(r(t), r(self.pw.weight))
+                     + self.pw.bias[:, None, None])
+            else:
+                t = self.pw(self.dw(_pad_same(x, 3, 2) if self.stride == 2
+                                    else x))
+        return self.finish(t, x)
+
+    def finish(self, t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """relu(t + skip): the skip is x, max-pooled 2x2/2 at stride 2 and
+        zero-padded on the channel axis when the block widens."""
         skip = x
         if self.stride == 2:
-            x = _pad_same(x, 3, 2)
             # ceil_mode is TF SAME for a 2x2/2 window (odd edges pad with -inf)
             skip = F.max_pool2d(skip, 2, 2, ceil_mode=True)
-        t = self.pw(self.dw(x))
         if self.grow:
             skip = F.pad(skip, (0, 0, 0, 0, 0, self.grow))
         return torch.relu(t + skip)
@@ -130,19 +225,39 @@ class BlazeFaceNet(nn.Module):
         self.loc_front = nn.Conv2d(c88, spec.loc_channels[0], 1, device=device)
         self.loc_back = nn.Conv2d(c96, spec.loc_channels[1], 1, device=device)
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, *, dense: bool = False,
+                fast_blocks: tuple[int, ...] | None = None
+                ) -> dict[str, torch.Tensor]:
+        """x (B, S, S, 3) NHWC → the dict above.  `dense` composes every
+        block into one 3x3 conv; `fast_blocks` are the blocks at single-pass
+        bf16, and when there are any, the SSD heads run so too (the JAX
+        `BlazeFace.apply` with `simulate_fast=True`).  The stem stays fp32."""
+        fast = frozenset(fast_blocks or ())
+        bad = sorted(i for i in fast if not 0 <= i < len(self.blocks))
+        if bad:
+            raise ValueError(f"fast_blocks {bad} are not blocks of this "
+                             f"spec (0..{len(self.blocks) - 1})")
         B = x.shape[0]
         y = torch.relu(self.stem(_pad_same(x.permute(0, 3, 1, 2), 5, 2)))
         feat88 = None
         for i, block in enumerate(self.blocks):
-            y = block(y)
+            y = block(y, dense=dense, fast=i in fast)
             if i == self.spec.tap88_block:
                 feat88 = y
         feat96 = y
-        scores = torch.cat([_nhwc(self.cls_front(feat88)).reshape(B, -1),
-                            _nhwc(self.cls_back(feat96)).reshape(B, -1)], 1)
-        loc = torch.cat([_nhwc(self.loc_front(feat88)).reshape(B, -1, 16),
-                         _nhwc(self.loc_back(feat96)).reshape(B, -1, 16)], 1)
+
+        def ssd(conv, feat):
+            if not fast:
+                return _nhwc(conv(feat))
+            with fp32_exact():
+                return _nhwc(F.conv2d(bf16_round(feat),
+                                      bf16_round(conv.weight))
+                             + conv.bias[:, None, None])
+
+        scores = torch.cat([ssd(self.cls_front, feat88).reshape(B, -1),
+                            ssd(self.cls_back, feat96).reshape(B, -1)], 1)
+        loc = torch.cat([ssd(self.loc_front, feat88).reshape(B, -1, 16),
+                         ssd(self.loc_back, feat96).reshape(B, -1, 16)], 1)
         return {"feat88": _nhwc(feat88).contiguous(),
                 "feat96": _nhwc(feat96).contiguous(),
                 "scores": scores, "loc": loc}

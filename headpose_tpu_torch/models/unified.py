@@ -46,11 +46,15 @@ class UnifiedPoseNet(nn.Module):
         self.head96 = (head_net(spec.head96, device=device)
                        if spec.head96 is not None else None)
 
-    def forward(self, x: torch.Tensor,
-                heads: bool = True) -> dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, heads: bool = True, *,
+                dense: bool = False,
+                fast_blocks: tuple[int, ...] | None = None
+                ) -> dict[str, torch.Tensor]:
         """`heads=False` leaves out the pose maps: the detector's survivors
-        profile runs the heads after NMS on the survivors' vectors."""
-        out = self.backbone(x)
+        profile runs the heads after NMS on the survivors' vectors.  `dense`
+        and `fast_blocks` go to the backbone (`BlazeFaceNet.forward`); the
+        pose heads run in fp32 in every case."""
+        out = self.backbone(x, dense=dense, fast_blocks=fast_blocks)
         if heads and self.head88 is not None:
             out["pose_front"] = self.head88(out["feat88"])
         if heads and self.head96 is not None:

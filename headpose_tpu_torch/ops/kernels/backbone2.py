@@ -24,6 +24,13 @@ counterpart there.  The back-camera topology (input 256) thus runs A 0-2
 from a 128x128 map, B 3-5, C 6-11 and D 12-16.  A spec outside the limits
 raises ValueError.
 
+`island` (the detector's precision="turbo" and "max") lists blocks that
+leave the plan: each runs as a single-pass bf16 dense block through the
+island kernel (ops/kernels/dense_bf16.py, csrc/dense_bf16.cu), in block
+order, and a segment that holds island blocks is cut around them (the front
+model's "turbo" island 10-15 leaves A 0-2, B 3-5, C 6-9; "max", every
+block, leaves no segment and only the fp32 stem of csrc/backbone.cu).
+
 A tensor on the CPU goes through the plain versions (`run_segment_plain`,
 `apply_fused_plain`), which repeat the arithmetic in plain torch ops; a
 tensor on a CUDA device goes through the hand-written kernels, or the call
@@ -52,6 +59,7 @@ import torch
 from ...models.blazeface import BlazeFace, BlazeFaceNet
 from ...utils.build import NVCC_FLAGS_FMA, CudaLibrary
 from . import backbone as kbb
+from . import dense_bf16 as kd
 from .packing import Packed, c_ints, packed, stamp
 
 __all__ = ["SEGMENTS", "SPLIT_TOL", "segment_plan", "split_bf16",
@@ -140,28 +148,63 @@ def _reference_domain(spec: BlazeFace) -> bool:
             and 89 <= spec.block_channels[11] <= 96)
 
 
+def island_blocks(spec: BlazeFace, island=()) -> tuple[int, ...]:
+    """`island` as sorted distinct block indices; ValueError when one is not
+    a block of `spec`."""
+    island = tuple(sorted({int(i) for i in island}))
+    n = len(spec.block_channels)
+    bad = [i for i in island if not 0 <= i < n]
+    if bad:
+        raise ValueError(f"island blocks {bad} are not blocks of this spec "
+                         f"(0..{n - 1})")
+    return island
+
+
 @functools.lru_cache(maxsize=64)
-def segment_plan(spec: BlazeFace) -> dict[str, tuple[int, int, int]]:
+def segment_plan(spec: BlazeFace,
+                 island: tuple[int, ...] = ()) -> dict[str, tuple[int, int,
+                                                                 int]]:
     """The segments of the split-bf16 backbone of `spec`, in order: name ->
     (first block, last block, input resolution).  Blocks in no segment run
-    in fp32.  `SEGMENTS` on the JAX function's domain; otherwise every
-    block, split at the downsample blocks and after the tap.  ValueError
-    outside the kernel's limits."""
+    in fp32, or, when in `island`, through the island kernel.  `SEGMENTS`
+    on the JAX function's domain; otherwise every block, split at the
+    downsample blocks and after the tap.  A segment that holds island blocks
+    is cut around them: its first piece keeps its name, the next ones take
+    the name and a number (C, C2, ...).  ValueError outside the kernel's
+    limits and for an island block the spec does not have."""
     _check_limits(spec)
-    if _reference_domain(spec):
-        return dict(SEGMENTS)
+    island = island_blocks(spec, island)
     sizes, n = _in_sizes(spec), len(spec.block_channels)
-    starts = [i for i in range(n) if i == 0 or i in spec.downsample_blocks
-              or i == spec.tap88_block + 1]
-    ends = starts[1:] + [n]
-    return {name: (first, end - 1, sizes[first])
-            for name, first, end in zip(string.ascii_uppercase, starts, ends)}
+    if _reference_domain(spec):
+        base = dict(SEGMENTS)
+    else:
+        starts = [i for i in range(n) if i == 0 or i in spec.downsample_blocks
+                  or i == spec.tap88_block + 1]
+        ends = starts[1:] + [n]
+        base = {name: (first, end - 1, sizes[first]) for name, first, end
+                in zip(string.ascii_uppercase, starts, ends)}
+    plan = {}
+    for name, (first, last, _) in base.items():
+        pieces, run = [], []
+        for i in range(first, last + 1):
+            if i in island:
+                pieces += [run] if run else []
+                run = []
+            else:
+                run.append(i)
+        pieces += [run] if run else []
+        for k, run in enumerate(pieces):
+            plan[name if k == 0 else f"{name}{k + 1}"] = (run[0], run[-1],
+                                                          sizes[run[0]])
+    return plan
 
 
-def _schedule(spec: BlazeFace) -> list[tuple[str, int]]:
-    """The backbone after the stem, in block order: ("segment", name) or
-    ("fp32", block) steps.  Every step ends at or before the tap."""
-    plan = segment_plan(spec)
+def _schedule(spec: BlazeFace, island=()) -> list[tuple[str, int]]:
+    """The backbone after the stem, in block order: ("segment", name),
+    ("fp32", block) or ("island", block) steps.  Every step ends at or
+    before the tap."""
+    island = island_blocks(spec, island)
+    plan = segment_plan(spec, island)
     first = {f: name for name, (f, _, _) in plan.items()}
     steps, i = [], 0
     while i < len(spec.block_channels):
@@ -169,18 +212,13 @@ def _schedule(spec: BlazeFace) -> list[tuple[str, int]]:
             steps.append(("segment", first[i]))
             i = plan[first[i]][1] + 1
         else:
-            steps.append(("fp32", i))
+            steps.append(("island" if i in island else "fp32", i))
             i += 1
     return steps
 
 
-def _last_block(spec: BlazeFace, step: tuple[str, int]) -> int:
-    kind, key = step
-    return segment_plan(spec)[key][1] if kind == "segment" else key
-
-
 def _split_blocks(spec: BlazeFace) -> tuple[int, ...]:
-    """The split-bf16 blocks of the plan, in order."""
+    """The split-bf16 blocks of the "fast" plan, in order."""
     return tuple(i for first, last, _ in segment_plan(spec).values()
                  for i in range(first, last + 1))
 
@@ -195,11 +233,12 @@ def split_bf16(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 # ------------------------------------------------------------------ weights
 def _bf16_leaves(net: BlazeFaceNet):
-    """Per split-bf16 block: w_hi and w_lo, (Np, Kp) [out][in], zero-padded
-    to the mma tile (Np = Cout rounded up to 8, Kp = Cin rounded up to 16):
-    each row is a whole number of 16-byte chunks, and each leaf starts at a
-    multiple of 8 elements, so the kernel stages them with 16-byte copies."""
-    for i in _split_blocks(net.spec):
+    """Per block (every block, so that one pack serves every island): w_hi
+    and w_lo, (Np, Kp) [out][in], zero-padded to the mma tile (Np = Cout
+    rounded up to 8, Kp = Cin rounded up to 16): each row is a whole number
+    of 16-byte chunks, and each leaf starts at a multiple of 8 elements, so
+    the kernel stages them with 16-byte copies."""
+    for i in range(len(net.blocks)):
         w = net.blocks[i].pw.weight[:, :, 0, 0]
         cout, cin = w.shape
         pad = w.new_zeros((_round_up(cout, 8), _round_up(cin, 16)))
@@ -215,10 +254,11 @@ class SegmentPack:
     backbone's pack (`backbone.backbone_pack`: the stem, then per block dw
     (3, 3, Cin), dw bias, pw (Cin, Cout), pw bias): the stem, the fp32
     blocks and the segments' depthwise taps and biases come from it.
-    `bf16` holds w_hi and w_lo per split-bf16 block, in `blocks`' order."""
+    `bf16` holds w_hi and w_lo per block, in `blocks`' order (every block,
+    whatever the plan)."""
     f32: Packed
     bf16: Packed
-    blocks: tuple[int, ...]                # the split-bf16 blocks
+    blocks: tuple[int, ...]                # the blocks of `bf16`
     shapes: tuple[tuple[int, int], ...]    # (Np, Kp) per split-bf16 block
 
     def f32_offsets(self, block: int) -> tuple[int, int, int]:
@@ -244,24 +284,28 @@ class SegmentPack:
         return self.bf16.weights[off:off + n * k].view(n, k)
 
 
-def pack_backbone(net: BlazeFaceNet) -> SegmentPack:
+def pack_backbone(net: BlazeFaceNet,
+                  current: tuple | None = None) -> SegmentPack:
     """`net`'s weights for the split-bf16 backbone, each pack built once per
-    module (re-packed when a parameter changes; `packing.packed`)."""
+    module (re-packed when a parameter changes; `packing.packed`).
+    `current` is `packing.stamp(net)` when the caller has just taken it."""
     chans = _channels(net.spec)
-    blocks = _split_blocks(net.spec)
+    blocks = tuple(range(len(net.blocks)))
     shapes = tuple((_round_up(chans[i + 1], 8), _round_up(chans[i], 16))
                    for i in blocks)
-    current = stamp(net)             # one walk of the parameters for both
+    if current is None:
+        current = stamp(net)         # one walk of the parameters for both
     return SegmentPack(kbb.backbone_pack(net, current),
                        packed(net, _bf16_leaves, torch.bfloat16, current),
                        blocks, shapes)
 
 
 # ------------------------------------------------------------ plain version
-def _check_segment_input(net: BlazeFaceNet, x: torch.Tensor,
-                         seg: str) -> tuple[int, int, int, int]:
-    """(first, last, H, Cin) of a segment, or ValueError."""
-    plan = segment_plan(net.spec)
+def _check_segment_input(net: BlazeFaceNet, x: torch.Tensor, seg: str,
+                         island=()) -> tuple[int, int, int, int]:
+    """(first, last, H, Cin) of a segment of the plan with `island`, or
+    ValueError."""
+    plan = segment_plan(net.spec, island_blocks(net.spec, island))
     if seg not in plan:
         raise ValueError(f"seg must be one of {sorted(plan)}, got {seg!r}")
     first, last, h = plan[seg]
@@ -279,12 +323,13 @@ def _stride(net: BlazeFaceNet, i: int) -> int:
 
 
 @torch.no_grad()
-def run_segment_plain(net: BlazeFaceNet, x: torch.Tensor, seg: str):
-    """Segment `seg`'s blocks in plain torch ops on NHWC x: the fp32
-    depthwise (shifted multiply-adds), the pointwise as (x_hi@w_hi +
-    x_lo@w_hi) + x_hi@w_lo, fp32 products of the split parts (exact), then
-    the bias, the skip and the ReLU."""
-    first, last, _, _ = _check_segment_input(net, x, seg)
+def run_segment_plain(net: BlazeFaceNet, x: torch.Tensor, seg: str,
+                      island=()):
+    """Segment `seg`'s blocks (of the plan with `island`) in plain torch ops
+    on NHWC x: the fp32 depthwise (shifted multiply-adds), the pointwise as
+    (x_hi@w_hi + x_lo@w_hi) + x_hi@w_lo, fp32 products of the split parts
+    (exact), then the bias, the skip and the ReLU."""
+    first, last, _, _ = _check_segment_input(net, x, seg, island)
     y = x
     for i in range(first, last + 1):
         blk = net.blocks[i]
@@ -299,8 +344,8 @@ def run_segment_plain(net: BlazeFaceNet, x: torch.Tensor, seg: str):
     return y
 
 
-def _check_input(net: BlazeFaceNet, x: torch.Tensor) -> None:
-    segment_plan(net.spec)
+def _check_input(net: BlazeFaceNet, x: torch.Tensor, island=()) -> None:
+    segment_plan(net.spec, island_blocks(net.spec, island))
     s = net.spec.input_size
     if x.ndim != 4 or tuple(x.shape[1:]) != (s, s, 3):
         raise ValueError(f"x must be (B, {s}, {s}, 3), got {tuple(x.shape)}")
@@ -308,46 +353,55 @@ def _check_input(net: BlazeFaceNet, x: torch.Tensor) -> None:
         raise ValueError(f"x must be float32, got {x.dtype}")
 
 
-def _compose(net: BlazeFaceNet, y: torch.Tensor, segment, fp32_block):
-    """The blocks after the stem, as `_schedule` orders them: (feat88,
-    feat96)."""
+def _compose(net: BlazeFaceNet, y: torch.Tensor, island, segment,
+             fp32_block, island_block):
+    """The blocks after the stem, as `_schedule` orders them with `island`:
+    (feat88, feat96)."""
+    plan = segment_plan(net.spec, island)
+    step_fn = {"segment": segment, "fp32": fp32_block,
+               "island": island_block}
     feat88 = None
-    for step in _schedule(net.spec):
-        kind, key = step
-        y = segment(y, key) if kind == "segment" else fp32_block(y, key)
-        if _last_block(net.spec, step) == net.spec.tap88_block:
+    for kind, key in _schedule(net.spec, island):
+        y = step_fn[kind](y, key)
+        last = plan[key][1] if kind == "segment" else key
+        if last == net.spec.tap88_block:
             feat88 = y
     return feat88, y
 
 
 @torch.no_grad()
-def apply_fused_plain(net: BlazeFaceNet, x: torch.Tensor):
+def apply_fused_plain(net: BlazeFaceNet, x: torch.Tensor, island=()):
     """The whole backbone as the plan composes it, in plain torch ops: the
-    fp32 stem, then each segment, and each block outside the segments in
-    fp32 (on the front topology: segments A-C, block 11, segment D, as the
-    JAX apply_fused).  It does not call `BlazeFaceNet.forward`."""
-    _check_input(net, x)
+    fp32 stem, then each segment, each block outside the segments in fp32
+    (on the front topology: segments A-C, block 11, segment D, as the JAX
+    apply_fused) and each island block as `dense_bf16.dense_block_plain`.
+    It does not call `BlazeFaceNet.forward`."""
+    _check_input(net, x, island)
+    island = island_blocks(net.spec, island)
     w = list(kbb._leaves(net))
     return _compose(
-        net, torch.relu(kbb._stem(x, w[0], w[1])),
-        lambda y, seg: run_segment_plain(net, y, seg),
-        lambda y, i: kbb._block(y, *w[2 + 4 * i:6 + 4 * i], _stride(net, i)))
+        net, torch.relu(kbb._stem(x, w[0], w[1])), island,
+        lambda y, seg: run_segment_plain(net, y, seg, island),
+        lambda y, i: kbb._block(y, *w[2 + 4 * i:6 + 4 * i], _stride(net, i)),
+        lambda y, i: kd.dense_block_plain(net, i, y))
 
 
 # ------------------------------------------------------------------ kernel
-def _segment_args(net: BlazeFaceNet, seg: str):
-    first, last, h = segment_plan(net.spec)[seg]
+def _segment_args(net: BlazeFaceNet, seg: str, island=()):
+    first, last, h = segment_plan(net.spec,
+                                  island_blocks(net.spec, island))[seg]
     blocks = range(first, last + 1)
     return (blocks, net.spec.block_channels[first:last + 1],
             [_stride(net, i) for i in blocks], h, _channels(net.spec)[first])
 
 
-def segment_launches(net: BlazeFaceNet, seg: str) -> list[int]:
-    """The kernel launches of segment `seg` on the card: the number of
-    blocks each one runs, in order (a run of stride-1 blocks whose map fits
-    in a CTA's shared memory is one launch of chain_kernel; every other
-    block one of block_kernel).  Builds the library."""
-    _, channels, strides, h, cin = _segment_args(net, seg)
+def segment_launches(net: BlazeFaceNet, seg: str, island=()) -> list[int]:
+    """The kernel launches of segment `seg` (of the plan with `island`) on
+    the card: the number of blocks each one runs, in order (a run of
+    stride-1 blocks whose map fits in a CTA's shared memory is one launch of
+    chain_kernel; every other block one of block_kernel).  Builds the
+    library."""
+    _, channels, strides, h, cin = _segment_args(net, seg, island)
     sizes = (ctypes.c_int * len(channels))()
     n = LIBRARY.load().headpose_backbone2_groups(
         c_ints(channels), c_ints(strides), len(channels), h, cin, sizes)
@@ -356,15 +410,16 @@ def segment_launches(net: BlazeFaceNet, seg: str) -> list[int]:
 
 @torch.no_grad()
 def run_segment_cuda(net: BlazeFaceNet, x: torch.Tensor, seg: str,
-                     pack: SegmentPack | None = None) -> torch.Tensor:
+                     pack: SegmentPack | None = None,
+                     island=()) -> torch.Tensor:
     """The kernel: what `run_segment_plain` computes, on a CUDA device, on
     the current stream, without synchronising.  `pack` is
     `pack_backbone(net)`, when the caller holds it.  Raises on anything the
     kernel does not take, and when a launch fails."""
-    _check_segment_input(net, x, seg)
+    _check_segment_input(net, x, seg, island)
     kbb._check_cuda(net, x)
     pack = pack if pack is not None else pack_backbone(net)
-    blocks, channels, strides, h, cin = _segment_args(net, seg)
+    blocks, channels, strides, h, cin = _segment_args(net, seg, island)
     B = x.shape[0]
     sizes, hh = [], h
     for s in strides:
@@ -391,56 +446,75 @@ def run_segment_cuda(net: BlazeFaceNet, x: torch.Tensor, seg: str,
 
 
 @torch.no_grad()
-def apply_fused_cuda(net: BlazeFaceNet, x: torch.Tensor):
+def apply_fused_cuda(net: BlazeFaceNet, x: torch.Tensor, island=()):
     """The kernels: what `apply_fused_plain` computes, on a CUDA device: the
-    fp32 stem, each segment, each fp32 block, on the current stream,
-    without synchronising."""
-    _check_input(net, x)
+    fp32 stem, each segment, each fp32 block and each island block, on the
+    current stream, without synchronising."""
+    _check_input(net, x, island)
     kbb._check_cuda(net, x)
-    pack = pack_backbone(net)        # checked against the weights once
+    island = island_blocks(net.spec, island)
+    current = stamp(net)             # one walk of the parameters for all
+    pack = pack_backbone(net, current)   # checked against the weights once
+    dpack = kd.dense_pack(net, current) if island else None
     taps = _compose(
-        net, kbb.stem_forward_cuda(net, x, pack.f32),
-        lambda y, seg: run_segment_cuda(net, y, seg, pack),
-        lambda y, i: kbb.block_forward_cuda(net, i, y, pack.f32))
-    apply_fused.launches += 1
+        net, kbb.stem_forward_cuda(net, x, pack.f32), island,
+        lambda y, seg: run_segment_cuda(net, y, seg, pack, island),
+        lambda y, i: kbb.block_forward_cuda(net, i, y, pack.f32),
+        lambda y, i: kd.dense_block_cuda(net, i, y, dpack))
+    if segment_plan(net.spec, island):
+        apply_fused.launches += 1
     return taps
 
 
 @torch.no_grad()
-def segment_inputs(net: BlazeFaceNet, x: torch.Tensor,
-                   pack: SegmentPack) -> dict[str, torch.Tensor]:
-    """Each segment's own input for frames x on a CUDA device (one
+def segment_inputs(net: BlazeFaceNet, x: torch.Tensor, pack: SegmentPack,
+                   island=()) -> dict:
+    """Each segment's own input (keyed by its name) and each island block's
+    (keyed by its index) for frames x on a CUDA device (one
     `apply_fused_cuda` pass through the kernels): what the tools time the
-    segments alone on."""
+    segments and the island blocks alone on."""
+    island = island_blocks(net.spec, island)
+    dpack = kd.dense_pack(net) if island else None
     inputs = {}
 
     def segment(y, seg):
         inputs[seg] = y
-        return run_segment_cuda(net, y, seg, pack)
+        return run_segment_cuda(net, y, seg, pack, island)
 
-    _compose(net, kbb.stem_forward_cuda(net, x, pack.f32), segment,
-             lambda y, i: kbb.block_forward_cuda(net, i, y, pack.f32))
+    def island_block(y, i):
+        inputs[i] = y
+        return kd.dense_block_cuda(net, i, y, dpack)
+
+    _compose(net, kbb.stem_forward_cuda(net, x, pack.f32), island, segment,
+             lambda y, i: kbb.block_forward_cuda(net, i, y, pack.f32),
+             island_block)
     return inputs
 
 
-def run_segment(net: BlazeFaceNet, x: torch.Tensor, seg: str) -> torch.Tensor:
-    """Segment `seg` of the backbone over its NHWC input: the CUDA kernel
-    for a tensor on a CUDA device, the plain version for a tensor on the
-    CPU.  `run_segment.launches` counts the segments launched."""
+def run_segment(net: BlazeFaceNet, x: torch.Tensor, seg: str,
+                island=()) -> torch.Tensor:
+    """Segment `seg` (of the plan with `island`) of the backbone over its
+    NHWC input: the CUDA kernel for a tensor on a CUDA device, the plain
+    version for a tensor on the CPU.  `run_segment.launches` counts the
+    segments launched."""
     if x.device.type == "cpu":
-        return run_segment_plain(net, x, seg)
-    return run_segment_cuda(net, x, seg)
+        return run_segment_plain(net, x, seg, island)
+    return run_segment_cuda(net, x, seg, island=island)
 
 
-def apply_fused(net: BlazeFaceNet, x: torch.Tensor):
+def apply_fused(net: BlazeFaceNet, x: torch.Tensor, island=()):
     """(feat88, feat96) NHWC of x (B, S, S, 3): the CUDA kernels for a
     tensor on a CUDA device, the plain version for a tensor on the CPU.
+    `island` lists the blocks that run at single-pass bf16 through the
+    island kernel (`dense_bf16.dense_block`) instead of the plan.
 
-    `apply_fused.launches` counts the calls that launched the kernels (one
-    per call: the stem, every segment and every fp32 block)."""
+    `apply_fused.launches` counts the calls that launched the split-bf16
+    kernel (one per call whose plan has a segment: the stem, every segment
+    and every fp32 block); each island block counts on
+    `dense_bf16.dense_block.launches`."""
     if x.device.type == "cpu":
-        return apply_fused_plain(net, x)
-    return apply_fused_cuda(net, x)
+        return apply_fused_plain(net, x, island)
+    return apply_fused_cuda(net, x, island)
 
 
 run_segment.launches = 0

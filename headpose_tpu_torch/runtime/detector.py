@@ -19,6 +19,8 @@ Use:
                                         # backbone and pose-head kernels
     fast = flagship_detector(precision="fast")   # split-bf16 backbone
                                         # segments; detect runs the kernels
+    turbo = flagship_detector(precision="turbo")  # and a single-pass bf16
+                                        # island of the trailing blocks
 """
 from __future__ import annotations
 
@@ -33,10 +35,11 @@ from ..models.unified import UnifiedPoseModel, UnifiedPoseNet
 from ..ops.detection import (C_LOGIT, C_POSE, C_VALID, MAX_FACES,
                              cell_index_maps, gather_survivor_features)
 from ..ops.image import preprocess
+from ..ops.kernels.backbone2 import island_blocks
 from ..ops.kernels.postprocess import postprocess_slab
 from ..tools.convert import load_native, params_from_jax
 from ..utils.device import resolve_device
-from .fused import PRECISIONS, fused_network, head_forward
+from .fused import PRECISIONS, fused_network, head_forward, island_of
 from .results import BatchResults, Results
 
 __all__ = ["FaceDetector"]
@@ -86,19 +89,44 @@ class FaceDetector:
                  (`ops.kernels.backbone2.apply_fused`); everything else is
                  fp32.  On the CPU it runs the plain split-bf16 version, so
                  the CPU shows the mode's own rounding.
-    'turbo' and 'max' (single-pass bf16 islands, not certified on the
-    stress corpus) are not served and raise.
+      'turbo'    'fast' with an island of blocks at single-pass bf16 (the
+                 TPU's Precision.DEFAULT: bf16 operands, exact products,
+                 fp32 sums), dense-composed (one 3x3 conv per block, through
+                 `ops.kernels.dense_bf16.dense_block`), and the four SSD
+                 heads so too; the island is `turbo_island`, by default
+                 `models.blazeface.turbo_fast_blocks(spec)` (the front
+                 model's blocks 10-15, the back model's 11-16).
+      'max'      every block and the SSD heads at single-pass bf16; the
+                 stem stays fp32.
+    'turbo' and 'max' lie OUTSIDE the 0.1-degree parity budget, as the JAX
+    detector's do (headpose_tpu/runtime/detector.py): on the TPU JAX
+    certified pose error p99 0.22 / max 4.2 degrees for 'turbo' with
+    identical detection sets on the parity corpus, and p99 0.68 / max 4.9
+    degrees for 'max' with 4 of 112 images changing their detection sets;
+    neither holds the stress corpus's contract
+    (docs/certification.json).  The port's own figures on the card are in
+    docs/certification_torch.json (tools/certify_modes.py).  The pose heads
+    and the postprocess stay fp32 in every mode.  On the CPU these modes run
+    the kernels' plain versions; their island arithmetic is the JAX
+    function's at `simulate_fast=True`.
+
+    `turbo_island` (None, or block indices of the spec; () serves the
+    'fast' function) overrides the 'turbo' island.  Like `precision`, it is
+    read on every call; both are checked at construction.
     """
 
     def __init__(self, model: UnifiedPoseModel, params: Any, *,
                  score_threshold: float = 0.4, iou_threshold: float = 0.3,
                  max_faces: int = MAX_FACES, channel_order: str = "bgr",
                  precision: str = "highest", head_eval: str = "auto",
+                 turbo_island=None,
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
         if precision not in PRECISIONS:
             raise ValueError(f"precision={precision!r} is not served by the "
                              f"port; the served modes are {PRECISIONS}")
+        self.turbo_island = (island_blocks(model.backbone, turbo_island)
+                             if turbo_island is not None else None)
         if head_eval not in ("map", "survivors", "auto"):
             raise ValueError(f"head_eval must be 'map', 'survivors' or "
                              f"'auto', got {head_eval!r}")
@@ -148,9 +176,9 @@ class FaceDetector:
     def detect(self, images) -> BatchResults:
         """images: (B, H, W, 3) or (H, W, 3), uint8/float 0-255, BGR by
         default; a numpy array or a tensor.  Returns the slabs on the
-        detector's device without synchronising.  At precision 'fast' it is
-        `detect_fused`."""
-        if self.precision == "fast":
+        detector's device without synchronising.  At precision 'fast',
+        'turbo' and 'max' it is `detect_fused`."""
+        if self.precision in ("fast", "turbo", "max"):
             return self.detect_fused(images)
         return self._detect(images, self.net, _module_forward)
 
@@ -160,8 +188,13 @@ class FaceDetector:
         detector's precision) instead of the cuDNN modules; the same
         preprocess and postprocess.  Under the survivors profile the heads
         run through their kernels on the survivors' rows."""
+        island = None
+        if self.precision == "turbo":
+            island = island_of(self.model.backbone, "turbo",
+                               self.turbo_island)
         return self._detect(images, functools.partial(
-            fused_network, self.net, precision=self.precision), head_forward)
+            fused_network, self.net, precision=self.precision,
+            island=island), head_forward)
 
     def _detect(self, images, network, heads) -> BatchResults:
         """`network(x, heads=...)` is the network's dict; `heads(head, x)`

@@ -10,10 +10,17 @@ kernel entry points compose:
   ops.kernels.apply_fused        or, at precision="fast", the stem and
                                  block 11 in fp32 and the other blocks with
                                  a 3-pass split-bf16 pointwise (TPU kernel
-                                 ops/pallas/backbone2.py::run_segment)
+                                 ops/pallas/backbone2.py::run_segment);
+                                 at "turbo" and "max" the same plan with
+                                 the island's blocks (`island_of`) cut out
+                                 and run as single-pass bf16 dense blocks
+                                 through ops.kernels.dense_block (no TPU
+                                 kernel: XLA's conv at Precision.DEFAULT)
   the four SSD 1x1 heads         matrix products on the NHWC taps, flattened
                                  anchor-major (cell, then anchor), as XLA
-                                 computes them outside any kernel in JAX
+                                 computes them outside any kernel in JAX;
+                                 with a non-empty island, of bf16-rounded
+                                 operands in fp32 (single-pass, as JAX)
   `head_forward`                 both pose heads over every map cell: an
                                  `MLPHeadNet` through ops.kernels.
                                  mlp_head_forward (TPU kernel
@@ -30,7 +37,8 @@ kernel entry points compose:
 
 On a CUDA device the kernels launch (or the call raises); on the CPU their
 plain versions run.  `FaceDetector.detect_fused` serves it end to end, and
-`FaceDetector.detect` too when the detector's precision is "fast"; under the
+`FaceDetector.detect` too when the detector's precision is "fast", "turbo"
+or "max"; under the
 survivors head profile the detector calls it with `heads=False` and runs
 `head_forward` on the survivors' rows.
 """
@@ -38,24 +46,77 @@ from __future__ import annotations
 
 import torch
 
+from ..models.blazeface import (BlazeFace, bf16_round, fp32_exact,
+                                turbo_fast_blocks)
 from ..models.heads import MLPHeadNet, SETransformerHeadNet
 from ..models.unified import UnifiedPoseNet
 from ..ops.kernels.backbone import backbone_forward
 from ..ops.kernels.backbone2 import apply_fused
 from ..ops.kernels import head_mlp, se_attention
 from ..ops.kernels.head_mlp import mlp_head_forward
+from ..ops.kernels.packing import packed
 from ..ops.kernels.se_attention import se_transformer_forward
 
-__all__ = ["fused_network", "head_forward", "head_route", "PRECISIONS"]
+__all__ = ["fused_network", "head_forward", "head_route", "island_of",
+           "PRECISIONS"]
 
-PRECISIONS = ("highest", "fast")   # fp32; split-bf16 segment pointwise
+# fp32; split-bf16 segment pointwise; and that with a single-pass bf16
+# island of the trailing blocks, or of every block
+PRECISIONS = ("highest", "fast", "turbo", "max")
 
 
-def _ssd(conv: torch.nn.Conv2d, feat: torch.Tensor) -> torch.Tensor:
-    """A 1x1 conv head on an NHWC map, flattened (B, cells * channels)."""
-    w = conv.weight[:, :, 0, 0]
-    y = feat.reshape(-1, feat.shape[-1]) @ w.t() + conv.bias
+def island_of(spec: BlazeFace, precision: str,
+              turbo_island=None) -> tuple[int, ...]:
+    """The blocks that run at single-pass bf16 at `precision`, as the JAX
+    detector chooses them: at "turbo" `turbo_island` when given (() is the
+    "fast" function), else `turbo_fast_blocks(spec)`; at "max" every block;
+    none otherwise."""
+    if precision == "turbo":
+        return (tuple(turbo_island) if turbo_island is not None
+                else turbo_fast_blocks(spec))
+    if precision == "max":
+        return tuple(range(len(spec.block_channels)))
+    return ()
+
+
+def _rounded_weight(conv: torch.nn.Conv2d):
+    """A 1x1 head's weight rounded to bf16, (C, out), in fp32: built once
+    per module by `packing.packed`."""
+    yield bf16_round(conv.weight[:, :, 0, 0].t())
+
+
+def _ssd(conv: torch.nn.Conv2d, feat: torch.Tensor,
+         w: torch.Tensor | None = None) -> torch.Tensor:
+    """A 1x1 conv head on an NHWC map, flattened (B, cells * channels).
+    Given `w` (the head's weights rounded to bf16, (C, out)) and a feat
+    rounded to bf16, the product is single-pass: exact products, fp32 sums
+    (TF32 off), the JAX function at Precision.DEFAULT, bias unrounded."""
+    f = feat.reshape(-1, feat.shape[-1])
+    if w is None:
+        y = f @ conv.weight[:, :, 0, 0].t() + conv.bias
+    else:
+        with fp32_exact():
+            y = f @ w + conv.bias
     return y.reshape(feat.shape[0], -1)
+
+
+def _ssd_outputs(bb, f88: torch.Tensor, f96: torch.Tensor,
+                 single_pass: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(scores (B, 896), loc (B, 896, 16)) of the four SSD heads; with
+    `single_pass`, each tap rounded to bf16 once and the heads' rounded
+    weights from their pack."""
+    heads = (bb.cls_front, bb.cls_back, bb.loc_front, bb.loc_back)
+    ws = [None] * 4
+    if single_pass:
+        ws = [packed(h, _rounded_weight).weights.view(h.in_channels, -1)
+              for h in heads]
+        f88, f96 = bf16_round(f88), bf16_round(f96)
+    B = f88.shape[0]
+    scores = torch.cat([_ssd(heads[0], f88, ws[0]),
+                        _ssd(heads[1], f96, ws[1])], 1)
+    loc = torch.cat([_ssd(heads[2], f88, ws[2]),
+                     _ssd(heads[3], f96, ws[3])], 1).reshape(B, -1, 16)
+    return scores, loc
 
 
 def head_route(head: torch.nn.Module) -> str:
@@ -87,25 +148,30 @@ def head_forward(head: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def fused_network(net: UnifiedPoseNet, x: torch.Tensor,
-                  precision: str = "highest",
-                  heads: bool = True) -> dict[str, torch.Tensor]:
+                  precision: str = "highest", heads: bool = True,
+                  island=None) -> dict[str, torch.Tensor]:
     """x (B, S, S, 3) float32 NHWC in [-1, 1] → the dict of
     `UnifiedPoseNet.forward`, through the fused kernels; `precision` (one
-    of `PRECISIONS`) chooses the backbone; `heads=False` leaves out the pose
-    maps."""
+    of `PRECISIONS`) chooses the backbone; `island` overrides the "turbo"
+    island (`island_of`); `heads=False` leaves out the pose maps.  The pose
+    heads run in fp32 in every mode."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got "
                          f"{precision!r}")
+    if island is not None and precision != "turbo":
+        raise ValueError(f"an island is the \"turbo\" mode's option, not "
+                         f"{precision!r}'s")
     bb = net.backbone
-    backbone = apply_fused if precision == "fast" else backbone_forward
-    f88, f96 = backbone(bb, x.contiguous())   # the resize's output is a
-                                              # strided view
-    B = x.shape[0]
-    out = {"feat88": f88, "feat96": f96,
-           "scores": torch.cat([_ssd(bb.cls_front, f88),
-                                _ssd(bb.cls_back, f96)], 1),
-           "loc": torch.cat([_ssd(bb.loc_front, f88),
-                             _ssd(bb.loc_back, f96)], 1).reshape(B, -1, 16)}
+    x = x.contiguous()                # the resize's output is a strided view
+    if precision == "highest":
+        f88, f96 = backbone_forward(bb, x)
+        single_pass = False
+    else:
+        blocks = island_of(bb.spec, precision, island)
+        f88, f96 = apply_fused(bb, x, blocks)
+        single_pass = bool(blocks)
+    scores, loc = _ssd_outputs(bb, f88, f96, single_pass)
+    out = {"feat88": f88, "feat96": f96, "scores": scores, "loc": loc}
     if heads and net.head88 is not None:
         out["pose_front"] = head_forward(net.head88, f88)
     if heads and net.head96 is not None:

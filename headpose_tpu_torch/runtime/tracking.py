@@ -9,11 +9,13 @@ IoU before the EMA update, so filters follow faces, not ranks.
 Everything is a pure function over an explicit TrackState of fixed-size
 tensors (fixed slot count, validity masks) on one device, CPU or CUDA.  The
 greedy matching is a loop of tensor steps under `torch.where`, one step per
-valid detection at most: each step decided on the device, the number of
-valid detections read once per frame (on the card, one synchronisation a
-frame, never one a step).  Detections move to tracks and back by index
-(gather and index_add_ of one-hot assignments), exact in fp32 on any device
-and whatever the TF32 setting.
+valid detection at most (`min(F, T)` below an IoU threshold of -1, as the
+reference runs): each step decided on the device, the number of valid
+detections read once per frame (on the card, one synchronisation a frame,
+never one a step).  Detections move to tracks and back as sums of one-hot
+products, elementwise (no matrix product, so no TF32): exact in fp32 for
+finite values, and a NaN or an inf in any row spreads through its 0-weight
+products as it does through the reference's one-hot matmuls.
 
     tracker = IoUTrackSmoother(alpha=0.15)
     smoothed = tracker(results.boxes, results.valid,
@@ -78,11 +80,9 @@ def associate(track_boxes: torch.Tensor, track_active: torch.Tensor,
     measurement through unsmoothed).
 
     Returns (slot (F,) int64 — track slot per detection, -1 for unassigned
-    and for invalid detections; new_track (F,) bool — detection actually
-    opened a fresh track)."""
-    if iou_threshold < -1.0:
-        # below -1 an ineligible pair (-1) would match: no IoU is below 0
-        raise ValueError(f"iou_threshold must be >= -1, got {iou_threshold}")
+    and for invalid detections (below an IoU threshold of -1, junk for
+    invalid detections, as in the reference); new_track (F,) bool —
+    detection actually opened a fresh track)."""
     F, T = boxes.shape[0], track_boxes.shape[0]
     dev = boxes.device
     # IoU matrix detections x tracks
@@ -108,8 +108,11 @@ def associate(track_boxes: torch.Tensor, track_active: torch.Tensor,
     # it clears the threshold, and its row and column retire.  A step that
     # takes a pair retires a valid row, and once a step takes none no later
     # step does, so the valid detections bound the steps the reference's
-    # min(F, T) would run to the same end
-    for _ in range(min(int(valid.sum()), T)):
+    # min(F, T) would run to the same end.  Below -1 that bound fails (a
+    # retired or ineligible pair, -1, clears the threshold), so the
+    # reference's min(F, T) steps run
+    steps = min(F, T) if iou_threshold < -1.0 else min(int(valid.sum()), T)
+    for _ in range(steps):
         flat = torch.argmax(m.reshape(-1))
         i, j = flat // T, flat % T
         ok = m.reshape(-1)[flat] > iou_threshold
@@ -156,26 +159,22 @@ def tracks_update(state: TrackState, boxes: torch.Tensor,
     slot, new_track = associate(state.boxes, state.active, state.age,
                                 boxes, valid, iou_threshold)
 
-    # detection -> track: each track slot takes at most one valid detection
-    # (assigned slots are distinct), so an index_add_ onto zeros is an
-    # exact copy; rows that go nowhere land on a spare row T, dropped
-    assigned = valid & (slot >= 0)
-    dest = torch.where(assigned, slot, T)
+    # detection -> track as the reference's one-hot product (T, F) @ (F, C),
+    # written as elementwise products summed over F: one weight of 1 at
+    # most per sum, so finite rows copy exactly, and 0 * NaN (or 0 * inf)
+    # spreads a non-finite value of any row, valid or not, as it does there
+    cols = torch.arange(T, device=boxes.device)
+    onehot = ((slot[None, :] == cols[:, None])
+              & valid[None, :]).to(torch.float32)                  # (T, F)
 
     def to_tracks(a):
         flat = a.reshape(F, -1).to(torch.float32)
-        out = torch.zeros((T + 1, flat.shape[1]), dtype=torch.float32,
-                          device=flat.device)
-        out.index_add_(0, dest, flat)
-        return out[:T].reshape((T,) + tuple(a.shape[1:]))
+        out = (onehot[:, :, None] * flat[None]).sum(1)
+        return out.reshape((T,) + tuple(a.shape[1:]))
 
     track_meas = tree_map(to_tracks, signals)
-    got = torch.zeros(T + 1, dtype=torch.bool, device=boxes.device)
-    got[dest] = True                                                # (T,)
-    got = got[:T]
-    opened = torch.zeros(T + 1, dtype=torch.bool, device=boxes.device)
-    opened[torch.where(assigned & new_track, slot, T)] = True
-    opened = opened[:T]
+    got = onehot.sum(1) > 0                                         # (T,)
+    opened = (onehot * new_track.to(torch.float32)[None, :]).sum(1) > 0
 
     # fresh tracks must seed, not blend with the slot's previous occupant
     ema = EmaState(
@@ -186,14 +185,13 @@ def tracks_update(state: TrackState, boxes: torch.Tensor,
             state.ema.initialized))
     ema, smoothed_tracks = ema_update(ema, track_meas, alpha, valid=got)
 
-    # smoothed values back to detection order; a detection with no slot
-    # reads zero, as the one-hot product of the reference gives
-    src = torch.clamp(slot, min=0)
-
+    # smoothed values back to detection order: the transposed product, so a
+    # detection with no slot reads zero, and a non-finite track value
+    # spreads as it does there
     def to_dets(a):
-        flat = a.reshape(T, -1).to(torch.float32)[src]
-        flat = torch.where(assigned[:, None], flat, 0.0)
-        return flat.reshape((F,) + tuple(a.shape[1:]))
+        flat = a.reshape(T, -1).to(torch.float32)
+        out = (onehot.t()[:, :, None] * flat[None]).sum(1)
+        return out.reshape((F,) + tuple(a.shape[1:]))
 
     smoothed = tree_map(to_dets, smoothed_tracks)
     # valid detections that received no slot (slot overflow — more fresh

@@ -585,20 +585,21 @@ def test_back_fast_detect_against_highest(back):
 
 
 def test_fused_network_fast_uses_apply_fused(fast):
-    """fused_network(..., "fast") takes its taps from apply_fused; an
-    unknown precision raises."""
+    """fused_network(..., "fast") takes its taps from apply_fused; a
+    precision outside PRECISIONS raises."""
     x = torch.from_numpy(np.random.default_rng(5).uniform(
         -1, 1, (2, 128, 128, 3)).astype(np.float32))
     out = fused_network(fast.net, x, precision="fast")
     f88, f96 = kb2.apply_fused_plain(fast.net.backbone, x)
     assert torch.equal(out["feat88"], f88) and torch.equal(out["feat96"], f96)
     with pytest.raises(ValueError, match="precision"):
-        fused_network(fast.net, x, precision="turbo")
+        fused_network(fast.net, x, precision="bf16")
 
 
-@pytest.mark.parametrize("precision", ["turbo", "max", "high"])
+@pytest.mark.parametrize("precision", ["default", "bf16", "high"])
 def test_unserved_precisions_raise(precision):
-    """The single-pass bf16 islands are not certified on the stress corpus
-    (docs/certification.json): the message names the served modes."""
+    """Precisions outside PRECISIONS raise: JAX's pass-through strings
+    ("default", "high": jax.default_matmul_precision's own) and any other;
+    the message names the served modes."""
     with pytest.raises(ValueError, match="'highest', 'fast'"):
         flagship_detector(device="cpu", precision=precision)

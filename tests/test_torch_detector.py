@@ -169,11 +169,11 @@ def test_trim_is_the_slab(det, corpus):
         np.testing.assert_array_equal(r.poses, batch.poses[b].numpy()[m])
 
 
-@pytest.mark.parametrize("kw", [dict(precision="turbo"),
+@pytest.mark.parametrize("kw", [dict(precision="default"),
                                 dict(head_eval="bogus"),
                                 dict(channel_order="bgra"),
                                 dict(device="mps"),
-                                dict(precision="max")])
+                                dict(precision="bf16")])
 def test_unserved_options_raise(kw):
     with pytest.raises(ValueError):
         flagship_detector(**{"device": "cpu", **kw})

@@ -5,7 +5,10 @@ their plain versions (rtol 1e-4 / atol 1e-5 and rtol = atol = 1e-5: the
 kernels sum in another order than cuBLAS), and detect_fused against detect;
 the split-bf16 segment kernel (apply_fused) against its plain version
 (SPLIT_TOL) and an fp32 backbone (atol 5e-4), on the flagship and the back
-model, and the "fast" detector against the "highest" one; the
+model, and the "fast" detector against the "highest" one; the island
+kernel of "turbo" and "max" (dense_block) against its plain version (1e-5
+of the map), their detects' launches, and the empty island against
+"fast"; the
 SE-Transformer head kernel (se_transformer_forward) against its plain
 version (rtol 1e-4 / atol 1e-5),
 and the SE-Transformer model's detect_fused in both head profiles;
@@ -454,6 +457,94 @@ def test_back_fast_detect_matches_highest(cuda):
     assert torch.equal(got.valid, want.valid)
     assert int(want.valid.sum()) >= 1
     assert float((got.poses - want.poses).abs().max()) < 0.05
+
+
+# ------------------------------------------- single-pass bf16 islands
+@pytest.mark.parametrize("case", ["flagship_b3", "back_b2", "wide_d_b2"])
+def test_island_kernel_matches_plain(cuda, flagship, case):
+    """The island kernel (mma.sync bf16 -> fp32 on the same bf16 operands
+    as its plain version, another fp32 sum order) block by block on the
+    "max" plan's inputs (every block of the flagship, the back model, and a
+    random-init spec widening to 128 channels), within 1e-5 of the map's
+    largest |value|; one launch counted per block."""
+    import warnings
+
+    from headpose_tpu_torch.ops.kernels import dense_bf16 as kd
+    from headpose_tpu_torch.pretrained import load_pretrained
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+
+    b = int(case.split("_b")[1])
+    imgs = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"][:b]
+    if case.startswith("back"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            net = FaceDetector(*load_pretrained(
+                "unified-back-distilled")).net.backbone
+    elif case.startswith("flagship"):
+        net = flagship.net.backbone
+    else:
+        net = _random_init(BlazeFaceNet(WIDE_D, device=cuda), 7)
+    x = preprocess(torch.from_numpy(imgs).to(cuda),
+                   net.spec.input_size).contiguous()
+    island = tuple(range(len(net.blocks)))
+    inputs = kb2.segment_inputs(net, x, kb2.pack_backbone(net), island)
+    for i in island:
+        before = kd.dense_block.launches
+        got = kd.dense_block(net, i, inputs[i])
+        assert kd.dense_block.launches == before + 1
+        want = kd.dense_block_plain(net, i, inputs[i])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+def test_island_kernel_rejects_what_it_does_not_take(cuda, flagship):
+    from headpose_tpu_torch.ops.kernels import dense_bf16 as kd
+
+    net = flagship.net.backbone
+    with pytest.raises(ValueError, match="float32"):
+        kd.dense_block(net, 12, torch.zeros((1, 8, 8, 96), device=cuda,
+                                            dtype=torch.float16))
+    with pytest.raises(ValueError, match="even map"):
+        kd.dense_block(net, 11, torch.zeros((1, 15, 15, 88), device=cuda))
+    empty = kd.dense_block(net, 12, torch.zeros((0, 8, 8, 96), device=cuda))
+    assert tuple(empty.shape) == (0, 8, 8, 96)
+
+
+@pytest.mark.parametrize("mode", ["turbo", "max"])
+def test_turbo_and_max_detect_launch_the_island_kernel(cuda, flagship, mode):
+    """One detect at "turbo" launches the split-bf16 kernel over segments A,
+    B, C 6-9 and the island kernel 6 times; at "max" 16 times and no
+    segment; identical detection sets to "highest" on e2e_production.npz
+    and poses within the JAX certificate's pose max of the mode (4.21 and
+    4.89 degrees)."""
+    from headpose_tpu_torch.ops.kernels import dense_bf16 as kd
+    from headpose_tpu_torch.pretrained import flagship_detector
+
+    det = flagship_detector(precision=mode)
+    img = np.load(os.path.join(GOLDEN, "e2e_production.npz"))["img"]
+    before = (kd.dense_block.launches, kb2.run_segment.launches)
+    got = det.detect(img)
+    torch.cuda.synchronize()
+    n = 6 if mode == "turbo" else 16
+    assert (kd.dense_block.launches - before[0],
+            kb2.run_segment.launches - before[1]) == (
+        n, 3 if mode == "turbo" else 0)
+    want = flagship.detect(img)
+    assert torch.equal(got.valid, want.valid)
+    tol = {"turbo": 4.21, "max": 4.89}[mode]
+    assert float((got.poses - want.poses).abs().max()) < tol
+
+
+def test_empty_island_is_fast_on_the_card(cuda, flagship):
+    """turbo_island=() gives the "fast" slabs bit for bit."""
+    from headpose_tpu_torch.pretrained import flagship_detector
+
+    imgs = _corpus(16)
+    a = flagship_detector(precision="turbo", turbo_island=()).detect(imgs)
+    b = flagship_detector(precision="fast").detect(imgs)
+    _assert_equal({k: getattr(a, k) for k in FIELDS},
+                  {k: getattr(b, k) for k in FIELDS})
 
 
 # ------------------------------------------------- SE-Transformer head

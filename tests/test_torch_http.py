@@ -339,7 +339,7 @@ def test_without_a_card_it_raises_and_never_serves_on_the_cpu(monkeypatch):
             thttp._build_detector(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         thttp.main(["--port", "0"])
-    for precision in ("turbo", "max"):
+    for precision in ("default", "bf16"):
         with pytest.raises(SystemExit):
             thttp.main(["--port", "0", "--precision", precision])
         with pytest.raises(ValueError, match="not served"):

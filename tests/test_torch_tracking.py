@@ -177,14 +177,66 @@ def test_track_sequence_one_pass_and_chunked_match_jax(case):
                                        np.asarray(want[k])[valid], **TOL)
 
 
+def _frames_against_jax(boxes, valid, sig, slots, thr, frames):
+    """tracks_update frame by frame from the same state in JAX and in the
+    port: states and smoothed signals of every row (valid or not) within
+    TOL, NaN where JAX has NaN; associate's slots equal on every row."""
+    import jax.numpy as jnp
+
+    jst = jtr.tracks_init({k: jnp.asarray(v[0]) for k, v in sig.items()},
+                          slots)
+    tst = ttr.tracks_init({k: _t(v[0]) for k, v in sig.items()}, slots)
+    for t in frames:
+        jslot, jnew = jtr.associate(jst.boxes, jst.active, jst.age,
+                                    jnp.asarray(boxes[t]),
+                                    jnp.asarray(valid[t]), thr)
+        tslot, tnew = ttr.associate(tst.boxes, tst.active, tst.age,
+                                    _t(boxes[t]), _t(valid[t]), thr)
+        np.testing.assert_array_equal(tslot.numpy(), np.asarray(jslot))
+        np.testing.assert_array_equal(tnew.numpy(), np.asarray(jnew))
+        jst, jout = jtr.tracks_update(
+            jst, jnp.asarray(boxes[t]), jnp.asarray(valid[t]),
+            {k: jnp.asarray(a[t]) for k, a in sig.items()}, alpha=0.3,
+            iou_threshold=thr)
+        tst, tout = ttr.tracks_update(
+            tst, _t(boxes[t]), _t(valid[t]),
+            {k: _t(a[t]) for k, a in sig.items()}, alpha=0.3,
+            iou_threshold=thr)
+        _assert_state_equal(tst, jst)
+        for k in sig:
+            np.testing.assert_allclose(tout[k].numpy(), np.asarray(jout[k]),
+                                       **TOL)
+    return tst
+
+
 def test_threshold_below_minus_one_is_refused():
-    """Below -1 the reference would match pairs it marks ineligible (-1):
-    the port refuses such a threshold."""
-    boxes, valid, _ = _timeline(seed=0, faces=2)
-    with pytest.raises(ValueError, match="iou_threshold"):
-        ttr.associate(_t(boxes[0]), torch.ones(4, dtype=torch.bool),
-                      torch.zeros(4, dtype=torch.int32), _t(boxes[0]),
-                      _t(valid[0]), iou_threshold=-1.5)
+    """Below -1 the reference matches pairs it marks ineligible or retired
+    (-1 clears the threshold) and runs all of its min(F, T) greedy steps;
+    the port no longer refuses such a threshold and runs the same steps:
+    slots (invalid rows included), states and smoothed signals as JAX's
+    over a timeline at iou_threshold=-1.5."""
+    boxes, valid, poses = _timeline(seed=0, faces=3)
+    st = _frames_against_jax(boxes, valid, {"poses": poses, "boxes": boxes},
+                             slots=4, thr=-1.5, frames=range(6))
+    assert bool(st.active.any())
+
+
+@pytest.mark.parametrize("what", ["nan_row", "inf_row", "invalid_nan_row"])
+def test_nonfinite_signals_spread_as_in_jax(what):
+    """A NaN or inf in one detection row (valid, or invalid and so weighted
+    0) goes through JAX's one-hot products, where 0 * NaN and 0 * inf are
+    NaN: every track's measurement of that channel turns NaN, and so does
+    every detection's smoothed value from then on.  The port's elementwise
+    one-hot sums give the same NaN pattern and the same finite values
+    (TOL)."""
+    boxes, valid, poses = _timeline(seed=5, faces=3, p_face=0.9)
+    poses = poses.copy()
+    row = int(np.flatnonzero(valid[2] if what != "invalid_nan_row"
+                             else ~valid[2])[0])
+    poses[2, row, 1] = np.inf if what == "inf_row" else np.nan
+    st = _frames_against_jax(boxes, valid, {"poses": poses, "boxes": boxes},
+                             slots=12, thr=0.3, frames=range(5))
+    assert bool(torch.isnan(st.ema.value["poses"][:, 1]).any())
 
 
 def test_iou_track_smoother_matches_jax():

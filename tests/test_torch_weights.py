@@ -168,6 +168,10 @@ res = flagship_detector(device="cpu").detect_single(img)
 assert len(res) > 0
 fast = flagship_detector(device="cpu", precision="fast").detect_single(img)
 assert len(fast) == len(res)
+for mode in ("turbo", "max"):
+    assert len(flagship_detector(device="cpu",
+                                 precision=mode).detect_single(img)) == len(res)
+import headpose_tpu_torch.tools.certify_modes
 from headpose_tpu_torch.pretrained import load_pretrained
 from headpose_tpu_torch.runtime.detector import FaceDetector
 

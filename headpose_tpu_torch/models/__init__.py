@@ -5,7 +5,7 @@ from .heads import (EnsembleHead, EnsembleHeadNet, MLPHead, MLPHeadNet,
                     ResidualMLPHead, ResidualMLPHeadNet, SEMLPHead,
                     SEMLPHeadNet, SETransformerHead, SETransformerHeadNet,
                     SkipMLPHead, SkipMLPHeadNet, head_net)
-from .unified import UnifiedPoseModel, UnifiedPoseNet
+from .unified import UnifiedPoseModel, UnifiedPoseNet, join_models
 
 __all__ = ["AnchorConfig", "BACK_CONFIG", "FRONT_CONFIG", "generate_anchors",
            "BLAZEFACE_BACK", "BLAZEFACE_FRONT", "BlazeFace", "BlazeFaceNet",
@@ -14,4 +14,4 @@ __all__ = ["AnchorConfig", "BACK_CONFIG", "FRONT_CONFIG", "generate_anchors",
            "SkipMLPHead", "SkipMLPHeadNet", "SEMLPHead", "SEMLPHeadNet",
            "SETransformerHead", "SETransformerHeadNet", "EnsembleHead",
            "EnsembleHeadNet", "head_net", "UnifiedPoseModel",
-           "UnifiedPoseNet"]
+           "UnifiedPoseNet", "join_models"]

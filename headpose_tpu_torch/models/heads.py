@@ -1,9 +1,16 @@
 """Pose-regression heads, PyTorch edition.
 
-Port of headpose_tpu/models/heads.py, inference only.  The reference defines
-its heads as stacks of 1x1 convolutions; a 1x1 conv over an HxW map is a
-matmul over the channel axis, so every head module serves both per-face
-vectors (N, C) and whole NHWC feature maps (B, H, W, C).
+Port of headpose_tpu/models/heads.py.  The reference defines its heads as
+stacks of 1x1 convolutions; a 1x1 conv over an HxW map is a matmul over the
+channel axis, so every head module serves both per-face vectors (N, C) and
+whole NHWC feature maps (B, H, W, C).
+
+Training support, as the JAX package has it: `spec.init(generator)` draws
+fresh parameters in JAX layout (Glorot-uniform kernels, zero biases, from an
+explicit `torch.Generator`); `module(x, generator)` is train mode, where
+the heads with a `dropout_rate` drop whole channels after the layers JAX
+drops them after (the generator draws the masks); `module.l2_penalty(rate)`
+is the Keras regularization term each family adds to the loss.
 
 Families (spec → module):
   MLPHead            MLPHeadNet            dense chain
@@ -31,6 +38,7 @@ import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -38,9 +46,52 @@ from ..core.activations import get_activation
 from ..utils.device import resolve_device
 
 __all__ = ["MLPHead", "ResidualMLPHead", "SkipMLPHead", "SEMLPHead",
-           "SETransformerHead", "EnsembleHead", "MLPHeadNet",
+           "SETransformerHead", "EnsembleHead", "HEAD_REGISTRY", "MLPHeadNet",
            "ResidualMLPHeadNet", "SkipMLPHeadNet", "SEMLPHeadNet",
            "SETransformerHeadNet", "EnsembleHeadNet", "head_net"]
+
+
+Params = dict[str, Any]
+
+
+# -------------------------------------------------------------------- init
+def _uniform(generator: torch.Generator, shape: tuple[int, ...],
+             limit: float) -> np.ndarray:
+    return torch.empty(shape, dtype=torch.float32).uniform_(
+        -limit, limit, generator=generator).numpy()
+
+
+def _glorot(generator: torch.Generator, cin: int, cout: int) -> np.ndarray:
+    return _uniform(generator, (cin, cout), math.sqrt(6.0 / (cin + cout)))
+
+
+def _dense_init(generator: torch.Generator, cin: int, cout: int) -> Params:
+    return {"w": _glorot(generator, cin, cout),
+            "b": np.zeros((cout,), np.float32)}
+
+
+def _se_init(generator: torch.Generator, channels: int,
+             reduction: int) -> Params:
+    mid = channels // reduction
+    return {"fc1": _dense_init(generator, channels, mid),
+            "fc2": _dense_init(generator, mid, channels)}
+
+
+def _spatial_dropout(x: torch.Tensor, rate: float,
+                     generator: torch.Generator | None) -> torch.Tensor:
+    """SpatialDropout2D over (..., C), as JAX's `_spatial_dropout`: each
+    leading row keeps or drops whole channels (keep probability 1 - rate),
+    the kept ones scaled by 1/keep.  No generator (inference): identity."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+def _squares(tensors) -> torch.Tensor:
+    return sum(t.square().sum() for t in tensors)
 
 
 # ------------------------------------------------------------------- specs
@@ -55,9 +106,16 @@ class MLPHead:
 
     in_features: int
     layers: tuple[tuple[int, str], ...]
-    dropout_rate: float = 0.0  # training only; the port serves inference
+    dropout_rate: float = 0.0  # after every layer, train mode only
 
     spatial_context = False    # per cell
+
+    def init(self, generator: torch.Generator) -> Params:
+        layers, cin = [], self.in_features
+        for cout, _ in self.layers:
+            layers.append(_dense_init(generator, cin, cout))
+            cin = cout
+        return {"layers": layers}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +133,19 @@ class ResidualMLPHead:
 
     spatial_context = False
 
+    def init(self, generator: torch.Generator) -> Params:
+        params: Params = {"proj": _dense_init(generator, self.in_features,
+                                              self.width)}
+        params["blocks"] = [
+            {"fc1": _dense_init(generator, self.width, self.width),
+             "fc2": _dense_init(generator, self.width, self.width)}
+            for _ in range(self.num_blocks)]
+        params["bottleneck"] = _dense_init(generator, self.width,
+                                           self.bottleneck)
+        params["out"] = _dense_init(generator, self.bottleneck,
+                                    self.out_features)
+        return params
+
 
 @dataclasses.dataclass(frozen=True)
 class SkipMLPHead:
@@ -89,6 +160,12 @@ class SkipMLPHead:
 
     spatial_context = False
 
+    def init(self, generator: torch.Generator) -> Params:
+        return {"enc1": _dense_init(generator, self.in_features, self.enc1),
+                "enc2": _dense_init(generator, self.enc1, self.enc2),
+                "dec": _dense_init(generator, self.enc2, self.enc1),
+                "out": _dense_init(generator, self.enc1, self.out_features)}
+
 
 @dataclasses.dataclass(frozen=True)
 class SEMLPHead:
@@ -100,6 +177,12 @@ class SEMLPHead:
     out_features: int = 3
 
     spatial_context = True
+
+    def init(self, generator: torch.Generator) -> Params:
+        return {"se": _se_init(generator, self.in_features, self.reduction),
+                "fc": _dense_init(generator, self.in_features, self.hidden),
+                "out": _dense_init(generator, self.hidden,
+                                   self.out_features)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +199,29 @@ class SETransformerHead:
     out_features: int = 3
 
     spatial_context = True
+
+    def init(self, generator: torch.Generator) -> Params:
+        C, H, D = self.in_features, self.num_heads, self.key_dim
+        lim_qkv = math.sqrt(6.0 / (C + H * D))
+        lim_out = math.sqrt(6.0 / (H * D + C))
+        params: Params = {"se": _se_init(generator, C, self.reduction)}
+        for name in ("query", "key", "value"):
+            params[name] = {"w": _uniform(generator, (C, H, D), lim_qkv),
+                            "b": np.zeros((H, D), np.float32)}
+        params["attn_out"] = {"w": _uniform(generator, (H, D, C), lim_out),
+                              "b": np.zeros((C,), np.float32)}
+
+        def layer_norm():
+            return {"g": np.ones((C,), np.float32),
+                    "b": np.zeros((C,), np.float32)}
+
+        params["ln1"] = layer_norm()
+        params["ff1"] = _dense_init(generator, C, self.ff_dim)
+        params["ff2"] = _dense_init(generator, self.ff_dim, C)
+        params["ln2"] = layer_norm()
+        params["fc"] = _dense_init(generator, C, self.hidden)
+        params["out"] = _dense_init(generator, self.hidden, self.out_features)
+        return params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,6 +264,15 @@ class EnsembleHead:
         without the attribute counts as spatial, as in the JAX package."""
         return any(getattr(m, "spatial_context", True) for m in self.members)
 
+    def init(self, generator: torch.Generator) -> Params:
+        return {"members": [m.init(generator) for m in self.members]}
+
+
+HEAD_REGISTRY = {"mlp": MLPHead, "residual_mlp": ResidualMLPHead,
+                 "skip_mlp": SkipMLPHead, "se_mlp": SEMLPHead,
+                 "se_transformer": SETransformerHead,
+                 "ensemble": EnsembleHead}
+
 
 # ----------------------------------------------------------------- modules
 class MLPHeadNet(nn.Module):
@@ -175,10 +290,21 @@ class MLPHeadNet(nn.Module):
         self.layers = nn.ModuleList(layers)
         self._acts = [get_activation(act) for _, act in spec.layers]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """`generator` turns train-mode dropout on: after every layer, the
+        linear output layer included, as JAX's `MLPHead.apply`."""
         for layer, act in zip(self.layers, self._acts):
-            x = act(layer(x))
+            x = _spatial_dropout(act(layer(x)), self.spec.dropout_rate,
+                                 generator)
         return x
+
+    def l2_penalty(self, rate: float):
+        """Keras l2 on every kernel and bias, a loss term."""
+        if rate == 0.0:
+            return 0.0
+        return rate * _squares(t for layer in self.layers
+                               for t in (layer.weight, layer.bias))
 
 
 class ResidualMLPHeadNet(nn.Module):
@@ -197,13 +323,29 @@ class ResidualMLPHeadNet(nn.Module):
         self.out = nn.Linear(spec.bottleneck, spec.out_features, device=device)
         self._act = get_activation(spec.activation)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        act = self._act
-        x = act(self.proj(x))
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Train-mode dropout (a generator) after the projection, each
+        block's two layers and the bottleneck, as JAX's."""
+        act, rate = self._act, self.spec.dropout_rate
+
+        def drop(v):
+            return _spatial_dropout(v, rate, generator)
+
+        x = drop(act(self.proj(x)))
         for blk in self.blocks:
-            y = act(blk["fc2"](act(blk["fc1"](x))))
+            y = drop(act(blk["fc1"](x)))
+            y = drop(act(blk["fc2"](y)))
             x = torch.relu(x + y)
-        return self.out(act(self.bottleneck(x)))
+        return self.out(drop(act(self.bottleneck(x))))
+
+    def l2_penalty(self, rate: float):
+        """Kernels only, as the reference regularizes this family."""
+        if rate == 0.0:
+            return 0.0
+        layers = [self.proj, self.bottleneck, self.out]
+        layers += [blk[k] for blk in self.blocks for k in ("fc1", "fc2")]
+        return rate * _squares(layer.weight for layer in layers)
 
 
 class SkipMLPHeadNet(nn.Module):
@@ -218,11 +360,25 @@ class SkipMLPHeadNet(nn.Module):
         self.out = nn.Linear(spec.enc1, spec.out_features, device=device)
         self._act = get_activation(spec.activation)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        act = self._act
-        x1 = act(self.enc1(x))
-        x2 = act(self.enc2(x1))
-        return self.out(act(self.dec(x2)) + x1)
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Train-mode dropout (a generator) after enc1, enc2 and the skip
+        add, as JAX's."""
+        act, rate = self._act, self.spec.dropout_rate
+
+        def drop(v):
+            return _spatial_dropout(v, rate, generator)
+
+        x1 = drop(act(self.enc1(x)))
+        x2 = drop(act(self.enc2(x1)))
+        return self.out(drop(act(self.dec(x2)) + x1))
+
+    def l2_penalty(self, rate: float):
+        """Kernels only, as the reference regularizes this family."""
+        if rate == 0.0:
+            return 0.0
+        return rate * _squares(getattr(self, k).weight
+                               for k in ("enc1", "enc2", "dec", "out"))
 
 
 class _SqueezeExcite(nn.Module):
@@ -253,8 +409,13 @@ class SEMLPHeadNet(nn.Module):
         self.fc = nn.Linear(spec.in_features, spec.hidden, device=device)
         self.out = nn.Linear(spec.hidden, spec.out_features, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """No dropout in this family: train mode is inference."""
         return self.out(torch.relu(self.fc(self.se(x))))
+
+    def l2_penalty(self, rate: float):
+        return 0.0
 
 
 class _Weights(nn.Module):
@@ -305,7 +466,12 @@ class SETransformerHeadNet(nn.Module):
         self.fc = nn.Linear(C, spec.hidden, device=device)
         self.out = nn.Linear(spec.hidden, spec.out_features, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def l2_penalty(self, rate: float):
+        return 0.0
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """No dropout in this family: train mode is inference."""
         squeeze = x.ndim == 2
         if squeeze:
             x = x[:, None, None, :]
@@ -326,12 +492,14 @@ class SETransformerHeadNet(nn.Module):
 
 
 class EnsembleHeadNet(nn.Module):
-    """The members of an `EnsembleHead`, combined as the JAX package's
-    inference path combines them (`EnsembleHead._apply_grouped`): members
-    with equal specs are evaluated together, as one `torch.func.vmap` over
-    their stacked weights (batched products), and the groups are summed in
-    the order they first appear; then the sum is divided by K, or weighted
-    per member and angle and offset by the bias."""
+    """The members of an `EnsembleHead`, combined as the JAX package
+    combines them.  Inference (`EnsembleHead._apply_grouped`): members with
+    equal specs are evaluated together, as one `torch.func.vmap` over their
+    stacked weights (batched products), and the groups are summed in the
+    order they first appear.  Train mode (a generator): the members one
+    after another, each drawing its own dropout masks, as JAX's training
+    path.  Then the sum is divided by K, or weighted per member and angle
+    and offset by the bias.  Both paths carry gradients to every member."""
 
     def __init__(self, spec: EnsembleHead, *,
                  device: str | torch.device | None = None):
@@ -359,27 +527,55 @@ class EnsembleHeadNet(nn.Module):
         self.register_buffer("_bias", bias, persistent=False)
         self._stacks: tuple[tuple, list] | None = None
 
+    def _stack(self, idx: list[int]):
+        """(params, buffers) of the group's members stacked along a new
+        first axis; differentiable, so gradients reach each member."""
+        mods = [self.members[i] for i in idx]
+        return tuple({name: torch.stack([dict(getter(m))[name]
+                                         for m in mods])
+                      for name, _ in getter(mods[0])}
+                     for getter in (nn.Module.named_parameters,
+                                    nn.Module.named_buffers))
+
     def _stacked(self) -> list:
-        """Per group: its members' weights stacked along a new first axis
-        (None for a group of one) and its rows of the stack weights (None
-        for an average); kept until a parameter changes."""
+        """Per group: its members' weights stacked (None for a group of
+        one); kept without gradients until a parameter changes."""
         from ..ops.kernels.packing import stamp   # ops imports this module
 
         current = stamp(self)
         if self._stacks is None or self._stacks[0] != current:
             with torch.no_grad():
-                stacks = [(torch.func.stack_module_state(
-                    [self.members[i] for i in idx]) if len(idx) > 1 else None,
-                    self._weights[idx] if self._weights is not None
-                    else None) for idx in self.groups]
+                stacks = [self._stack(idx) if len(idx) > 1 else None
+                          for idx in self.groups]
             self._stacks = (current, stacks)
         return self._stacks[1]
 
-    @torch.no_grad()
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if generator is not None:
+            acc = None
+            for i, member in enumerate(self.members):
+                y = member(x, generator)
+                if self._weights is not None:
+                    y = y * self._weights[i]
+                acc = y if acc is None else acc + y
+        else:
+            acc = self._grouped(x)
+        if self._weights is None:
+            return acc / len(self.members)
+        if self._bias is not None:
+            acc = acc + self._bias
+        return acc
+
+    def _grouped(self, x: torch.Tensor) -> torch.Tensor:
+        grad = torch.is_grad_enabled() and any(
+            p.requires_grad for p in self.parameters())
+        stacks = ([self._stack(idx) if len(idx) > 1 else None
+                   for idx in self.groups] if grad else self._stacked())
         acc = None
-        for idx, (stack, w) in zip(self.groups, self._stacked()):
+        for idx, stack in zip(self.groups, stacks):
             first = self.members[idx[0]]
+            w = self._weights[idx] if self._weights is not None else None
             if stack is None:
                 y = first(x)
                 if w is not None:
@@ -396,11 +592,12 @@ class EnsembleHeadNet(nn.Module):
                                         + (3,))
                 y = ys.sum(dim=0)
             acc = y if acc is None else acc + y
-        if self._weights is None:
-            return acc / len(self.members)
-        if self._bias is not None:
-            acc = acc + self._bias
         return acc
+
+    def l2_penalty(self, rate: float):
+        if rate == 0.0:
+            return 0.0
+        return sum(m.l2_penalty(rate) for m in self.members)
 
 
 _HEAD_NETS = {MLPHead: MLPHeadNet, ResidualMLPHead: ResidualMLPHeadNet,

@@ -20,7 +20,7 @@ from ..utils.device import resolve_device
 from .blazeface import BLAZEFACE_FRONT, BlazeFace, BlazeFaceNet
 from .heads import head_net
 
-__all__ = ["UnifiedPoseModel", "UnifiedPoseNet"]
+__all__ = ["UnifiedPoseModel", "UnifiedPoseNet", "join_models"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,3 +72,16 @@ class UnifiedPoseNet(nn.Module):
                 loc[:, :512].reshape(B, 512, 16),
                 loc[:, 512:].reshape(B, 384, 16),
                 out["pose_front"], out["pose_back"])
+
+
+def join_models(backbone_spec: BlazeFace, backbone_params: Any,
+                head88: Any, head88_params: Any,
+                head96: Any, head96_params: Any) -> tuple[UnifiedPoseModel,
+                                                          Any]:
+    """A detector composed with two trained pose heads (the reference's
+    JoinModels.join_models): (UnifiedPoseModel spec, params in JAX layout),
+    ready for `FaceDetector` or `tools.export.save_model`."""
+    model = UnifiedPoseModel(backbone=backbone_spec, head88=head88,
+                             head96=head96)
+    return model, {"backbone": backbone_params, "head88": head88_params,
+                   "head96": head96_params}

@@ -21,6 +21,17 @@ needs neither Orbax nor JAX.
     flagship's pose heads.  A topology bring-up, not a real-world
     back-camera detector: its spec.json labels it 'synthetic-bringup', and
     `load_pretrained` warns on it.
+
+and the 14 pose heads of the JAX package's registry (`HEADS`), each a
+(head spec, params) pair for `tools.evaluate`, `train.fit` (as initial
+params) and `models.join_models`: the reference's production heads
+'stoqa9pt-88' and 'hrchr82r-96' (imported); the trained-here sweep winners
+'sweep88-best' and 'sweep96-best'; 'distill96', 'stack88-distilled' and
+'stack96-distilled' (single MLPs distilled from teachers); and the
+ensembles 'ensemble88', 'ensemble88-mixed', 'ensemble88-stacked',
+'ensemble88-stacked-mixed', 'ensemble96', 'ensemble96-stacked' and
+'ensemble96-stacked-mixed'.  Their provenance is in each spec.json's
+metadata (and in headpose_tpu/pretrained.py's docstring).
 """
 from __future__ import annotations
 
@@ -30,7 +41,7 @@ import warnings
 
 from .tools.convert import load_native
 
-__all__ = ["PRETRAINED_DIR", "FLAGSHIP", "BEST", "UNIFIED_BEST",
+__all__ = ["PRETRAINED_DIR", "FLAGSHIP", "BEST", "UNIFIED_BEST", "HEADS",
            "load_pretrained", "pretrained_quality", "resolve_model_path",
            "flagship_path", "load_flagship", "flagship_detector",
            "best_detector"]
@@ -40,6 +51,11 @@ PRETRAINED_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 FLAGSHIP = "unified-stoqa9pt-hrchr82r"
 BEST = "unified-best-distilled"
 UNIFIED_BEST = "unified-best"
+HEADS = ("stoqa9pt-88", "hrchr82r-96", "sweep88-best", "sweep96-best",
+         "distill96", "stack88-distilled", "stack96-distilled",
+         "ensemble88", "ensemble88-mixed", "ensemble88-stacked",
+         "ensemble88-stacked-mixed", "ensemble96", "ensemble96-stacked",
+         "ensemble96-stacked-mixed")
 
 
 def _path(name: str) -> str:
@@ -50,8 +66,9 @@ def _path(name: str) -> str:
 
 
 def load_pretrained(name: str):
-    """(UnifiedPoseModel spec, params in JAX layout) of a shipped model.
-    Warns (UserWarning) on a 'synthetic-bringup' artifact."""
+    """(spec, params in JAX layout) of a shipped artifact: a
+    UnifiedPoseModel, or a head for the names in `HEADS`.  Warns
+    (UserWarning) on a 'synthetic-bringup' artifact."""
     path = _path(name)
     if pretrained_quality(name) == "synthetic-bringup":
         warnings.warn(

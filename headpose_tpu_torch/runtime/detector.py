@@ -160,9 +160,8 @@ class FaceDetector:
     @classmethod
     def from_native(cls, path: str, **kwargs) -> "FaceDetector":
         """Load a native model directory of the port: spec.json (the JAX
-        package's spec format, copied from its artifact) and params.npz
-        (written by `tools.convert.save_npz`, as the command in CHANGES.md
-        converts the JAX package's checkpoints)."""
+        package's spec format) and params.npz (JAX-layout leaves), as
+        `tools.export.save_model` writes them."""
         model, params = load_native(path)
         return cls(model, params, **kwargs)
 

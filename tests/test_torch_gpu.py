@@ -12,9 +12,10 @@ of the map), their detects' launches, and the empty island against
 SE-Transformer head kernel (se_transformer_forward) against its plain
 version (rtol 1e-4 / atol 1e-5),
 and the SE-Transformer model's detect_fused in both head profiles;
-runtime.streaming.detect_stream against detect, and the tracking and
+runtime.streaming.detect_stream against detect, the tracking and
 smoothing of runtime.tracking and runtime.smoothing on CUDA tensors against
-the same on CPU tensors.
+the same on CPU tensors, and head training (train.fit) and the feature
+extractor on the card against the CPU.
 
 Marked `gpu`.  Each test skips in the `cuda` fixture when no CUDA device is
 present (never at import: every xdist worker must collect the same tests).
@@ -737,3 +738,38 @@ def test_tracking_on_the_card_matches_cpu(cuda, flagship, source):
     for k in sm0:
         assert torch.equal(st1.ema.initialized[k].cpu(),
                            st0.ema.initialized[k])
+
+
+@pytest.mark.parametrize("epochs_per_sync", [1, 3])
+def test_fit_on_the_card_matches_the_cpu(cuda, tmp_path, epochs_per_sync):
+    """Head training on the card: the same seeds give the CPU's epochs
+    (per-epoch losses within rtol 1e-4, the same best epoch), with dropout
+    off (the masks come from a device generator) and minibatches (the row
+    order comes from a CPU generator: the same on both)."""
+    from headpose_tpu_torch.data import Dataset
+    from headpose_tpu_torch.train import config_96, fit
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(1000, 96)).astype(np.float32)
+    y = (x[:, :3] * 10).astype(np.float32)
+    runs = [fit(config_96(total_epochs=7, batch_size=64, learning_rate=1e-3,
+                          reduce_lr_on_plateau=True, reduce_lr_patience=1,
+                          epochs_per_sync=epochs_per_sync,
+                          checkpoint_dir=str(tmp_path), run_name=device),
+                Dataset(x, y), device=device) for device in ("cuda", "cpu")]
+    assert runs[0].best_epoch == runs[1].best_epoch
+    for a, b in zip(runs[0].history, runs[1].history):
+        for key in ("train_loss", "val_loss", "train_mae", "val_mae"):
+            np.testing.assert_allclose(a[key], b[key], rtol=1e-4)
+
+
+def test_extractor_on_the_card_matches_the_cpu(cuda):
+    from headpose_tpu_torch.tools.extract_features import FeatureExtractor
+
+    imgs = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"][:32]
+    got = FeatureExtractor(score_threshold=0.05).extract(imgs)
+    want = FeatureExtractor(score_threshold=0.05, device="cpu").extract(imgs)
+    np.testing.assert_array_equal(got.found, want.found)
+    for k in ("features88", "features96", "scores"):
+        np.testing.assert_allclose(getattr(got, k), getattr(want, k),
+                                   rtol=0, atol=1e-4, err_msg=k)

@@ -23,7 +23,7 @@ from headpose_tpu.pretrained import PRETRAINED_DIR as JAX_PRETRAINED_DIR
 from headpose_tpu.pretrained import load_pretrained as jax_load_pretrained
 from headpose_tpu_torch.models import (BLAZEFACE_BACK, BlazeFaceNet, MLPHead,
                                        MLPHeadNet, UnifiedPoseNet)
-from headpose_tpu_torch.pretrained import load_pretrained
+from headpose_tpu_torch.pretrained import HEADS, load_pretrained
 from headpose_tpu_torch.tools.convert import (flatten_params, load_npz,
                                               params_from_jax, params_to_jax,
                                               save_npz, spec_from_dict)
@@ -36,7 +36,15 @@ PORT = os.path.join(REPO, "headpose_tpu_torch")
     ("unified-stoqa9pt-hrchr82r", 84, 110964),
     ("unified-best-distilled", 86, 215572),
     ("unified-best", 786, 979619),
-    ("unified-back-distilled", 88, 111804)])
+    ("unified-back-distilled", 88, 111804),
+    ("stoqa9pt-88", 4, 5891), ("hrchr82r-96", 6, 3683),
+    ("sweep88-best", 4, 11779), ("sweep96-best", 4, 3203),
+    ("distill96", 6, 58115), ("stack88-distilled", 6, 56067),
+    ("stack96-distilled", 6, 58115), ("ensemble88", 12, 29449),
+    ("ensemble88-mixed", 8, 17670), ("ensemble88-stacked", 232, 258380),
+    ("ensemble88-stacked-mixed", 236, 264271), ("ensemble96", 30, 16365),
+    ("ensemble96-stacked", 464, 552160),
+    ("ensemble96-stacked-mixed", 476, 613958)])
 @pytest.mark.filterwarnings("ignore:'unified-back-distilled' is a synthetic")
 def test_npz_is_bitwise_the_orbax_checkpoint(name, leaves, count):
     jspec, jparams = jax_load_pretrained(name)
@@ -54,7 +62,7 @@ def test_npz_is_bitwise_the_orbax_checkpoint(name, leaves, count):
 
 @pytest.mark.parametrize("name", ["unified-stoqa9pt-hrchr82r",
                                   "unified-best-distilled", "unified-best",
-                                  "unified-back-distilled"])
+                                  "unified-back-distilled", *HEADS])
 def test_pretrained_quality_matches_jax(name):
     """pretrained_quality reads the tier the JAX package reads, and
     load_pretrained warns exactly on the synthetic bring-up artifact (as the
@@ -172,7 +180,7 @@ for mode in ("turbo", "max"):
     assert len(flagship_detector(device="cpu",
                                  precision=mode).detect_single(img)) == len(res)
 import headpose_tpu_torch.tools.certify_modes
-from headpose_tpu_torch.pretrained import load_pretrained
+from headpose_tpu_torch.pretrained import HEADS, load_pretrained
 from headpose_tpu_torch.runtime.detector import FaceDetector
 
 spec, params = load_pretrained("unified-best")
@@ -189,6 +197,23 @@ with PoseServer(det, port=0) as srv, \
 assert len(served) == len(res)
 assert abs(served.poses - res.poses).max() < 1e-4
 assert process_frames(det, img[None], batch_size=1).valid.sum() == len(res)
+import headpose_tpu_torch.tools.backfill
+import headpose_tpu_torch.tools.train_cli
+from headpose_tpu_torch.data import Dataset
+from headpose_tpu_torch.tools.evaluate import evaluate_head_pose_model
+from headpose_tpu_torch.tools.extract_features import FeatureExtractor
+from headpose_tpu_torch.train import config_96, fit
+
+feats = FeatureExtractor(device="cpu").extract(img)
+assert feats.found[0]
+head, head_params = load_pretrained("hrchr82r-96")
+ds = Dataset(np.repeat(feats.features96, 16, 0),
+             np.zeros((16, 3), np.float32))
+assert evaluate_head_pose_model(head, ds, params=head_params, verbose=False,
+                                device="cpu")["MAE"]["average"] > 0
+trained = fit(config_96(total_epochs=1, batch_size=8,
+                        checkpoint_dir={ckpt!r}), ds, device="cpu")
+assert len(trained.history) == 1
 leaked = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "headpose_tpu")]
 assert not leaked, leaked
@@ -196,10 +221,11 @@ print("OK", len(res))
 """
 
 
-def test_detect_with_jax_and_headpose_tpu_blocked():
+def test_detect_with_jax_and_headpose_tpu_blocked(tmp_path):
     script = _BLOCKED_SCRIPT.format(
         repo=REPO, golden=os.path.join(REPO, "tests", "golden",
-                                       "e2e_production.npz"))
+                                       "e2e_production.npz"),
+        ckpt=str(tmp_path))
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
                           text=True, timeout=300, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -209,12 +235,29 @@ def test_detect_with_jax_and_headpose_tpu_blocked():
 def test_entry_points_without_a_card_raise(monkeypatch):
     """device=None means the card; with none present the entry points raise
     instead of carrying on on the CPU."""
+    from headpose_tpu_torch.data import Dataset
     from headpose_tpu_torch.pretrained import best_detector, flagship_detector
     from headpose_tpu_torch.runtime.http import _build_detector
+    from headpose_tpu_torch.tools import backfill, train_cli
+    from headpose_tpu_torch.tools.evaluate import evaluate_head_pose_model
+    from headpose_tpu_torch.tools.extract_features import (FeatureExtractor,
+                                                           extract_dataset)
+    from headpose_tpu_torch.train import config_96, evaluate, fit
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    head, head_params = load_pretrained("hrchr82r-96")
+    ds = Dataset(np.zeros((8, 96), np.float32), np.zeros((8, 3), np.float32))
+    frames = np.zeros((2, 128, 128, 3), np.uint8)
     for factory in (flagship_detector, best_detector,
                     lambda: _build_detector(None),
-                    lambda: _build_detector("unified-best-distilled")):
+                    lambda: _build_detector("unified-best-distilled"),
+                    FeatureExtractor,
+                    lambda: extract_dataset(frames, np.zeros((2, 3))),
+                    lambda: fit(config_96(total_epochs=1), ds),
+                    lambda: evaluate(head, head_params, ds),
+                    lambda: evaluate_head_pose_model(head, ds,
+                                                     params=head_params),
+                    lambda: backfill.backfill_runs(".", "missing.npz"),
+                    lambda: train_cli.main([])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             factory()

@@ -128,6 +128,32 @@ is one JSON object, except the nvidia-smi line:
            same call on the port's CPU detector: valid identical, final
            track states identical, smoothed poses within 1e-3 deg and boxes
            within 1e-5; wall times;
+  h5       the Keras-H5 graph compiler and loaders on the card: h5py's
+           version (or null); the flagship fixture (tests/golden_torch) from
+           its h5py-free twin through core.h5io._model_from_parts and, where
+           h5py imports, from the .h5 file through read_model (the two
+           ModelDefs equal, weights bitwise); FaceDetector.from_h5 through
+           detect at "highest" and "fast" and detect_fused on the 112 corpus
+           frames, each slab bitwise the flagship's on the same path, with
+           its launches by name (#1 once; #3 once and #4 twice at "fast";
+           #2 once and #4 twice under detect_fused); from_h5_compat (the
+           GraphModel on the card): its 6 outputs against the flagship's
+           reference_outputs on the 128 main-path frames (BACKBONE_TOL),
+           detect against the flagship's (sets identical, scores within
+           1e-5, poses within 1e-3 deg) and the corpus reference (pose p99
+           < 0.1 deg), #1 once, "fast" refused; the SE-Transformer fixture
+           head (se_transformer_from_h5) joined to the flagship's backbone
+           and head96 through detect_fused "map" (#5 launched) against the
+           same model on the port's CPU path (SE_POSE_TOL);
+           validate_conversion of head96 on the card (max err <= 1e-5);
+           join_and_save twice on the card (the H5 files where h5py
+           imports, else the twin's ModelDef and head96 as a native
+           directory; identical, and serving bitwise like the flagship);
+           postprocess="xla" refused on the card (the plain chain is the
+           CPU's); compat.blazeFaceDetector().detectFaces
+           against flagship.detect_single on 16 frames; the sustained
+           seconds per dispatch of the "fast" detect at B=128 (500
+           dispatches over 8 staged buffers, a reading, not a claim);
   then the {"kernels": [...]} summary (launches from the fused phase;
   apply_fused's from the fast phase, and its back window's beside them;
   se_transformer_forward's from the se phase's map window; dense_block's
@@ -2782,6 +2808,257 @@ def phase_train(corpus, card, seed: int):
     return {name: launches[name] for name in paths}
 
 
+H5_DIR = os.path.join(HERE, "tests", "golden_torch")
+H5_NAMES = ("flagship_joined", "se_transformer_head", "head96")
+H5_SCORE_TOL = 1e-5            # tests/test_detection.py:194-207
+H5_POSE_TOL_DEG = 1e-3
+H5_CONVERT_TOL = 1e-5          # the reference's validate_conversion bar
+H5_SUSTAINED_ITERS = 500
+
+
+def h5_twin(name: str):
+    """The ModelDef of a fixture's h5py-free twin (<name>_config.json +
+    <name>_weights.npz) through core.h5io._model_from_parts."""
+    from headpose_tpu_torch.core.h5io import _model_from_parts
+
+    with open(os.path.join(H5_DIR, f"{name}_config.json")) as f:
+        config = json.load(f)
+    with np.load(os.path.join(H5_DIR, f"{name}_weights.npz")) as w:
+        return _model_from_parts(config, {k: w[k] for k in w.files})
+
+
+def same_modeldef(a, b, where: str) -> int:
+    """Raise unless two ModelDefs have the same layers, configs, inbound
+    and weights (bitwise), nested submodels too; returns the arrays
+    compared."""
+    if (a.order != b.order or a.inputs != b.inputs or a.outputs != b.outputs
+            or a.keras3 != b.keras3):
+        raise AssertionError(f"{where}: graphs differ")
+    n = 0
+    for name in a.order:
+        la, lb = a.layers[name], b.layers[name]
+        if (la.class_name, la.config, la.inbound, la.call_kwargs) != \
+                (lb.class_name, lb.config, lb.inbound, lb.call_kwargs):
+            raise AssertionError(f"{where}/{name}: layer differs")
+        if list(la.weights) != list(lb.weights) or any(
+                la.weights[k].tobytes() != lb.weights[k].tobytes()
+                for k in la.weights):
+            raise AssertionError(f"{where}/{name}: weights differ")
+        n += len(la.weights)
+        if (la.submodel is None) != (lb.submodel is None):
+            raise AssertionError(f"{where}/{name}: submodel differs")
+        if la.submodel is not None:
+            n += same_modeldef(la.submodel, lb.submodel, f"{where}/{name}")
+    return n
+
+
+def launch_window(fn, imgs):
+    """fn(imgs) with every launch count set to 0 just before and read just
+    after: (result, counts)."""
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn(imgs)
+    torch.cuda.synchronize()
+    return out, read_launches()
+
+
+def check_counts(counts: dict, want: dict, what: str) -> None:
+    """The named kernels launched exactly as `want`, every other kernel
+    (but run_segment, counted inside apply_fused) not at all."""
+    bad = {k: n for k, n in counts.items()
+           if k != "run_segment" and n != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{what}: launches {bad}, want {want}")
+
+
+def phase_h5(flagship, corpus, frames128, card):
+    """The H5 graph compiler and loaders on the card (the docstring's
+    `h5` entry).  Returns {kernel: {window: launches}}."""
+    import shutil
+    import tempfile
+
+    from headpose_tpu_torch.compat import blazeFaceDetector
+    from headpose_tpu_torch.core.h5io import read_model
+    from headpose_tpu_torch.models import (join_models,
+                                           se_transformer_from_h5)
+    from headpose_tpu_torch.models.heads import head_from_h5
+    from headpose_tpu_torch.pretrained import (FLAGSHIP, PRETRAINED_DIR,
+                                               load_pretrained)
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+    from headpose_tpu_torch.tools.convert import validate_conversion
+    from headpose_tpu_torch.tools.export import save_model
+    from headpose_tpu_torch.tools.join_cli import join_and_save
+    from headpose_tpu_torch.utils.profiling import (
+        staged_uint8_frames, sustained_seconds_per_dispatch)
+
+    t_phase = time.perf_counter()
+    try:
+        import h5py
+        h5py_version = h5py.__version__
+    except ImportError:
+        h5py_version = None
+    report = {"phase": "h5", "card": card, "h5py": h5py_version}
+
+    # 1. the sources: the twin always, the .h5 file where h5py imports
+    twins = {name: h5_twin(name) for name in H5_NAMES}
+    if h5py_version is not None:
+        arrays = {name: same_modeldef(read_model(os.path.join(
+            H5_DIR, f"{name}.h5")), twins[name], name) for name in H5_NAMES}
+        report["h5_file"] = {"read_model_equals_twin": True,
+                             "arrays": arrays}
+        source = {name: os.path.join(H5_DIR, f"{name}.h5")
+                  for name in H5_NAMES}
+    else:
+        report["h5_file"] = "not run: h5py absent"
+        source = twins
+    imgs = corpus["imgs"]
+    windows: dict[str, dict] = {}
+
+    # 2. the native import, bitwise the flagship on each path
+    flag_spec, flag_params = load_pretrained(FLAGSHIP)
+    det = FaceDetector.from_h5(source["flagship_joined"])
+    fast = FaceDetector.from_h5(source["flagship_joined"], precision="fast")
+    ref_fast = FaceDetector(flag_spec, flag_params, precision="fast")
+    paths = {"detect": (det.detect, flagship.detect,
+                        {"postprocess_nms": 1}),
+             "fast": (fast.detect, ref_fast.detect,
+                      {"apply_fused": 1, "mlp_head_forward": 2,
+                       "postprocess_nms": 1}),
+             "detect_fused": (det.detect_fused, flagship.detect_fused,
+                              {"backbone_forward": 1, "mlp_head_forward": 2,
+                               "postprocess_nms": 1})}
+    native = {}
+    for name, (fn, ref, want) in paths.items():
+        fn(imgs[:8])                          # warm, and build
+        got, counts = launch_window(fn, imgs)
+        check_counts(counts, want, f"from_h5 {name}")
+        if not torch.equal(got.slab, ref(imgs).slab):
+            raise AssertionError(f"from_h5 {name}: slab differs from the "
+                                 "flagship's")
+        windows[f"from_h5_{name}"] = counts
+        native[name] = {"bitwise_flagship": True,
+                        "detections": int(got.valid.sum())}
+    report["from_h5"] = native
+
+    # 3. the graph compiler on the card
+    compat = FaceDetector.from_h5_compat(source["flagship_joined"])
+    with torch.inference_mode():
+        outs = compat.net.graph(frames128)
+        want = flagship.net.reference_outputs(frames128)
+    ratios = [close(o, w, **BACKBONE_TOL)[1] for o, w in zip(outs, want)]
+    if not max(ratios) <= 1.0:
+        raise AssertionError(f"from_h5_compat outputs: ratios {ratios}")
+    compat.detect(imgs[:8])
+    got, counts = launch_window(compat.detect, imgs)
+    check_counts(counts, {"postprocess_nms": 1}, "from_h5_compat detect")
+    windows["from_h5_compat"] = counts
+    ref = flagship.detect(imgs)
+    if not torch.equal(got.valid, ref.valid):
+        raise AssertionError("from_h5_compat: detection sets differ")
+    m = ref.valid
+    score_err = float((got.scores[m] - ref.scores[m]).abs().max())
+    pose_err = float((got.poses[m] - ref.poses[m]).abs().max())
+    if not (score_err <= H5_SCORE_TOL and pose_err <= H5_POSE_TOL_DEG):
+        raise AssertionError(f"from_h5_compat vs flagship: score "
+                             f"{score_err}, pose {pose_err}")
+    parity = corpus_parity(got.trim(), corpus, "h5_compat")
+    del parity["phase"]
+    try:
+        FaceDetector.from_h5_compat(source["flagship_joined"],
+                                    precision="fast")
+        raise AssertionError("from_h5_compat served precision='fast'")
+    except ValueError as e:
+        if "native backbone spec" not in str(e):
+            raise
+    report["from_h5_compat"] = {
+        "outputs_tolerance_ratio": max(ratios),
+        "outputs_max_abs_err": max(close(o, w, **BACKBONE_TOL)[0]
+                                   for o, w in zip(outs, want)),
+        "score_max_abs_diff": score_err, "pose_max_abs_diff": pose_err,
+        "parity": parity, "fast_refused": True}
+
+    # 4. the SE-Transformer head from H5, joined, through kernel #5
+    spec88, params88 = se_transformer_from_h5(source["se_transformer_head"])
+    model, params = join_models(flag_spec.backbone, flag_params["backbone"],
+                                spec88, params88, flag_spec.head96,
+                                flag_params["head96"])
+    se = FaceDetector(model, params, head_eval="map")
+    se.detect_fused(imgs[:8])
+    got, counts = launch_window(se.detect_fused, imgs)
+    check_counts(counts, {"backbone_forward": 1, "se_transformer_forward": 1,
+                          "mlp_head_forward": 1, "postprocess_nms": 1},
+                 "SE head detect_fused")
+    windows["se_head_detect_fused"] = counts
+    cpu = FaceDetector(model, params, head_eval="map",
+                       device="cpu").detect_fused(imgs[:16])
+    card_16 = se.detect_fused(imgs[:16])
+    gap = pose_gap(card_16, cpu, SE_POSE_TOL)
+    if gap["tolerance_ratio"] > 1.0:
+        raise AssertionError(f"SE head: card vs CPU {gap}")
+    report["se_head"] = {"spec_reduction": spec88.reduction,
+                         "detections": int(got.valid.sum()),
+                         "card_vs_cpu": gap}
+
+    # 5. conversion and joining
+    spec96, params96 = head_from_h5(source["head96"])
+    err = validate_conversion(source["head96"], spec96, params96)
+    if not err <= H5_CONVERT_TOL:
+        raise AssertionError(f"validate_conversion max err {err}")
+    report["validate_conversion"] = {"max_abs_err": err}
+    # join_and_save on the card (its contract forward at device=None): the
+    # H5 files where h5py imports, else the twin's ModelDef as the detector
+    # and head96 as a native directory
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_h5_")
+    reg2 = source["head96"]
+    if h5py_version is None:
+        reg2 = os.path.join(tmp, "head96")
+        save_model(reg2, spec96, params96)
+    outs = [join_and_save(source["flagship_joined"],
+                          os.path.join(PRETRAINED_DIR, "stoqa9pt-88"), reg2,
+                          os.path.join(tmp, str(i)))
+            for i in range(2)]
+    slabs = [FaceDetector.from_native(o).detect(imgs).slab for o in outs]
+    shutil.rmtree(tmp)
+    if not (torch.equal(slabs[0], slabs[1])
+            and torch.equal(slabs[0], ref.slab)):
+        raise AssertionError("join_and_save: not the flagship's slabs")
+    report["join_and_save"] = {
+        "runs": 2, "bitwise_flagship": True,
+        "detector": "h5 file" if h5py_version else "twin ModelDef"}
+    try:                                  # the plain chain stays on the CPU
+        FaceDetector(flag_spec, flag_params, postprocess="xla")
+        raise AssertionError("postprocess='xla' served on the card")
+    except ValueError as e:
+        if "CPU only" not in str(e):
+            raise
+    report["xla_postprocess_refused"] = True
+
+    # 6. the compat layer, and the sustained dispatch reading
+    ref_det = blazeFaceDetector()
+    for img in imgs[:16]:
+        a, b = ref_det.detectFaces(img), flagship.detect_single(img)
+        if len(a) != len(b) or any(
+                not np.array_equal(getattr(a, k), getattr(b, k))
+                for k in ("boxes", "keypoints", "scores", "poses")):
+            raise AssertionError("compat detectFaces differs from "
+                                 "detect_single")
+    report["compat_detect_faces"] = {"frames": 16, "equal": True}
+    staged = staged_uint8_frames(128, n_buffers=8)
+    s = sustained_seconds_per_dispatch(ref_fast.detect, staged,
+                                       iters=H5_SUSTAINED_ITERS)
+    report["sustained_fast_detect_b128"] = {
+        "seconds_per_dispatch": s, "frames_per_s": 128 / s,
+        "iters": H5_SUSTAINED_ITERS, "buffers": 8, "card": card}
+    report["phase_s"] = time.perf_counter() - t_phase
+    emit(report)
+    per_kernel: dict[str, dict] = {}
+    for window, counts in windows.items():
+        for kernel, n in counts.items():
+            if n:
+                per_kernel.setdefault(kernel, {})[window] = n
+    return per_kernel
+
+
 def main() -> int:
     import argparse
 
@@ -2853,6 +3130,7 @@ def main() -> int:
     serve_launches = phase_serve(flagship, corpus, card)
     phase_stream(flagship, corpus, card)
     train_launches = phase_train(corpus, card, args.seed)
+    h5_launches = phase_h5(flagship, corpus, frames128, card)
 
     for entry in entries[:3]:
         entry["launches"] = fused_launches[entry["name"]]
@@ -2876,6 +3154,8 @@ def main() -> int:
     for entry in entries[:4]:         # the trained head's serve step
         entry["launches_train_window"] = {
             path: n[entry["name"]] for path, n in train_launches.items()}
+    for entry in entries[:5]:         # the H5 loaders' windows
+        entry["launches_h5_window"] = h5_launches.get(entry["name"], {})
     emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

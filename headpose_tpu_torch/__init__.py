@@ -17,8 +17,8 @@ import importlib
 
 __version__ = "0.1.0"
 
-_SUBMODULES = ("core", "models", "ops", "utils", "runtime", "tools",
-               "pretrained")
+_SUBMODULES = ("core", "models", "ops", "data", "utils", "runtime", "train",
+               "tools", "pretrained", "compat")
 
 __all__ = [*_SUBMODULES, "__version__"]
 

@@ -46,6 +46,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -54,7 +55,7 @@ from ..utils.device import resolve_device
 
 __all__ = ["BlazeFace", "BlazeFaceNet", "BLAZEFACE_FRONT", "BLAZEFACE_BACK",
            "turbo_fast_blocks", "TURBO_FAST_BLOCKS", "bf16_round",
-           "fp32_exact"]
+           "fp32_exact", "blazeface_from_h5", "blazeface_from_modeldef"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,3 +262,44 @@ class BlazeFaceNet(nn.Module):
         return {"feat88": _nhwc(feat88).contiguous(),
                 "feat96": _nhwc(feat96).contiguous(),
                 "scores": scores, "loc": loc}
+
+
+def blazeface_from_h5(path) -> tuple[BlazeFace, dict]:
+    """Backbone + SSD head weights of a reference unified H5 (a path, or a
+    ModelDef parsed already) → (BLAZEFACE_FRONT, params in JAX layout)."""
+    from ..core.h5io import _as_modeldef
+
+    return blazeface_from_modeldef(_as_modeldef(path))
+
+
+def blazeface_from_modeldef(md) -> tuple[BlazeFace, dict]:
+    """The same import from a parsed core.h5io.ModelDef, so that a caller
+    which also needs the graph (unified_from_h5) parses the file once.  The
+    layer names are the reference graph's: conv2d (the stem),
+    depthwise_conv2d[_i] and conv2d_{i+1} (block i), conv2d_17..20 (the SSD
+    heads)."""
+
+    def w(layer: str) -> dict[str, np.ndarray]:
+        return md.layers[layer].weights
+
+    def f32(a) -> np.ndarray:
+        return np.asarray(a, np.float32)
+
+    spec = BLAZEFACE_FRONT
+    params: dict = {"stem": {"kernel": f32(w("conv2d")["kernel"]),
+                             "bias": f32(w("conv2d")["bias"])}}
+    blocks = []
+    for i in range(len(spec.block_channels)):
+        dw = w(f"depthwise_conv2d_{i}" if i else "depthwise_conv2d")
+        pw = w(f"conv2d_{i + 1}")
+        dwk = f32(dw["depthwise_kernel"])      # (3,3,Cin,1) → (3,3,1,Cin)
+        blocks.append({"dw_kernel": dwk.reshape(3, 3, 1, dwk.shape[2]),
+                       "dw_bias": f32(dw["bias"]),
+                       "pw_kernel": f32(pw["kernel"]),
+                       "pw_bias": f32(pw["bias"])})
+    params["blocks"] = blocks
+    for name, layer in [("cls_front", "conv2d_17"), ("cls_back", "conv2d_18"),
+                        ("loc_front", "conv2d_19"), ("loc_back", "conv2d_20")]:
+        params[name] = {"kernel": f32(w(layer)["kernel"]),
+                        "bias": f32(w(layer)["bias"])}
+    return spec, params

@@ -48,7 +48,9 @@ from ..utils.device import resolve_device
 __all__ = ["MLPHead", "ResidualMLPHead", "SkipMLPHead", "SEMLPHead",
            "SETransformerHead", "EnsembleHead", "HEAD_REGISTRY", "MLPHeadNet",
            "ResidualMLPHeadNet", "SkipMLPHeadNet", "SEMLPHeadNet",
-           "SETransformerHeadNet", "EnsembleHeadNet", "head_net"]
+           "SETransformerHeadNet", "EnsembleHeadNet", "head_net",
+           "head_from_h5", "head_from_keras_json", "se_transformer_from_h5",
+           "mlp_head_from_modeldef"]
 
 
 Params = dict[str, Any]
@@ -608,10 +610,176 @@ _HEAD_NETS = {MLPHead: MLPHeadNet, ResidualMLPHead: ResidualMLPHeadNet,
 
 def head_net(spec: Any, *, device: str | torch.device | None = None
              ) -> nn.Module:
-    """The module of a head spec (any family above)."""
+    """The module of a head spec (any family above, or a spec that builds
+    its own module, as `core.graph.TrainableGraphHead` does)."""
+    if hasattr(spec, "make_net"):
+        return spec.make_net(device=device)
     try:
         cls = _HEAD_NETS[type(spec)]
     except KeyError:
         raise NotImplementedError(f"head type {type(spec).__name__} is not "
                                   "ported") from None
     return cls(spec, device=device)
+
+
+# ----------------------------------------------------------------------
+# Import the reference's shipped heads (Keras H5, Keras JSON)
+# ----------------------------------------------------------------------
+def _f32(a) -> np.ndarray:
+    return np.asarray(a, np.float32)
+
+
+def _in_features(config: dict) -> int:
+    return int((config.get("batch_input_shape")
+                or config["batch_shape"])[-1])
+
+
+def head_from_h5(path) -> tuple[MLPHead, Params]:
+    """A reference 1x1-conv-chain head H5 (a path, or a ModelDef parsed
+    already) as an MLPHead: Conv2D(1x1) or Dense chains with optional
+    dropout, Flatten and Reshape, in any input-shape variant.  Any other
+    architecture raises ValueError (load it through core.load_graph_model
+    instead)."""
+    from ..core.h5io import _as_modeldef
+
+    return mlp_head_from_modeldef(_as_modeldef(path))
+
+
+def head_from_keras_json(path: str, generator: torch.Generator | None = None
+                         ) -> tuple[MLPHead, Params]:
+    """Architecture-only import of a Keras model.json (the reference's
+    load_model_from_json): the equivalent MLPHead spec with fresh
+    Glorot-uniform params drawn from `generator` (default: seed 0)."""
+    import json
+
+    with open(path) as f:
+        cfg = json.load(f)
+    in_features = None
+    layers: list[tuple[int, str]] = []
+    dropout = 0.0
+    for l in cfg["config"]["layers"]:
+        cls, c = l["class_name"], l.get("config", {})
+        if cls == "InputLayer":
+            in_features = _in_features(c)
+        elif cls == "Conv2D":
+            layers.append((int(c["filters"]), c.get("activation") or "linear"))
+        elif cls == "Dense":
+            layers.append((int(c["units"]), c.get("activation") or "linear"))
+        elif cls == "SpatialDropout2D":
+            dropout = max(dropout, float(c.get("rate", 0.0)))
+        elif cls in ("Dropout", "Flatten", "Reshape"):
+            continue
+        else:
+            raise ValueError(f"{path}: layer {cls} is not part of an MLP chain")
+    if in_features is None:
+        raise ValueError(f"{path}: no InputLayer found")
+    spec = MLPHead(in_features=in_features, layers=tuple(layers),
+                   dropout_rate=dropout)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return spec, spec.init(generator)
+
+
+def se_transformer_from_h5(path) -> tuple[SETransformerHead, Params]:
+    """A reference SE-Transformer head H5 (a path, or a ModelDef parsed
+    already) as an SETransformerHead: the weights are read directly, and
+    the head's reshapes replace the flatten/unflatten Lambdas.  The SE
+    reduction is inferred from the squeeze width (in_features // width), so
+    a width that does not divide the channels gives the spec another
+    `reduction` with the same function, as in the JAX import."""
+    from ..core.h5io import _as_modeldef
+
+    md = _as_modeldef(path)
+    dense, convs, lns, mha = [], [], [], None
+    in_features = None
+    for name in md.order:
+        layer = md.layers[name]
+        cls = layer.class_name
+        if cls == "InputLayer":
+            in_features = _in_features(layer.config)
+        elif cls == "Dense":
+            dense.append((layer.weights["kernel"], layer.weights["bias"],
+                          layer.config.get("activation")))
+        elif cls == "Conv2D":
+            convs.append((np.asarray(layer.weights["kernel"])[0, 0],
+                          layer.weights["bias"]))
+        elif cls == "LayerNormalization":
+            lns.append((layer.weights["gamma"], layer.weights["beta"]))
+        elif cls == "MultiHeadAttention":
+            mha = layer.weights
+    if mha is None or len(dense) != 4 or len(convs) != 2 or len(lns) != 2:
+        raise ValueError(f"{path}: not an SE-Transformer head "
+                         f"(dense={len(dense)}, convs={len(convs)}, "
+                         f"lns={len(lns)})")
+    if in_features is None:
+        raise ValueError(f"{path}: no InputLayer — cannot infer in_features")
+    _, heads, key_dim = np.asarray(mha["query/kernel"]).shape  # (C, H, D)
+    se1, se2, ff1, ff2 = dense
+    spec = SETransformerHead(
+        in_features=in_features, reduction=in_features // se1[0].shape[1],
+        num_heads=heads, key_dim=key_dim, ff_dim=ff1[0].shape[1],
+        hidden=convs[0][0].shape[1], out_features=convs[1][0].shape[1])
+
+    def dn(w, b):
+        return {"w": _f32(w), "b": _f32(b)}
+
+    params: Params = {
+        "se": {"fc1": dn(se1[0], se1[1]), "fc2": dn(se2[0], se2[1])},
+        "query": dn(mha["query/kernel"], mha["query/bias"]),
+        "key": dn(mha["key/kernel"], mha["key/bias"]),
+        "value": dn(mha["value/kernel"], mha["value/bias"]),
+        "attn_out": dn(mha["attention_output/kernel"],
+                       mha["attention_output/bias"]),
+        "ln1": {"g": _f32(lns[0][0]), "b": _f32(lns[0][1])},
+        "ff1": dn(ff1[0], ff1[1]),
+        "ff2": dn(ff2[0], ff2[1]),
+        "ln2": {"g": _f32(lns[1][0]), "b": _f32(lns[1][1])},
+        "fc": dn(*convs[0]),
+        "out": dn(*convs[1]),
+    }
+    return spec, params
+
+
+def mlp_head_from_modeldef(md) -> tuple[MLPHead, Params]:
+    """A parsed 1x1-conv-chain ModelDef (a nested submodel of a unified
+    model too) → (MLPHead spec, params in JAX layout)."""
+    path = md.name
+    layers: list[tuple[int, str]] = []
+    params: list[Params] = []
+    in_features = None
+    for name in md.order:
+        layer = md.layers[name]
+        cls = layer.class_name
+        if cls == "InputLayer":
+            shape = (layer.config.get("batch_input_shape")
+                     or layer.config.get("batch_shape"))
+            in_features = int(shape[-1])
+        elif cls == "Conv2D":
+            k = np.asarray(layer.weights["kernel"])
+            if k.shape[0] != 1 or k.shape[1] != 1:
+                raise ValueError(f"{path}: non-1x1 conv in head ({k.shape})")
+            params.append({"w": _f32(k[0, 0]),
+                           "b": _f32(layer.weights["bias"])})
+            layers.append((k.shape[-1],
+                           layer.config.get("activation") or "linear"))
+        elif cls == "Dense":
+            params.append({"w": _f32(layer.weights["kernel"]),
+                           "b": _f32(layer.weights["bias"])})
+            layers.append((params[-1]["w"].shape[-1],
+                           layer.config.get("activation") or "linear"))
+        elif cls in ("SpatialDropout2D", "Dropout", "Flatten", "Reshape"):
+            continue  # identity at inference / shape bookkeeping only
+        else:
+            raise ValueError(f"{path}: layer {cls} is not part of an MLP "
+                             "chain")
+    if in_features is None:
+        raise ValueError(f"{path}: no InputLayer found")
+    if params and int(params[0]["w"].shape[0]) != in_features:
+        # e.g. Flatten of a >1x1 spatial input feeding a Dense: the kernel's
+        # input width disagrees with the channel count
+        raise ValueError(
+            f"{path}: first layer expects {int(params[0]['w'].shape[0])} "
+            f"input features but the InputLayer provides {in_features} "
+            "channels — not a per-cell MLP chain")
+    spec = MLPHead(in_features=in_features, layers=tuple(layers))
+    return spec, {"layers": params}

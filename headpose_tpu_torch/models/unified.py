@@ -6,7 +6,8 @@ Port of headpose_tpu/models/unified.py.  Output contract:
   pose_front (B, 16, 16, 3)  — yaw/pitch/roll map over the 16x16 grid
   pose_back  (B, 8, 8, 3)    — yaw/pitch/roll map over the 8x8 grid
 plus reference_outputs() reshaping to the 6-tensor signature of the
-reference's unified H5.
+reference's unified H5.  `unified_from_h5` imports such an H5 (the
+reference's JoinModels format: the two pose heads nested as submodels).
 """
 from __future__ import annotations
 
@@ -17,10 +18,12 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
-from .blazeface import BLAZEFACE_FRONT, BlazeFace, BlazeFaceNet
-from .heads import head_net
+from .blazeface import (BLAZEFACE_FRONT, BlazeFace, BlazeFaceNet,
+                        blazeface_from_modeldef)
+from .heads import head_net, mlp_head_from_modeldef
 
-__all__ = ["UnifiedPoseModel", "UnifiedPoseNet", "join_models"]
+__all__ = ["UnifiedPoseModel", "UnifiedPoseNet", "join_models",
+           "unified_from_h5"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,3 +88,24 @@ def join_models(backbone_spec: BlazeFace, backbone_params: Any,
                              head96=head96)
     return model, {"backbone": backbone_params, "head88": head88_params,
                    "head96": head96_params}
+
+
+def unified_from_h5(path) -> tuple[UnifiedPoseModel, Any]:
+    """Import a reference unified H5 (a path, or a ModelDef parsed already):
+    backbone, SSD heads and both nested pose regressors → (spec, params in
+    JAX layout).  A graph whose heads are not nested submodels (the JAX
+    exporter's flat graph) raises ValueError, as the JAX function does:
+    load it through `core.load_graph_model` instead."""
+    from ..core.h5io import _as_modeldef
+
+    md = _as_modeldef(path)            # parsed once; the backbone shares it
+    spec, backbone_params = blazeface_from_modeldef(md)
+    heads = [mlp_head_from_modeldef(md.layers[name].submodel)
+             for name in md.order if md.layers[name].submodel is not None]
+    if len(heads) != 2:
+        raise ValueError(f"{path}: expected 2 nested pose heads, found "
+                         f"{len(heads)}")
+    (h88, p88), (h96, p96) = heads
+    if h88.in_features != 88:  # order by attach point, not file order
+        (h88, p88), (h96, p96) = (h96, p96), (h88, p88)
+    return join_models(spec, backbone_params, h88, p88, h96, p96)

@@ -8,6 +8,11 @@ import importlib
 _EXPORTS = {
     "bicubic_matrix": ".bicubic",
     "MAX_FACES": ".detection", "postprocess": ".detection",
+    "decode_boxes": ".detection", "decode_keypoints": ".detection",
+    "pairwise_iou": ".detection", "nms_static": ".detection",
+    "anchor_cells": ".detection", "gather_poses": ".detection",
+    "score_threshold_to_logit": ".detection",
+    "sanitize_model_outputs": ".detection",
     "preprocess": ".image", "resize_bicubic": ".image",
     "postprocess_kernel": ".kernels",
 }

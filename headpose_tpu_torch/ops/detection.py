@@ -10,7 +10,11 @@ Port of headpose_tpu/ops/detection.py.  The reference postprocess is
   * pose lookup: anchor → grid cell of its feature map; front anchors map
     2-per-cell on the 16x16 map, back anchors 6-per-cell on 8x8.
 
-It is a chain of three steps, which `ops.kernels.postprocess` computes on
+The single-image building blocks of JAX's module are here too, as plain
+tensor functions: `decode_boxes`, `decode_keypoints`, `pairwise_iou`,
+`nms_static`, `anchor_cells` and `gather_poses`.
+
+The postprocess is a chain of three steps, which `ops.kernels.postprocess` computes on
 the card in one kernel launch:
 
   prepare_postprocess  sanitize, thresholds rounded to float32 once, decode;
@@ -39,8 +43,9 @@ import torch
 
 __all__ = ["MAX_FACES", "MAX_LOGIT", "KEYPOINTS", "NUM_ANCHORS",
            "NUM_ANCHORS_FRONT", "SLAB", "score_threshold_to_logit",
-           "sanitize_model_outputs",
-           "anchor_cells", "prepare_postprocess", "nms_slab_plain",
+           "sanitize_model_outputs", "decode_boxes", "decode_keypoints",
+           "pairwise_iou", "nms_static", "anchor_cells", "gather_poses",
+           "prepare_postprocess", "nms_slab_plain",
            "finish_postprocess", "split_slab", "postprocess",
            "cell_index_maps", "gather_survivor_features"]
 
@@ -94,19 +99,96 @@ def sanitize_model_outputs(scores_logits: torch.Tensor, loc: torch.Tensor):
     return lg, lc
 
 
-def anchor_cells(index: int) -> tuple[bool, int, int]:
-    """Anchor index → (is_front, row, col) of its pose-map cell.
+def decode_boxes(loc: torch.Tensor, anchors: torch.Tensor,
+                 input_size: int) -> torch.Tensor:
+    """loc (..., A, 16) raw offsets + anchors (A, 4) → (..., A, 4) corner
+    boxes [x1, y1, x2, y2] normalized to [0, 1]."""
+    cx = loc[..., 0] / input_size + anchors[:, 0]
+    cy = loc[..., 1] / input_size + anchors[:, 1]
+    w = loc[..., 2] / input_size
+    h = loc[..., 3] / input_size
+    return torch.stack([cx - w * 0.5, cy - h * 0.5,
+                        cx + w * 0.5, cy + h * 0.5], dim=-1)
+
+
+def decode_keypoints(loc: torch.Tensor, anchors: torch.Tensor,
+                     input_size: int) -> torch.Tensor:
+    """loc (..., A, 16) → (..., A, 6, 2) keypoints normalized to [0, 1]."""
+    kp = loc[..., 4:16].reshape(*loc.shape[:-1], KEYPOINTS, 2)
+    return kp / input_size + anchors[:, None, :2]
+
+
+def pairwise_iou(boxes: torch.Tensor) -> torch.Tensor:
+    """(K, 4) corner boxes → (K, K) IoU matrix."""
+    area = (torch.clamp(boxes[:, 2] - boxes[:, 0], min=0.0)
+            * torch.clamp(boxes[:, 3] - boxes[:, 1], min=0.0))
+    x1 = torch.maximum(boxes[:, None, 0], boxes[None, :, 0])
+    y1 = torch.maximum(boxes[:, None, 1], boxes[None, :, 1])
+    x2 = torch.minimum(boxes[:, None, 2], boxes[None, :, 2])
+    y2 = torch.minimum(boxes[:, None, 3], boxes[None, :, 3])
+    inter = torch.clamp(x2 - x1, min=0.0) * torch.clamp(y2 - y1, min=0.0)
+    union = area[:, None] + area[None, :] - inter
+    return torch.where(union > 0.0, inter / union, 0.0)
+
+
+def nms_static(boxes: torch.Tensor, scores: torch.Tensor,
+               valid: torch.Tensor, max_out: int = MAX_FACES,
+               iou_threshold: float = 0.3):
+    """Greedy NMS of one image with a fixed output size: boxes (A, 4),
+    scores (A,), valid (A,) bool → (sel (max_out,) int32 score-descending,
+    keep (max_out,) bool, a dense prefix).  tf.image.non_max_suppression
+    over every valid candidate: argmax the remaining scores (the lowest
+    index wins a tie; nan never wins), emit it, suppress IoU > threshold.
+    The IoU arithmetic keeps the reference's order exactly: kernel #1
+    (csrc/postprocess.cu) is held to this function bit for bit."""
+    remaining = torch.where(valid, scores, -torch.inf)
+    remaining = torch.where(torch.isnan(remaining), -torch.inf, remaining)
+    x1, y1, x2, y2 = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
+    area = torch.clamp(x2 - x1, min=0.0) * torch.clamp(y2 - y1, min=0.0)
+    idx = torch.arange(boxes.shape[0], device=boxes.device)
+    sel = torch.zeros(max_out, dtype=torch.int32, device=boxes.device)
+    count = 0
+    while count < max_out and float(remaining.max()) > -np.inf:
+        i = int(torch.argmax(remaining))
+        inter = (torch.clamp(torch.minimum(x2, x2[i])
+                             - torch.maximum(x1, x1[i]), min=0.0)
+                 * torch.clamp(torch.minimum(y2, y2[i])
+                               - torch.maximum(y1, y1[i]), min=0.0))
+        union = area + area[i] - inter
+        iou = torch.where(union > 0.0, inter / union, 0.0)
+        remaining = torch.where((iou > iou_threshold) | (idx == i),
+                                -torch.inf, remaining)
+        sel[count] = i
+        count += 1
+    return sel, torch.arange(max_out, device=boxes.device) < count
+
+
+def anchor_cells(sel_idx):
+    """Anchor indices → (is_front, r16, c16, r8, c8) grid coordinates, as
+    tensors of the index's shape.
 
     Front anchors (index < 512): 2 per cell on the 16x16 map; back anchors:
-    6 per cell on the 8x8 map.  Rows/cols are clipped into range.  The
-    kernel (csrc/postprocess.cu) does the same arithmetic."""
-    if index < NUM_ANCHORS_FRONT:
-        cell = index // 2
-        return (True, min(cell // FRONT_GRID, FRONT_GRID - 1),
-                min(cell % FRONT_GRID, FRONT_GRID - 1))
-    cell = max(index - NUM_ANCHORS_FRONT, 0) // 6
-    return (False, min(cell // BACK_GRID, BACK_GRID - 1),
-            min(cell % BACK_GRID, BACK_GRID - 1))
+    6 per cell on the 8x8 map.  Rows/cols come back clipped into range, so
+    padded or sentinel indices index safely.  The kernel
+    (csrc/postprocess.cu) does the same arithmetic."""
+    idx = torch.as_tensor(sel_idx)
+    is_front = idx < NUM_ANCHORS_FRONT
+    cell_f = idx // 2
+    cell_b = torch.clamp(idx - NUM_ANCHORS_FRONT, min=0) // 6
+    return (is_front,
+            torch.clamp(cell_f // FRONT_GRID, 0, FRONT_GRID - 1),
+            torch.clamp(cell_f % FRONT_GRID, 0, FRONT_GRID - 1),
+            torch.clamp(cell_b // BACK_GRID, 0, BACK_GRID - 1),
+            torch.clamp(cell_b % BACK_GRID, 0, BACK_GRID - 1))
+
+
+def gather_poses(sel_idx, pose_front: torch.Tensor,
+                 pose_back: torch.Tensor) -> torch.Tensor:
+    """Anchor indices (K,) → (K, 3) yaw/pitch/roll from one image's pose
+    maps, (16, 16, 3) and (8, 8, 3)."""
+    is_front, rf, cf, rb, cb = anchor_cells(sel_idx)
+    return torch.where(is_front[:, None], pose_front[rf, cf],
+                       pose_back[rb, cb])
 
 
 @functools.lru_cache(maxsize=None)
@@ -184,43 +266,24 @@ def nms_slab_plain(logits: torch.Tensor, decoded: torch.Tensor,
                    pose_front: torch.Tensor, pose_back: torch.Tensor,
                    logit_thr: float, iou_thr: float,
                    max_faces: int) -> torch.Tensor:
-    """Greedy selection NMS + survivor extraction, one image at a time.
-
-    Per image: argmax the remaining scores (the lowest index wins a tie),
-    emit that anchor into slot t, suppress every anchor with IoU > iou_thr
-    against it; stop when nothing remains or the slab is full.  The trip
-    count is the number of survivors.  Slots past the count stay zero.
-    The IoU arithmetic keeps the reference's order exactly."""
-    B, A = logits.shape
+    """Greedy selection NMS + survivor extraction, one image at a time:
+    `nms_static` over the anchors whose logit passes `logit_thr`, then each
+    survivor's decoded row, its pose (`gather_poses`) and its logit go into
+    slot t, score-descending.  The trip count is the number of survivors.
+    Slots past the count stay zero."""
+    B = logits.shape[0]
     slab = torch.zeros((B, max_faces, SLAB), dtype=torch.float32,
                        device=logits.device)
-    idx = torch.arange(A, device=logits.device)
     for b in range(B):
-        remaining = torch.where(logits[b] > logit_thr, logits[b], -torch.inf)
-        x1, y1, x2, y2 = decoded[b, :, 0], decoded[b, :, 1], \
-            decoded[b, :, 2], decoded[b, :, 3]
-        area = torch.clamp(x2 - x1, min=0.0) * torch.clamp(y2 - y1, min=0.0)
-        for t in range(max_faces):
-            i = int(torch.argmax(remaining))       # first maximal index
-            best = float(remaining[i])
-            if best == -np.inf:
-                break
-            ix1 = torch.maximum(x1, x1[i])
-            iy1 = torch.maximum(y1, y1[i])
-            ix2 = torch.minimum(x2, x2[i])
-            iy2 = torch.minimum(y2, y2[i])
-            inter = (torch.clamp(ix2 - ix1, min=0.0)
-                     * torch.clamp(iy2 - iy1, min=0.0))
-            union = area + area[i] - inter
-            iou = torch.where(union > 0.0, inter / union, 0.0)
-            remaining = torch.where((iou > iou_thr) | (idx == i), -torch.inf,
-                                    remaining)
-            is_front, r, c = anchor_cells(i)
-            pose = pose_front if is_front else pose_back
-            slab[b, t, :C_POSE] = decoded[b, i]
-            slab[b, t, C_POSE:C_LOGIT] = pose[b, r, c]
-            slab[b, t, C_LOGIT] = best
-            slab[b, t, C_VALID] = 1.0
+        sel, keep = nms_static(decoded[b], logits[b], logits[b] > logit_thr,
+                               max_faces, iou_thr)
+        sel = sel[keep].long()
+        n = sel.shape[0]
+        slab[b, :n, :C_POSE] = decoded[b, sel]
+        slab[b, :n, C_POSE:C_LOGIT] = gather_poses(sel, pose_front[b],
+                                                   pose_back[b])
+        slab[b, :n, C_LOGIT] = logits[b, sel]
+        slab[b, :n, C_VALID] = 1.0
     return slab
 
 

@@ -1,6 +1,6 @@
 """Detection runtime: the detector, its results, the serving front end
-(batcher, HTTP server, client), temporal smoothing, IoU tracking and
-streaming detection.
+(batcher, HTTP server, client), temporal smoothing, IoU tracking,
+streaming detection and drawing.
 
 Exports resolve lazily (PEP 562), so a light consumer (`runtime.client`
 needs only `results`) does not import the detector and the models.
@@ -19,6 +19,7 @@ _EXPORTS = {
     "IoUTrackSmoother": ".tracking", "TrackState": ".tracking",
     "tracks_init": ".tracking", "tracks_update": ".tracking",
     "detect_stream": ".streaming",
+    "draw_detections": ".viz",
 }
 
 __all__ = sorted(_EXPORTS)

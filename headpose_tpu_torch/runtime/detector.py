@@ -21,6 +21,10 @@ Use:
                                         # segments; detect runs the kernels
     turbo = flagship_detector(precision="turbo")  # and a single-pass bf16
                                         # island of the trailing blocks
+    det = FaceDetector.from_h5("joined.h5")         # a reference unified H5,
+                                        # imported into the native model
+    det = FaceDetector.from_h5_compat("joined.h5")  # the same file through
+                                        # the graph compiler (core.graph)
 """
 from __future__ import annotations
 
@@ -30,10 +34,15 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..models.anchors import BACK_CONFIG, FRONT_CONFIG, generate_anchors
-from ..models.unified import UnifiedPoseModel, UnifiedPoseNet
+from torch import nn
+
+from ..models.anchors import (BACK_CONFIG, FRONT_CONFIG, AnchorConfig,
+                              generate_anchors)
+from ..models.unified import UnifiedPoseModel, UnifiedPoseNet, unified_from_h5
 from ..ops.detection import (C_LOGIT, C_POSE, C_VALID, MAX_FACES,
-                             cell_index_maps, gather_survivor_features)
+                             cell_index_maps, finish_postprocess,
+                             gather_survivor_features, nms_slab_plain,
+                             prepare_postprocess)
 from ..ops.image import preprocess
 from ..ops.kernels.backbone2 import island_blocks
 from ..ops.kernels.postprocess import postprocess_slab
@@ -113,49 +122,141 @@ class FaceDetector:
     `turbo_island` (None, or block indices of the spec; () serves the
     'fast' function) overrides the 'turbo' island.  Like `precision`, it is
     read on every call; both are checked at construction.
+
+    The options follow the JAX detector's positional order, so
+    `FaceDetector(model, params, 0.5)` sets the score threshold.  Beside
+    those above:
+      input_size     None, or the backbone's input size (128 front, 256
+                     back); any other value raises ValueError: the port
+                     serves a model at its own resolution;
+      anchor_config  None, or the anchor table of that input size
+                     (`models.anchors.FRONT_CONFIG` / `BACK_CONFIG`); any
+                     other raises ValueError;
+      postprocess    'auto' (the default) or 'pallas': the hand-written
+                     kernel (ops.kernels.postprocess, the TPU kernel
+                     postprocess_pallas) on a CUDA device, its plain version
+                     on the CPU; 'xla': the plain chain of ops.detection
+                     (JAX's XLA postprocess), on the CPU only: on a CUDA
+                     device it raises ValueError, since the kernel gives
+                     the same slab bit for bit.  Read on every call;
+      mesh, data_axis  multi-device serving, not ported yet (ROADMAP.md §1,
+                     item 8): a mesh, or another data axis than 'data',
+                     raises NotImplementedError.
+
+    `model` may also be a graph-compiled unified model (`from_h5_compat`;
+    `params` None keeps the module's own weights, a JAX-layout dict loads
+    into it): it serves `detect` at precision 'highest' under the 'map'
+    profile; the other precisions, head_eval='survivors' and
+    `detect_fused` need a native backbone spec and raise.
     """
 
-    def __init__(self, model: UnifiedPoseModel, params: Any, *,
+    def __init__(self, model: UnifiedPoseModel, params: Any,
                  score_threshold: float = 0.4, iou_threshold: float = 0.3,
-                 max_faces: int = MAX_FACES, channel_order: str = "bgr",
-                 precision: str = "highest", head_eval: str = "auto",
-                 turbo_island=None,
+                 max_faces: int = MAX_FACES, input_size: int | None = None,
+                 channel_order: str = "bgr", precision: str = "highest",
+                 anchor_config: AnchorConfig | None = None,
+                 turbo_island=None, postprocess: str = "auto",
+                 head_eval: str = "auto", mesh: Any | None = None,
+                 data_axis: str = "data", *,
                  device: str | torch.device | None = None):
+        if mesh is not None or data_axis != "data":
+            raise NotImplementedError(
+                "multi-device serving (FaceDetector(mesh=..., data_axis=...))"
+                " is not ported yet: ROADMAP.md §1, item 8 "
+                "(torch.distributed)")
         self.device = resolve_device(device)
         if precision not in PRECISIONS:
             raise ValueError(f"precision={precision!r} is not served by the "
                              f"port; the served modes are {PRECISIONS}")
-        self.turbo_island = (island_blocks(model.backbone, turbo_island)
-                             if turbo_island is not None else None)
+        graph = isinstance(model, GraphUnifiedModel)
+        if graph and precision != "highest":
+            raise ValueError(_NEEDS_SPEC.format(precision=precision))
+        if postprocess not in ("xla", "pallas", "auto"):
+            raise ValueError(f"postprocess must be 'xla', 'pallas' or "
+                             f"'auto', got {postprocess!r}")
+        if postprocess == "xla" and self.device.type == "cuda":
+            raise ValueError(_XLA_ON_CARD)
         if head_eval not in ("map", "survivors", "auto"):
             raise ValueError(f"head_eval must be 'map', 'survivors' or "
                              f"'auto', got {head_eval!r}")
         if channel_order not in ("bgr", "rgb"):
             raise ValueError(f"channel_order must be 'bgr' or 'rgb', "
                              f"got {channel_order!r}")
-        if model.head88 is None or model.head96 is None:
-            raise ValueError("FaceDetector needs a UnifiedPoseModel with both "
-                             "pose heads")
+        if graph:
+            if head_eval == "survivors":
+                raise ValueError(
+                    "head_eval='survivors' needs a native UnifiedPoseModel "
+                    "with both pose heads attached (graph-compiled models "
+                    "expose neither the heads nor the feature-map taps) — "
+                    "load through from_h5/from_native, or use "
+                    "head_eval='map'")
+            head_eval = "map"
+            own_size = model.input_size
+            self.turbo_island = None
+        else:
+            if model.head88 is None or model.head96 is None:
+                raise ValueError("FaceDetector needs a UnifiedPoseModel with "
+                                 "both pose heads")
+            own_size = model.backbone.input_size
+            self.turbo_island = (island_blocks(model.backbone, turbo_island)
+                                 if turbo_island is not None else None)
+            if head_eval == "auto":
+                head_eval = ("survivors" if any(
+                    getattr(h, "spatial_context", False)
+                    for h in (model.head88, model.head96)) else "map")
+        if input_size is not None and int(input_size) != own_size:
+            raise ValueError(
+                f"input_size={input_size} differs from the model's own input "
+                f"size {own_size}; the port serves a model at its own "
+                "resolution")
+        config = BACK_CONFIG if own_size == 256 else FRONT_CONFIG
+        if anchor_config is not None and anchor_config != config:
+            raise ValueError(
+                f"anchor_config differs from the anchor table of the model's "
+                f"input size {own_size} ({config}); the port serves that "
+                "table only")
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        if head_eval == "auto":
-            head_eval = ("survivors" if any(
-                getattr(h, "spatial_context", False)
-                for h in (model.head88, model.head96)) else "map")
         self.head_eval = head_eval
         self.model = model
-        self.net = UnifiedPoseNet(model, device=self.device).eval()
-        self.net.load_state_dict(params_from_jax(model, params))
+        if graph:               # params None: the module's own weights
+            self.net = model.to(self.device).eval()
+            if params is not None:
+                model.graph.load_params(params)
+        else:
+            self.net = UnifiedPoseNet(model, device=self.device).eval()
+            self.net.load_state_dict(params_from_jax(model, params))
         self.score_threshold = float(score_threshold)
         self.iou_threshold = float(iou_threshold)
         self.max_faces = int(max_faces)
-        self.input_size = int(model.backbone.input_size)
+        self.input_size = own_size
         self.channel_order = channel_order
         self.precision = precision
-        config = BACK_CONFIG if self.input_size == 256 else FRONT_CONFIG
+        self.postprocess = postprocess
         self.anchors = torch.tensor(
             generate_anchors(config).astype(np.float32), device=self.device)
+
+    @classmethod
+    def from_h5(cls, path, **kwargs) -> "FaceDetector":
+        """A reference unified H5 (the JoinModels format: the two pose
+        heads nested as submodels), imported into the native model
+        (`models.unified_from_h5`); `path` may be a ModelDef parsed
+        already.  Reading a file needs h5py."""
+        model, params = unified_from_h5(path)
+        return cls(model, params, **kwargs)
+
+    @classmethod
+    def from_h5_compat(cls, path, **kwargs) -> "FaceDetector":
+        """Any reference-format unified H5 (or a ModelDef parsed already)
+        through the graph compiler (`core.graph`), on the detector's device:
+        it serves graphs the native import cannot (heads that are not
+        1x1-conv chains, a flat graph), at precision 'highest'."""
+        from ..core.graph import load_graph_model
+
+        device = resolve_device(kwargs.pop("device", None))
+        gm = load_graph_model(path, device=device)
+        return cls(GraphUnifiedModel(gm), None, device=device, **kwargs)
 
     @classmethod
     def from_native(cls, path: str, **kwargs) -> "FaceDetector":
@@ -186,7 +287,18 @@ class FaceDetector:
         and pose-head kernels (`runtime.fused.fused_network`, at the
         detector's precision) instead of the cuDNN modules; the same
         preprocess and postprocess.  Under the survivors profile the heads
-        run through their kernels on the survivors' rows."""
+        run through their kernels on the survivors' rows.  A
+        graph-compiled model has no native spec for the kernels: it
+        raises."""
+        if isinstance(self.model, GraphUnifiedModel):
+            if self.precision != "highest":
+                raise ValueError(_NEEDS_SPEC.format(
+                    precision=self.precision))
+            raise ValueError(
+                "detect_fused runs the fused kernels of a native backbone "
+                "spec; this model was graph-compiled (from_h5_compat) and "
+                "exposes none.  Use detect, or load through "
+                "from_h5/from_native.")
         island = None
         if self.precision == "turbo":
             island = island_of(self.model.backbone, "turbo",
@@ -216,15 +328,30 @@ class FaceDetector:
                                                         out["feat96"])
             else:
                 pose_front, pose_back = out["pose_front"], out["pose_back"]
-            slab = postprocess_slab(
-                out["scores"], out["loc"], pose_front, pose_back,
-                self.anchors, score_threshold=self.score_threshold,
-                iou_threshold=self.iou_threshold,
-                input_size=self.input_size, max_faces=self.max_faces)
+            slab = self._postprocess(out["scores"], out["loc"], pose_front,
+                                     pose_back)
             if survivors:
                 slab[..., C_POSE:C_LOGIT] = self._survivor_poses(out, slab,
                                                                  heads)
         return BatchResults(slab)
+
+    def _postprocess(self, scores, loc, pose_front, pose_back):
+        """The finished slab: kernel #1's wrapper (the kernel on a CUDA
+        device, its plain version on the CPU), or at postprocess='xla' the
+        plain chain, on the CPU only."""
+        kw = dict(score_threshold=self.score_threshold,
+                  iou_threshold=self.iou_threshold,
+                  input_size=self.input_size)
+        if self.postprocess != "xla":
+            return postprocess_slab(scores, loc, pose_front, pose_back,
+                                    self.anchors, max_faces=self.max_faces,
+                                    **kw)
+        if scores.is_cuda:
+            raise ValueError(_XLA_ON_CARD)
+        logits, decoded, pf, pb, logit_thr, iou_thr = prepare_postprocess(
+            scores, loc, pose_front, pose_back, self.anchors, **kw)
+        return finish_postprocess(nms_slab_plain(
+            logits, decoded, pf, pb, logit_thr, iou_thr, self.max_faces))
 
     def _survivor_poses(self, out, slab, heads) -> torch.Tensor:
         """head_eval='survivors': both pose heads on the feature vectors
@@ -248,6 +375,46 @@ class FaceDetector:
         """Run one batch of the given shape (cuDNN picks its algorithms and
         the kernel is built on the first call)."""
         self.detect(np.zeros(shape, np.uint8))
+
+
+_NEEDS_SPEC = (
+    "precision={precision!r} needs a native backbone spec (dense composition "
+    "+ bf16 precision islands); this model was graph-compiled "
+    "(from_h5_compat) and exposes none. Use precision='highest', or load "
+    "through from_h5/from_native for the accelerated modes.")
+_XLA_ON_CARD = (
+    "postprocess='xla' (the plain chain of ops.detection) runs on the CPU "
+    "only; on a CUDA device use 'auto' or 'pallas': kernel #1 gives the same "
+    "slab bit for bit")
+
+
+class GraphUnifiedModel(nn.Module):
+    """A compiled 6-output unified GraphModel (core.graph) as the network of
+    a FaceDetector: forward(x) → {scores, loc, pose_front, pose_back}, the
+    contract of `UnifiedPoseNet.forward` (JAX's _GraphUnifiedAdapter)."""
+
+    def __init__(self, graph_model):
+        super().__init__()
+        self.graph = graph_model
+        name = graph_model.definition.inputs[0][0]
+        inp = graph_model.definition.layers[name].config
+        shape = inp.get("batch_input_shape") or inp.get("batch_shape")
+        if not (shape and len(shape) == 4 and shape[1]):
+            raise ValueError(f"the graph's input layer {name!r} has no "
+                             f"spatial shape ({shape}); a unified model "
+                             "takes (B, H, W, 3) frames of a fixed size")
+        self.input_size = int(shape[1])
+
+    def forward(self, x: torch.Tensor, heads: bool = True
+                ) -> dict[str, torch.Tensor]:
+        del heads                      # the graph always computes the maps
+        cls_f, cls_b, loc_f, loc_b, pose_f, pose_b = self.graph(x)
+        B = x.shape[0]
+        return {"scores": torch.cat([cls_f.reshape(B, -1),
+                                     cls_b.reshape(B, -1)], 1),
+                "loc": torch.cat([loc_f.reshape(B, -1, 16),
+                                  loc_b.reshape(B, -1, 16)], 1),
+                "pose_front": pose_f, "pose_back": pose_b}
 
 
 def host_tensor(images) -> torch.Tensor:

@@ -464,12 +464,13 @@ class PoseServer:
 
 
 def _build_detector(model_path, **kw):
-    """--model value (registry name / native model dir / None) -> detector.
+    """--model value (registry name / native model dir / H5 file / None) ->
+    detector.
 
     `kw` goes to the FaceDetector (precision, head_eval, device, ...); with
     no `device` it serves on the card and raises without one.  An H5 file
-    and an AOT artifact directory are refused: the port has neither
-    FaceDetector.from_h5 (ROADMAP.md §1, item 9) nor tools.aot (item 5)."""
+    is imported through FaceDetector.from_h5.  An AOT artifact directory is
+    refused: the port has no tools.aot yet (ROADMAP.md §1, item 5)."""
     import os
 
     from ..pretrained import flagship_detector, resolve_model_path
@@ -488,11 +489,7 @@ def _build_detector(model_path, **kw):
                 "tools.aot, which the port has not ported yet (ROADMAP.md "
                 "§1, item 5) — serve the native model directory instead")
         return FaceDetector.from_native(model_path, **kw)
-    raise ValueError(
-        f"{model_path} is not a model directory; serving an H5 file needs "
-        "FaceDetector.from_h5, which the port has not ported yet "
-        "(ROADMAP.md §1, item 9) — pass a registry name or a native model "
-        "directory (spec.json + params.npz)")
+    return FaceDetector.from_h5(model_path, **kw)
 
 
 def main(argv=None) -> None:
@@ -502,7 +499,7 @@ def main(argv=None) -> None:
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", default=None,
-                   help="native model dir (spec.json + params.npz) or "
+                   help="H5, native model dir (spec.json + params.npz) or "
                         "pretrained registry name (e.g. "
                         "unified-best-distilled); default: shipped flagship")
     p.add_argument("--host", default="127.0.0.1")

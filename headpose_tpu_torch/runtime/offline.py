@@ -6,13 +6,13 @@ detection over a clip in large batches through `detect_stream` (uploads
 overlap compute on the card), applies identity-matched EMA smoothing over
 the whole timeline on the detector's device (runtime.tracking.
 track_sequence — filters follow faces via IoU association, not NMS score
-ranks; pass tracking=False for the reference-like per-slot filters), and
-returns the slabs on the host.
+ranks; pass tracking=False for the reference-like per-slot filters),
+optionally writes the annotated video (runtime.viz), and returns the slabs
+on the host.
 
-    python -m headpose_tpu_torch.runtime.offline in.mp4 --model unified-best-distilled
+    python -m headpose_tpu_torch.runtime.offline in.mp4 --model unified-best-distilled --out annotated.mp4
 
-Reading a video file needs OpenCV (`cv2`); writing the annotated copy needs
-runtime.viz, which the port does not have yet.
+Reading and writing a video file needs OpenCV (`cv2`).
 """
 from __future__ import annotations
 
@@ -104,21 +104,21 @@ def process_video(detector, path: str, out_path: str | None = None,
                   max_frames: int | None = None,
                   tracking: bool = True) -> VideoResults:
     """Read a video file chunk by chunk (bounded host memory — an hour of
-    1080p would not fit RAM whole) and detect per chunk; smoothing state
-    carries across chunks, so the result equals one pass over the whole
-    timeline.  Needs cv2.  `out_path` (the annotated copy) needs
-    runtime.viz, which the port does not have yet: it raises
-    NotImplementedError."""
+    1080p would not fit RAM whole), detect per chunk, and with `out_path`
+    write the annotated copy as it goes (mp4v, the source's frame rate);
+    smoothing state carries across chunks, so the result equals one pass
+    over the whole timeline.  Needs cv2."""
     import cv2
 
-    if out_path:
-        raise NotImplementedError(
-            "writing the annotated video needs runtime.viz, not ported yet "
-            "(ROADMAP.md §1, item 3); call without out_path")
+    from .results import Results
+    from .viz import draw_detections
+
     cap = cv2.VideoCapture(path)
     if not cap.isOpened():
         raise RuntimeError(f"cannot open video {path!r}")
+    fps = cap.get(cv2.CAP_PROP_FPS) or 20.0
 
+    writer = None
     chunks: list[VideoResults] = []
     ema_state = None
     total = 0
@@ -149,8 +149,21 @@ def process_video(detector, path: str, out_path: str | None = None,
                                    poses=smoothed["poses"],
                                    valid=res.valid)
             chunks.append(res)
+
+            if out_path:
+                if writer is None:
+                    writer = cv2.VideoWriter(
+                        out_path, cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                        (chunk.shape[2], chunk.shape[1]))
+                for t in range(len(frames)):
+                    m = res.valid[t]
+                    writer.write(draw_detections(chunk[t], Results(
+                        boxes=res.boxes[t][m], keypoints=res.keypoints[t][m],
+                        scores=res.scores[t][m], poses=res.poses[t][m])))
     finally:
         cap.release()
+        if writer is not None:
+            writer.release()
     if not chunks:
         raise RuntimeError(f"no frames in {path!r}")
 
@@ -163,10 +176,9 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("video")
     p.add_argument("--model", default=None,
-                   help="native model dir or pretrained registry name; "
+                   help="H5, native model dir or pretrained registry name; "
                         "default: shipped flagship")
-    p.add_argument("--out", default=None,
-                   help="annotated copy (needs runtime.viz: not ported yet)")
+    p.add_argument("--out", default=None, help="annotated copy (mp4)")
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--no_smooth", action="store_true")
     p.add_argument("--no_tracking", action="store_true",

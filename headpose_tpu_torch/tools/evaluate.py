@@ -15,7 +15,7 @@ import torch
 
 from ..data.datasets import Dataset, load_dataset
 from ..models.blazeface import fp32_exact
-from ..models.heads import head_net
+from ..models.heads import head_from_h5, head_net
 from ..utils.device import resolve_device
 from .convert import load_native, params_from_jax
 
@@ -69,9 +69,9 @@ def evaluate_head_pose_model(model: Any, dataset: Any, params: Any = None,
                              ) -> dict:
     """Evaluate a pose head on a feature dataset.
 
-    model: a head spec (with `params` in JAX layout) or the path of a
-      native model directory (`tools.export.save_model`); an H5 head raises
-      NotImplementedError (the H5 import is ROADMAP §1 item 9).
+    model: a head spec (with `params` in JAX layout), the path of a native
+      model directory (`tools.export.save_model`) or of a reference H5 head
+      (read by `models.head_from_h5`).
     dataset: a `Dataset` or the path of an .npz.
     device: None (the card) or "cpu"."""
     if isinstance(dataset, str):
@@ -80,12 +80,8 @@ def evaluate_head_pose_model(model: Any, dataset: Any, params: Any = None,
         raise TypeError(f"dataset must be a Dataset or an .npz path, got "
                         f"{type(dataset).__name__}")
     if isinstance(model, str):
-        if not os.path.isdir(model):
-            raise NotImplementedError(
-                f"{model}: reading a reference H5 head is not ported yet "
-                "(ROADMAP §1 item 9); pass a native model directory or a "
-                "spec with its params")
-        model, params = load_native(model)
+        model, params = (load_native(model) if os.path.isdir(model)
+                         else head_from_h5(model))
     if params is None:
         raise ValueError("a head spec needs its params")
     metrics = pose_metrics(predict(model, params, dataset.features, device),

@@ -25,7 +25,7 @@ import torch
 
 from ..models.blazeface import fp32_exact
 from ..models.unified import UnifiedPoseNet
-from ..ops.detection import _f32, score_threshold_to_logit
+from ..ops.detection import _f32, anchor_cells, score_threshold_to_logit
 from ..ops.image import preprocess
 from ..runtime.detector import host_tensor
 from ..tools.convert import params_from_jax
@@ -33,8 +33,6 @@ from ..utils.device import resolve_device
 
 __all__ = ["FeatureExtractor", "ExtractionResult", "extract_dataset",
            "best_face"]
-
-NUM_ANCHORS_FRONT = 512
 
 
 @dataclasses.dataclass
@@ -58,16 +56,12 @@ def best_face(logits: torch.Tensor, logit_threshold: float):
 
 def gather_cells(best: torch.Tensor, feat88: torch.Tensor,
                  feat96: torch.Tensor):
-    """The feature vectors at each best anchor's cell, as JAX's
-    `anchor_cells` maps an anchor: a front anchor (2 per cell of the 16x16
+    """The feature vectors at each best anchor's cell, as
+    `ops.detection.anchor_cells` maps an anchor: a front anchor (2 per cell of the 16x16
     map) reads its 16x16 cell and the 8x8 cell above it (//2); a back
     anchor (6 per cell of the 8x8 map) its 8x8 cell and the 16x16 cell at
     that cell's origin corner (x2)."""
-    is_front = best < NUM_ANCHORS_FRONT
-    cell_f = best // 2
-    rf, cf = (cell_f // 16).clamp(0, 15), (cell_f % 16).clamp(0, 15)
-    cell_b = (best - NUM_ANCHORS_FRONT).clamp(min=0) // 6
-    rb, cb = (cell_b // 8).clamp(0, 7), (cell_b % 8).clamp(0, 7)
+    is_front, rf, cf, rb, cb = anchor_cells(best)
     b = torch.arange(best.shape[0], device=best.device)
     f88 = torch.where(is_front[:, None], feat88[b, rf, cf],
                       feat88[b, rb * 2, cb * 2])

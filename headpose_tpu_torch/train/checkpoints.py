@@ -53,10 +53,29 @@ def save_pytree(path: str, tree: Any) -> None:
     os.replace(tmp, path)
 
 
-def restore_pytree(path: str) -> Any:
-    """A tree saved by `save_pytree` → nested dicts/lists of numpy arrays."""
+def _impose(like: Any, tree: Any) -> Any:
+    """`tree`'s leaves on `like`'s structure: containers take `like`'s types
+    (a tuple or NamedTuple comes back as one), leaves stay as restored.  An
+    empty container saves no leaf, so it is restored from `like` alone."""
+    if isinstance(like, (dict, list, tuple)) and not like:
+        return type(like)()
+    if isinstance(like, dict):
+        return type(like)((k, _impose(v, tree[k])) for k, v in like.items())
+    if isinstance(like, (list, tuple)):
+        items = [_impose(v, tree[i]) for i, v in enumerate(like)]
+        if hasattr(like, "_fields"):                  # a NamedTuple
+            return type(like)(*items)
+        return type(like)(items)
+    return tree
+
+
+def restore_pytree(path: str, like: Any | None = None) -> Any:
+    """A tree saved by `save_pytree` → nested dicts/lists of numpy arrays.
+    With `like`, the restored leaves are re-imposed onto its structure and
+    container types (tuples, NamedTuples), as JAX's `restore_pytree` does."""
     with np.load(os.path.join(path, _TREE), allow_pickle=False) as data:
-        return unflatten_params({k: data[k] for k in data.files})
+        tree = unflatten_params({k: data[k] for k in data.files})
+    return tree if like is None else _impose(like, tree)
 
 
 def save_checkpoint(ckpt_dir: str, step: int, params: Any, opt_state: Any,
@@ -92,10 +111,12 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str
+def restore_checkpoint(ckpt_dir: str, like: Any | None = None
                        ) -> tuple[int, Any, Any, dict, Any] | None:
     """The newest checkpoint → (step, params, opt_state, meta,
-    best_params-or-None), or None if there is none."""
+    best_params-or-None), or None if there is none.  `like` ({"params": ...,
+    "opt_state": ...}) gives the restored tree its structure and types, as
+    `restore_pytree` does; `best_params`, where saved, shares `params`'."""
     step = latest_step(ckpt_dir)
     if step is None:
         return None
@@ -105,7 +126,9 @@ def restore_checkpoint(ckpt_dir: str
     if os.path.exists(meta_path):
         with open(meta_path) as f:
             meta = json.load(f)
-    tree = restore_pytree(path)
+    if like is not None and meta.get("has_best_params"):
+        like = {**like, "best_params": like["params"]}
+    tree = restore_pytree(path, like)
     return (step, tree["params"], tree.get("opt_state", {}), meta,
             tree.get("best_params"))
 

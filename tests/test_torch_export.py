@@ -84,9 +84,9 @@ def test_evaluate_matches_jax(name):
 
 
 def test_evaluate_paths_and_schema(tmp_path, capsys):
-    """A native directory evaluates as its (spec, params); an H5 path
-    raises NotImplementedError (ROADMAP §1 item 9); the printed report is
-    the reference's."""
+    """A native directory evaluates as its (spec, params); an H5 head (the
+    flagship's head96, hrchr82r) evaluates as the same head; a file that is
+    no H5 raises; the printed report is the reference's."""
     ds = seeded_rows(96, n=64)
     path = os.path.join(PRETRAINED_DIR, "hrchr82r-96")
     spec, params = load_pretrained("hrchr82r-96")
@@ -97,7 +97,11 @@ def test_evaluate_paths_and_schema(tmp_path, capsys):
     np.savez(tmp_path / "ds.npz", features=ds.features, poses=ds.poses)
     assert evaluate_head_pose_model(path, str(tmp_path / "ds.npz"),
                                     verbose=False, device="cpu") == by_path
-    with pytest.raises(NotImplementedError, match="item 9"):
+    h5 = os.path.join(os.path.dirname(__file__), "golden_torch", "head96.h5")
+    assert evaluate_head_pose_model(h5, ds, verbose=False,
+                                    device="cpu") == by_path
+    (tmp_path / "head.h5").write_bytes(b"not an h5 file")
+    with pytest.raises(OSError):
         evaluate_head_pose_model(str(tmp_path / "head.h5"), ds,
                                  device="cpu")
     m = pose_metrics(np.zeros((10, 3), np.float32),

@@ -189,6 +189,24 @@ def flagship(cuda):
     return flagship_detector()
 
 
+def test_xla_postprocess_is_refused_on_the_card(cuda, flagship):
+    """postprocess='xla' (the plain chain) runs on the CPU only: on the card
+    kernel #1 serves the same slab, and asking for the plain chain raises,
+    at construction and when the attribute is set later."""
+    from headpose_tpu_torch.pretrained import FLAGSHIP, load_pretrained
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+
+    model, params = load_pretrained(FLAGSHIP)
+    with pytest.raises(ValueError, match="CPU only"):
+        FaceDetector(model, params, postprocess="xla")
+    flagship.postprocess = "xla"
+    try:
+        with pytest.raises(ValueError, match="CPU only"):
+            flagship.detect(_corpus(1))
+    finally:
+        flagship.postprocess = "auto"
+
+
 def _corpus(b):
     """b parity-corpus frames (the 112 repeated from the start past 112)."""
     imgs = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"]

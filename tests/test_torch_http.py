@@ -302,9 +302,11 @@ def test_served_flagship_matches_jax_flagship():
 
 
 def test_build_detector(tmp_path):
-    """A registry name, a native model directory and None (the flagship)
-    build detectors; an H5 file and an AOT artifact directory are refused,
-    naming what is not ported; an unknown name is not found."""
+    """A registry name, a native model directory, an H5 file (through
+    FaceDetector.from_h5, as the JAX server builds it) and None (the
+    flagship) build detectors; a file that is no H5 raises; an AOT artifact
+    directory is refused, naming what is not ported; an unknown name is not
+    found."""
     from headpose_tpu_torch.pretrained import FLAGSHIP, flagship_path
 
     best = thttp._build_detector("unified-best-distilled", device="cpu",
@@ -316,9 +318,13 @@ def test_build_detector(tmp_path):
     flagship = thttp._build_detector(None, device="cpu")
     assert flagship.model == native.model
     assert os.path.basename(flagship_path()) == FLAGSHIP
+    joined = os.path.join(os.path.dirname(__file__), "golden_torch",
+                          "flagship_joined.h5")
+    from_h5 = thttp._build_detector(joined, device="cpu", precision="fast")
+    assert from_h5.model == native.model and from_h5.precision == "fast"
     h5 = tmp_path / "model.h5"
     h5.write_bytes(b"\x89HDF\r\n\x1a\n")
-    with pytest.raises(ValueError, match="from_h5"):
+    with pytest.raises(OSError):
         thttp._build_detector(str(h5), device="cpu")
     aot = tmp_path / "artifact"
     aot.mkdir()

@@ -339,8 +339,8 @@ def test_process_video_matches_jax(tmp_path):
     """A 10-frame video read in chunks of 4 (the smoothing state carried
     across chunks) through the port's process_video and the JAX package's:
     valid identical, smoothed poses within 2e-3 deg; it equals the port's
-    process_frames over the decoded frames in one pass; an annotated copy
-    (out_path) needs runtime.viz, which the port refuses."""
+    process_frames over the decoded frames in one pass; with out_path the
+    same slabs come back and the annotated copy has every frame."""
     cv2 = pytest.importorskip("cv2")
     from headpose_tpu.pretrained import flagship_detector as jax_flagship
     from headpose_tpu.runtime.offline import process_video as jax_video
@@ -378,5 +378,12 @@ def test_process_video_matches_jax(tmp_path):
     for field in ("boxes", "keypoints", "scores", "poses"):
         np.testing.assert_allclose(getattr(got, field)[v],
                                    getattr(one, field)[v], **TOL)
-    with pytest.raises(NotImplementedError, match="viz"):
-        process_video(det, path, out_path=str(tmp_path / "out.mp4"))
+    drawn = process_video(det, path, out_path=str(tmp_path / "out.mp4"),
+                          batch_size=4)
+    np.testing.assert_array_equal(drawn.poses, got.poses)
+    cap = cv2.VideoCapture(str(tmp_path / "out.mp4"))
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    assert n == 10

@@ -4,7 +4,9 @@
   checkpoint of the same name;
 * the weight bridge round-trips;
 * headpose_tpu_torch imports neither jax nor headpose_tpu (an AST scan, and
-  a subprocess in which both are import-blocked runs a CPU detect);
+  a subprocess in which both, and h5py, are import-blocked runs a CPU
+  detect, and the H5 loaders and the graph compiler from the flagship
+  fixture's h5py-free twin; only reading an .h5 file needs h5py);
 * an entry point with no device and no card raises.
 """
 import ast
@@ -159,7 +161,7 @@ sys.path.insert(0, {repo!r})
 
 class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "headpose_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "headpose_tpu", "h5py"):
             raise ImportError(f"{{name}} blocked")
         return None
 
@@ -214,8 +216,28 @@ assert evaluate_head_pose_model(head, ds, params=head_params, verbose=False,
 trained = fit(config_96(total_epochs=1, batch_size=8,
                         checkpoint_dir={ckpt!r}), ds, device="cpu")
 assert len(trained.history) == 1
+import json
+
+import headpose_tpu_torch.compat
+import headpose_tpu_torch.core.graph
+from headpose_tpu_torch.core.h5io import _model_from_parts
+from headpose_tpu_torch.runtime.detector import FaceDetector as Detector
+
+with open({twin!r} + "_config.json") as f:
+    config = json.load(f)
+with np.load({twin!r} + "_weights.npz") as w:
+    md = _model_from_parts(config, dict(w))
+h5 = Detector.from_h5(md, device="cpu").detect_single(img)
+assert len(h5) == len(res) and abs(h5.poses - res.poses).max() == 0
+compat = Detector.from_h5_compat(md, device="cpu").detect_single(img)
+assert len(compat) == len(res)
+try:
+    Detector.from_h5({twin!r} + ".h5", device="cpu")
+    raise AssertionError("read an H5 file with h5py blocked")
+except ImportError:
+    pass
 leaked = [m for m in sys.modules
-          if m.split(".")[0] in ("jax", "jaxlib", "headpose_tpu")]
+          if m.split(".")[0] in ("jax", "jaxlib", "headpose_tpu", "h5py")]
 assert not leaked, leaked
 print("OK", len(res))
 """
@@ -225,7 +247,8 @@ def test_detect_with_jax_and_headpose_tpu_blocked(tmp_path):
     script = _BLOCKED_SCRIPT.format(
         repo=REPO, golden=os.path.join(REPO, "tests", "golden",
                                        "e2e_production.npz"),
-        ckpt=str(tmp_path))
+        ckpt=str(tmp_path),
+        twin=os.path.join(REPO, "tests", "golden_torch", "flagship_joined"))
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
                           text=True, timeout=300, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]

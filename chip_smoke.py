@@ -42,9 +42,14 @@ is one JSON object, except the nvidia-smi line:
            and at atol 5e-4 against the fp32 backbone_forward kernel, or for
            the back model its cuDNN taps;
            se_transformer_forward at rtol 1e-4 / atol 1e-5; dense_block,
-           the island kernel, block by block on the same input at 1e-5 of
-           the map's largest value, every block of both models at B=128
-           and a spec widening to 128 channels) and times it
+           the island kernel of a block alone, block by block on the same
+           input at 1e-5 of the map's largest value, every block of both
+           models at B=128 and a spec widening to 128 channels;
+           dense_chain, the island kernel of a run of small-map blocks, on
+           every chain of the "turbo" and "max" plans of both models at
+           B=128, 1 and 3 and of the wide spec: each block through the
+           chain's prefixes at 1e-5 of the map, the whole chain within one
+           bf16 step, 2^-7, of the map) and times it
            (CUDA events) at the main path's shapes beside its plain version
            and a library yardstick, with each grid's device time
            (backbone_forward's 17 beside each one's byte floor;
@@ -115,12 +120,14 @@ is one JSON object, except the nvidia-smi line:
            parity corpus against JAX's certificate (turbo: set agreement
            1.0, pose p99 <= 0.43 deg; max: >= 108/112 images, pose p99 <=
            1.35 deg), the stress corpus per axis printed beside it; the
-           launches of one detect by count and by kernel name (turbo:
-           kernel #3 over A, B, C 6-9, 6 island launches, #4 twice, #1
-           once; max: 16 island launches, no #3); turbo_island=() bitwise
-           "fast"; best_detector() and the back model at both modes against
-           their "highest"; the B=128 network stage and detect walls of
-           "fast", "turbo" and "max";
+           launches of one detect by count and by kernel name, as the
+           plans give them (segment_plan, island_chains; turbo: kernel #3
+           over A, B, C 6-9, one island chain launch for blocks 10-15, #4
+           twice, #1 once; max: blocks 0-5 an island launch each, one chain
+           launch for 6-15, no #3); turbo_island=() bitwise "fast";
+           best_detector() and the back model at both modes against their
+           "highest"; the network stage at B=128 and B=1 and the detect
+           walls of "fast", "turbo" and "max";
   stream   detect_stream over the corpus in batches of 16 (pinned staging,
            a side copy stream), each slab against that batch's detect
            (within 1e-6), in its own launch window; process_frames
@@ -156,8 +163,9 @@ is one JSON object, except the nvidia-smi line:
            dispatches over 8 staged buffers, a reading, not a claim);
   then the {"kernels": [...]} summary (launches from the fused phase;
   apply_fused's from the fast phase, and its back window's beside them;
-  se_transformer_forward's from the se phase's map window; dense_block's
-  from the turbo phase's "turbo" window, its "max" window beside them;
+  se_transformer_forward's from the se phase's map window; dense_chain's
+  from the turbo phase's "turbo" window and dense_block's from its "max"
+  window, the other window beside each;
   the serve phase's beside them), the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 """
@@ -292,6 +300,7 @@ def wrappers() -> dict:
                                                 postprocess_kernel,
                                                 se_transformer_forward)
     from headpose_tpu_torch.ops.kernels.backbone2 import run_segment
+    from headpose_tpu_torch.ops.kernels.dense_bf16 import dense_chain
 
     return {"postprocess_nms": postprocess_kernel,
             "backbone_forward": backbone_forward,
@@ -299,6 +308,7 @@ def wrappers() -> dict:
             "apply_fused": apply_fused,
             "se_transformer_forward": se_transformer_forward,
             "dense_block": dense_block,
+            "dense_chain": dense_chain,
             "run_segment": run_segment}
 
 
@@ -443,8 +453,11 @@ def phase_build() -> dict:
 
 def launches_per_call(fn, reps: int = 10) -> float:
     """CUDA kernels launched by one fn() (torch.profiler over reps warm
-    calls)."""
-    return len(cuda_events(fn, reps)) / reps
+    calls): the most of PROFILE_TRIES windows.  The profiler drops an event
+    now and then, once every second kernel of a window (PERF.md §7), and
+    never adds one, so a launch that really is missing stays missing."""
+    return max(len(cuda_events(fn, reps)) / reps
+               for _ in range(PROFILE_TRIES))
 
 
 def phase_kernels(dev, anchors, back_anchors, main_inputs, built):
@@ -1311,6 +1324,12 @@ def phase_kernel_backbone2(dev, flagship, back, frames128, frames256, built):
 # fp32 sum order is the only freedom): |diff| <= 1e-5 of the map's largest
 # |value|, block by block on the same input
 ISLAND_TOL_FRAC = 1e-5
+# a whole chain against the composition of its blocks' plain versions: one
+# bf16 step (2^-7) of the map's largest |value| (tests/
+# test_torch_island_chain.py::CHAIN_TOL_FRAC: a one-ulp fp32 difference
+# before a block's bf16 rounding moves an element a bf16 step, and the
+# blocks after it carry that on)
+CHAIN_TOL_FRAC = 2.0 ** -7
 U32 = 2.0 ** -24
 
 
@@ -1382,21 +1401,117 @@ def island_scale(net, i, x):
     return (mag + skip).permute(0, 2, 3, 1)
 
 
+def kernel_alone_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Device time of one launch of the kernel named `kernel` in fn() (one
+    launch a call), the profiler's: the mean over the launches recorded in
+    a window of reps warm calls, the most of PROFILE_TRIES windows.  A mean
+    over recorded launches cannot be emptied by a dropped event, as a sum
+    over the window divided by reps can (PERF.md §7)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = 0.0
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and kernel in e.name]
+        if ev:
+            best = max(best, sum(e.time_range.end - e.time_range.start
+                                 for e in ev) / len(ev) / 1e3)
+    if best == 0.0:
+        raise AssertionError(f"the profiler recorded no {kernel} launch in "
+                             f"{PROFILE_TRIES} windows")
+    return best
+
+
+def chain_work(net, first, last, h, B):
+    """(tensor-core operations, bytes) of one chain: the blocks' operations
+    summed; the chain's input read once, its last map and (when the spec's
+    tap lies inside and is not the last) the tap's map written once, each
+    block's bf16 kernel and fp32 bias once."""
+    ops = nbytes = 0
+    hh, out = h, 0
+    for i in range(first, last + 1):
+        w = island_work(net, i, hh, B)
+        blk = net.blocks[i]
+        cin, cout = blk.dw.weight.shape[0], blk.pw.weight.shape[0]
+        ops += w[0]
+        nbytes += 2 * 9 * cin * cout + 4 * cout
+        hh //= blk.stride
+        if i == last or i == net.spec.tap88_block:
+            out += 4 * B * hh * hh * cout
+    cin0 = net.blocks[first].dw.weight.shape[0]
+    return ops, nbytes + 4 * B * h * h * cin0 + out
+
+
+def check_chain(kd, m, first, last, y0):
+    """The chain kernel against its plain version on its input y0: (a) each
+    prefix chain first..k against dense_block_plain of block k on the
+    prefix first..k-1's map (the chain's own intermediate), at
+    ISLAND_TOL_FRAC of the map; the chain bitwise its longest prefix, its
+    tap bitwise its prefix to the tap; (b) the whole chain (and its tap)
+    against dense_chain_plain at CHAIN_TOL_FRAC of the map, with the share
+    of elements beyond ISLAND_TOL_FRAC of the map; and the first and last
+    image of the batch run alone bitwise their maps in the batch (an image's
+    result does not depend on its place in it)."""
+    got, got_tap = kd.dense_chain_cuda(m, first, last, y0)
+    invariant = True
+    for j in sorted({0, y0.shape[0] - 1}):
+        one, one_tap = kd.dense_chain_cuda(m, first, last, y0[j:j + 1])
+        invariant &= torch.equal(one[0], got[j])
+        if got_tap is not None:
+            invariant &= torch.equal(one_tap[0], got_tap[j])
+    prev, worst_a, exact = y0, 0.0, True
+    for k in range(first, last + 1):
+        cur, _ = kd.dense_chain_cuda(m, first, k, y0)
+        want = kd.dense_block_plain(m, k, prev)
+        torch.cuda.synchronize()
+        worst_a = max(worst_a, close(cur, want, 0.0, ISLAND_TOL_FRAC
+                                     * float(want.abs().max()))[1])
+        if k == m.spec.tap88_block:
+            exact &= torch.equal(got_tap, cur)
+        prev = cur
+    exact &= torch.equal(got, prev)
+    want, want_tap = kd.dense_chain_plain(m, first, last, y0)
+    scale = float(want.abs().max())
+    err, ratio_b = close(got, want, 0.0, CHAIN_TOL_FRAC * scale)
+    if want_tap is not None and want_tap is not want:
+        ratio_b = max(ratio_b, close(got_tap, want_tap, 0.0, CHAIN_TOL_FRAC
+                                     * float(want_tap.abs().max()))[1])
+    share = float(((got - want).abs() > ISLAND_TOL_FRAC * scale).float()
+                  .mean())
+    return {"max_abs_err": err, "max_abs_map": scale,
+            "a_tolerance_ratio": worst_a, "b_tolerance_ratio": ratio_b,
+            "share_beyond_1e-5": share, "prefix_bitwise": bool(exact),
+            "batch_invariant": bool(invariant)}
+
+
 def phase_kernel_dense(dev, flagship, back, frames128, frames256, built):
-    """dense_block: the island kernel against its plain version
-    (dense_block_plain: the module's island step, cuDNN fp32 on the rounded
-    operands, TF32 off) block by block, each on the same input: every block
-    of the flagship and of the back model at B=128 (the "max" plan's inputs,
-    from a pass through the kernels, cover every block shape of both
-    specs), the flagship at B=1 and 3 on its "turbo" island, and a
-    random-init spec widening to 128 channels (the kernel's widest: two
-    slices of 64) at B=2; ISLAND_TOL_FRAC of the map's largest |value|, and
-    the difference in units of fp32 roundoff of the sum of |terms| beside
-    it.  Then timed at B=128 per block (CUDA events): the kernel, the plain
-    version, the two cuDNN yardsticks, each block's bound, and the
-    kernel's device time alone (the profiler: at small maps the wrapper's
-    host work exceeds it); summed over the front model's "turbo" island
-    (the row's ms) and over each "max"."""
+    """The island kernels against their plain versions.  dense_block
+    (island_block_kernel) block by block, each on the same input: every
+    block of the flagship and of the back model at B=128, 1 and 3 (the
+    "max" plan's inputs, from a pass through the kernels, cover every block
+    shape of both specs; the tile plan depends on the batch, and at B=1 and
+    3 every CTA walks a single short tile), and a random-init spec widening
+    to 128 channels at B=2, within ISLAND_TOL_FRAC of the map's largest
+    |value| (the difference in units of fp32 roundoff of the sum of |terms|
+    beside it), the first and last image alone bitwise their maps in the
+    batch.  dense_chain
+    (island_chain_kernel) on every chain of the "turbo" and "max" plans
+    (`island_chains`) of the flagship and the back model at B=128, 1 and
+    3 and of the wide spec at B=2, on the chain's own input: (a) block by
+    block through its prefix chains at ISLAND_TOL_FRAC, (b) whole at
+    CHAIN_TOL_FRAC (check_chain).  Then timed at B=128 (CUDA events): per
+    block and per chain the kernel, the kernel alone (kernel_alone_ms),
+    the plain version, the two cuDNN yardsticks (a chain: its blocks'
+    summed), the bound (a chain: its own, and its blocks' summed); and per
+    island of "turbo" and "max" of both models, the plan (its blocks alone
+    and its chains) beside every island block alone."""
     from headpose_tpu_torch.models import BlazeFace, BlazeFaceNet
     from headpose_tpu_torch.ops.kernels import backbone2 as kb2
     from headpose_tpu_torch.ops.kernels import dense_bf16 as kd
@@ -1404,14 +1519,17 @@ def phase_kernel_dense(dev, flagship, back, frames128, frames256, built):
 
     net, bnet = flagship.net.backbone, back.net.backbone
     wide = random_init(BlazeFaceNet(BlazeFace(**WIDE_D), device=dev), 8)
-    cases, worst = [], (0.0, 0.0, 0.0)
-    timed = {}
+    cases, chain_cases, worst = [], [], (0.0, 0.0, 0.0)
+    worst_chain = (0.0, 0.0, 0.0)
+    timed, timed_chains = {}, {}
     with torch.inference_mode():
         for name, m, x, blocks in (
                 ("flagship_b128", net, frames128, range(16)),
                 ("back_b128", bnet, frames256, range(17)),
-                ("flagship_b1", net, frames128[:1], range(10, 16)),
-                ("flagship_b3", net, frames128[:3], range(10, 16)),
+                ("flagship_b1", net, frames128[:1], range(16)),
+                ("flagship_b3", net, frames128[:3], range(16)),
+                ("back_b1", bnet, frames256[:1], range(17)),
+                ("back_b3", bnet, frames256[:3], range(17)),
                 ("wide_b2", wide, frames128[:2], range(16))):
             island = tuple(range(len(m.blocks)))
             inputs = kb2.segment_inputs(m, x, kb2.pack_backbone(m), island)
@@ -1425,81 +1543,180 @@ def phase_kernel_dense(dev, flagship, back, frames128, frames256, built):
                 err, ratio = close(got, want, 0.0, ISLAND_TOL_FRAC * scale)
                 units = float(((got - want).abs()
                                / (U32 * island_scale(m, i, y))).max())
+                invariant = all(torch.equal(kd.dense_block_cuda(
+                    m, i, y[j:j + 1], dpack)[0], got[j])
+                    for j in sorted({0, y.shape[0] - 1}))
                 worst = (max(worst[0], err), max(worst[1], ratio),
                          max(worst[2], units))
                 cases.append({"case": name, "block": i,
                               "in": list(y.shape[1:]),
                               "max_abs_err": err, "max_abs_map": scale,
                               "tolerance_ratio": ratio,
-                              "sum_order_units": units})
-                if x.shape[0] == 128 and m is not wide:
+                              "sum_order_units": units,
+                              "plan": list(kd.tile_plan(
+                                  y.shape[0], y.shape[1],
+                                  *kd._shapes(m.spec)[i][:3])),
+                              "batch_invariant": invariant})
+                if x.shape[0] == 128:
                     lib = island_library(m, i, y)
                     h = int(y.shape[1])
                     work = island_work(m, i, h, 128)
                     one = island_bound([work])
-                    grids = grid_ms(lambda: kd.dense_block_cuda(
-                        m, i, y, dpack), 20)
+                    call = (lambda m=m, i=i, y=y:
+                            kd.dense_block_cuda(m, i, y, dpack))
                     timed[(name, i)] = {
                         "block": i, "in": list(y.shape[1:]),
-                        "ms": cuda_ms(lambda: kd.dense_block_cuda(
-                            m, i, y, dpack), 50),
-                        "kernel_ms": sum(v for k, v in grids.items()
-                                         if "dense_kernel" in k),
+                        "ms": cuda_ms(call, 50),
+                        "kernel_ms": kernel_alone_ms(
+                            call, "island_block_kernel"),
                         "plain_ms": cuda_ms(lambda: kd.dense_block_plain(
                             m, i, y), 10),
                         "library_bf16_ms": cuda_ms(lib["bf16"], 50),
                         "library_fp32_ms": cuda_ms(lib["fp32"], 20),
                         "bound_ms": one[0], "bound_by": one[1],
                         "work": work}
-    def total(name, blocks):
-        rows = [timed[(name, i)] for i in blocks]
+            chains = sorted({s for mode in ("turbo", "max")
+                             for s in kd.island_chains(
+                                 m.spec, island_of(m.spec, mode))
+                             if s[0] == "chain"})
+            for _, first, last in chains:
+                if not any(first <= i <= last for i in blocks):
+                    continue
+                y0 = inputs[first]
+                row = {"case": name, "chain": [first, last],
+                       "in": list(y0.shape[1:]),
+                       **check_chain(kd, m, first, last, y0)}
+                chain_cases.append(row)
+                worst_chain = (max(worst_chain[0], row["a_tolerance_ratio"]),
+                               max(worst_chain[1], row["b_tolerance_ratio"]),
+                               max(worst_chain[2], row["max_abs_err"]))
+                if x.shape[0] == 128:
+                    h = int(y0.shape[1])
+                    work = chain_work(m, first, last, h, 128)
+                    own = island_bound([work])
+                    summed = island_bound([timed[(name, i)]["work"] for i
+                                           in range(first, last + 1)])
+                    call = (lambda m=m, f=first, la=last, y=y0:
+                            kd.dense_chain_cuda(m, f, la, y, dpack))
+                    timed_chains[(name, first, last)] = {
+                        "chain": [first, last], "in": list(y0.shape[1:]),
+                        "plan": list(kd.chain_plan(*kd._chain_args(
+                            m.spec, first, last))),
+                        "ms": cuda_ms(call, 50),
+                        "kernel_ms": kernel_alone_ms(
+                            call, "island_chain_kernel"),
+                        "plain_ms": cuda_ms(lambda m=m, f=first, la=last,
+                                            y=y0: kd.dense_chain_plain(
+                                                m, f, la, y), 10),
+                        **{k: sum(timed[(name, i)][k] for i in range(
+                            first, last + 1)) for k in (
+                            "library_bf16_ms", "library_fp32_ms")},
+                        "per_block_kernel_ms": sum(
+                            timed[(name, i)]["kernel_ms"]
+                            for i in range(first, last + 1)),
+                        "bound_ms": own[0], "bound_by": own[1],
+                        "bound_terms": own[2],
+                        "blocks_bound_ms": summed[0], "work": work}
+
+    def total(name, spec, mode):
+        """The island of `mode` as its plan launches it, and every island
+        block alone (the per-block schedule), summed."""
+        island = island_of(spec, mode)
+        steps = kd.island_chains(spec, island)
+        rows = [timed[(name, s[1])] if s[0] == "block"
+                else timed_chains[(name, s[1], s[2])] for s in steps]
+        blocks = [timed[(name, i)] for i in island]
         b = island_bound([r["work"] for r in rows])
-        return {"blocks": list(blocks),
+        return {"blocks": list(island), "plan": [list(s) for s in steps],
+                "launches": len(steps),
                 **{k: sum(r[k] for r in rows) for k in (
                     "ms", "kernel_ms", "plain_ms", "library_bf16_ms",
                     "library_fp32_ms")},
-                "bound_ms": b[0], "bound_by": b[1], "bound_terms": b[2]}
+                "bound_ms": b[0], "bound_by": b[1], "bound_terms": b[2],
+                "blocks_bound_ms": island_bound(
+                    [r["work"] for r in blocks])[0],
+                "every_block_alone": {k: sum(r[k] for r in blocks) for k in (
+                    "ms", "kernel_ms")}}
 
-    sums = {"front_turbo": total("flagship_b128",
-                                 island_of(net.spec, "turbo")),
-            "front_max": total("flagship_b128", range(16)),
-            "back_turbo": total("back_b128", island_of(bnet.spec, "turbo")),
-            "back_max": total("back_b128", range(17))}
+    sums = {"front_turbo": total("flagship_b128", net.spec, "turbo"),
+            "front_max": total("flagship_b128", net.spec, "max"),
+            "back_turbo": total("back_b128", bnet.spec, "turbo"),
+            "back_max": total("back_b128", bnet.spec, "max")}
     per_block = {f"{name}.block{i}": {k: v for k, v in row.items()
                                       if k != "work"}
                  for (name, i), row in timed.items()}
+    per_chain = {f"{name}.chain{f}-{la}": {k: v for k, v in row.items()
+                                           if k != "work"}
+                 for (name, f, la), row in timed_chains.items()}
+    slower = ([k for k, r in per_block.items()
+               if r["kernel_ms"] > r["library_bf16_ms"]]
+              + [k for k, r in per_chain.items()
+                 if r["kernel_ms"] > r["library_bf16_ms"]])
     emit({"phase": "kernels", "kernel": "dense_block", "cases": cases,
-          "sums_b128": sums, "per_block_b128": per_block})
-    if worst[1] > 1.0:
-        bad = [c for c in cases if c["tolerance_ratio"] > 1.0]
+          "chain_cases": chain_cases, "sums_b128": sums,
+          "per_block_b128": per_block, "per_chain_b128": per_chain,
+          "slower_than_cudnn_bf16": slower})
+    bad = [c for c in cases
+           if c["tolerance_ratio"] > 1.0 or not c["batch_invariant"]]
+    if bad:
         raise AssertionError(f"dense_block disagrees with its plain version "
-                             f"beyond {ISLAND_TOL_FRAC} of the map: {bad}")
-    main = sums["front_turbo"]
-    return {
-        "name": "dense_block", "route": "cuda",
-        "source": "headpose_tpu_torch/csrc/dense_bf16.cu",
+                             f"beyond {ISLAND_TOL_FRAC} of the map, or an "
+                             f"image alone with itself in the batch: {bad}")
+    bad = [c for c in chain_cases if c["a_tolerance_ratio"] > 1.0
+           or c["b_tolerance_ratio"] > 1.0 or not c["prefix_bitwise"]
+           or not c["batch_invariant"]]
+    if bad:
+        raise AssertionError(f"dense_chain disagrees with its plain version "
+                             f"(a: {ISLAND_TOL_FRAC} of the map a block, b: "
+                             f"{CHAIN_TOL_FRAC} whole): {bad}")
+    common = {
+        "route": "cuda", "source": "headpose_tpu_torch/csrc/dense_bf16.cu",
         "replaces": "headpose_tpu/models/blazeface.py:162 (no Pallas "
                     "kernel: an island block is XLA's conv at "
                     "Precision.DEFAULT in BlazeFace.apply)",
         "launches": None,                     # filled by the turbo phase
-        "max_abs_err": worst[0], "tolerance_frac_of_map": ISLAND_TOL_FRAC,
-        "tolerance_ratio": worst[1], "sum_order_units": worst[2],
-        "ms": main["ms"], "kernel_ms": main["kernel_ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_bf16_ms"],
-        "library": "cuDNN bf16 conv per block (torch.nn.functional.conv2d, "
-                   "channels-last; output rounded to bf16), summed; "
-                   "library_fp32_ms: cuDNN fp32 conv of the rounded "
-                   "operands",
-        "library_fp32_ms": main["library_fp32_ms"],
-        "timed": "the front model's turbo island (blocks 10-15) at B=128, "
-                 "each block on its own input, summed",
-        "sums_b128": sums, "bound_terms_ms": main["bound_terms"],
+        "library_fp32_ms_note": "cuDNN fp32 conv of the rounded operands",
         "build_s": built["dense_block"]["build_s"],
         "ptxas": built["dense_block"]["ptxas"],
-        "sass_hmma": built["dense_block"]["sass_hmma"],
-    }
+        "sass_hmma": built["dense_block"]["sass_hmma"]}
+    fm = sums["front_max"]
+    large = [timed[("flagship_b128", s[1])] for s in kd.island_chains(
+        net.spec, island_of(net.spec, "max")) if s[0] == "block"]
+    block_entry = {
+        "name": "dense_block", **common,
+        "max_abs_err": worst[0], "tolerance_frac_of_map": ISLAND_TOL_FRAC,
+        "tolerance_ratio": worst[1], "sum_order_units": worst[2],
+        **{k: sum(r[k] for r in large) for k in (
+            "ms", "kernel_ms", "plain_ms")},
+        "bound_ms": island_bound([r["work"] for r in large])[0],
+        "bound_by": island_bound([r["work"] for r in large])[1],
+        "library_ms": sum(r["library_bf16_ms"] for r in large),
+        "library": "cuDNN bf16 conv per block (torch.nn.functional.conv2d, "
+                   "channels-last; output rounded to bf16), summed",
+        "library_fp32_ms": sum(r["library_fp32_ms"] for r in large),
+        "timed": "the front model's large-map blocks 0-5 (the \"max\" "
+                 "plan's blocks alone) at B=128, each on its own input, "
+                 "summed",
+        "sums_b128": sums}
+    ft = timed_chains[("flagship_b128", 10, 15)]
+    chain_entry = {
+        "name": "dense_chain", **common,
+        "max_abs_err": worst_chain[2],
+        "tolerance": {"a_frac_of_map_per_block": ISLAND_TOL_FRAC,
+                      "b_frac_of_map_whole": CHAIN_TOL_FRAC},
+        "a_tolerance_ratio": worst_chain[0],
+        "b_tolerance_ratio": worst_chain[1],
+        "ms": ft["ms"], "kernel_ms": ft["kernel_ms"],
+        "plain_ms": ft["plain_ms"], "bound_ms": ft["bound_ms"],
+        "bound_by": ft["bound_by"], "blocks_bound_ms": ft["blocks_bound_ms"],
+        "library_ms": ft["library_bf16_ms"],
+        "library": "cuDNN bf16 conv of each block of the chain "
+                   "(channels-last; output rounded to bf16), summed",
+        "library_fp32_ms": ft["library_fp32_ms"],
+        "timed": "the front model's \"turbo\" chain (blocks 10-15) at "
+                 "B=128, one launch",
+        "front_max_ms": fm["ms"], "front_max_kernel_ms": fm["kernel_ms"]}
+    return block_entry, chain_entry
 
 
 def detect_walls(detect, imgs128) -> dict:
@@ -2041,7 +2258,8 @@ MAX_AGREE_MIN = 108            # JAX's certified max: 108 of 112 images
 def kernel_names_per_call(fn, calls: int = 3) -> dict:
     """The CUDA kernels one warm fn() launches, counted by kind
     (torch.profiler): "split_bf16" (csrc/backbone2.cu's block_kernel and
-    chain_kernel), "island" (csrc/dense_bf16.cu), "stem", "mlp_head", and
+    chain_kernel), "island" and "island_chain" (csrc/dense_bf16.cu's
+    island_block_kernel and island_chain_kernel), "stem", "mlp_head", and
     every other kernel under its own name.  The profiler drops an event now
     and then (PERF.md §7) and never adds one: each kind's count is the most
     of `calls` profiled calls."""
@@ -2057,11 +2275,13 @@ def kernel_kinds(events) -> dict:
     counts: dict[str, int] = {}
     for e in events:
         name = e.name
-        if "chain_kernel" in name or ("block_kernel" in name
-                                      and "bfloat16" in name):
-            kind = "split_bf16"
-        elif "dense_kernel" in name:
+        if "island_chain_kernel" in name:
+            kind = "island_chain"
+        elif "island_block_kernel" in name:
             kind = "island"
+        elif "chain_kernel" in name or ("block_kernel" in name
+                                        and "bfloat16" in name):
+            kind = "split_bf16"
         elif "stem_kernel" in name:
             kind = "stem"
         elif "mlp_head_kernel" in name:
@@ -2115,17 +2335,19 @@ def phase_turbo(flagship, best, back_model, corpus, stress, frames128,
     MAX_POSE_P99_DEG; the stress corpus per axis and the overflow order
     beside JAX's certificate (reported, not gated: the certificate puts
     these modes outside the stress contract).  Launches of one detect (B=8),
-    by the wrappers' counts and by the profiler's kernel names: "turbo" runs
-    kernel #3 over segments A, B and C 6-9 (as many grids as
-    segment_launches gives), 6 island launches, #4 twice and #1 once; "max"
-    16 island launches and no #3.  turbo_island=() gives the "fast" slabs
+    by the wrappers' counts and by the profiler's kernel names, against the
+    plans (segment_plan, island_chains): "turbo" runs kernel #3 over
+    segments A, B and C 6-9 (as many grids as segment_launches gives), one
+    island chain launch (blocks 10-15), #4 twice and #1 once; "max" blocks
+    0-5 an island launch each, one chain launch (6-15) and no #3.  turbo_island=() gives the "fast" slabs
     bit for bit on the corpus.  best_detector() at both modes against its
     own "highest" (0 errors; sets and poses printed); the back model
     (input 256) at both modes: at least one detection, finite slabs, poses
     against its "highest" beside docs/certification_back.json.  Then the
-    B=128 network stage (fused_network) and the detect wall time at B=1
-    and B=128 of "fast", "turbo" and "max"."""
+    network stage (fused_network) at B=128 and B=1 and the detect wall time
+    at B=1 and B=128 of "fast", "turbo" and "max"."""
     from headpose_tpu_torch.ops.kernels import backbone2 as kb2
+    from headpose_tpu_torch.ops.kernels import dense_bf16 as kd
     from headpose_tpu_torch.pretrained import best_detector, flagship_detector
     from headpose_tpu_torch.runtime.detector import FaceDetector
     from headpose_tpu_torch.runtime.fused import fused_network, island_of
@@ -2161,13 +2383,18 @@ def phase_turbo(flagship, best, back_model, corpus, stress, frames128,
         torch.cuda.synchronize()
         counts = read_launches()
         names = kernel_names_per_call(lambda: dets[mode].detect(imgs8))
+        steps = kd.island_chains(net.spec, island)
+        alone = sum(s[0] == "block" for s in steps)
+        chained = sum(s[0] == "chain" for s in steps)
         want = {"split_bf16": sum(len(kb2.segment_launches(net, seg, island))
                                   for seg in plan),
-                "island": len(island), "mlp_head": 2}
+                "island": alone, "island_chain": chained, "mlp_head": 2}
         report[mode]["per_detect"] = {"counts": counts, "kernels": names,
                                       "plan": plan,
+                                      "island_plan": [list(s) for s in steps],
                                       "expected_grids": want}
-        expected = {"run_segment": len(plan), "dense_block": len(island),
+        expected = {"run_segment": len(plan), "dense_block": alone,
+                    "dense_chain": chained,
                     "mlp_head_forward": 2, "postprocess_nms": 1,
                     "apply_fused": 1 if plan else 0, "backbone_forward": 0}
         bad = {k: counts[k] for k, v in expected.items() if counts[k] != v}
@@ -2208,6 +2435,10 @@ def phase_turbo(flagship, best, back_model, corpus, stress, frames128,
             mode: median_ms(lambda: fused_network(flagship.net, frames128,
                                                   mode), 20)
             for mode in ("fast", "turbo", "max")}
+        report["b1_network_ms_median"] = {
+            mode: median_ms(lambda: fused_network(flagship.net,
+                                                  frames128[:1], mode), 50)
+            for mode in ("fast", "turbo", "max")}
     report["detect_wall"] = {mode: detect_walls(dets[mode].detect, imgs128)
                              for mode in ("fast", "turbo", "max")}
     emit(report)
@@ -2223,8 +2454,10 @@ def phase_turbo(flagship, best, back_model, corpus, stress, frames128,
         if report[mode]["per_detect"]["mismatch"]:
             raise AssertionError(f"{mode}: launches per detect "
                                  f"{report[mode]['per_detect']}")
-        if min(windows[mode][k] for k in ("dense_block", "mlp_head_forward",
-                                          "postprocess_nms")) < 1:
+        need = ["mlp_head_forward", "postprocess_nms"] + [
+            {"block": "dense_block", "chain": "dense_chain"}[s[0]]
+            for s in kd.island_chains(net.spec, island_of(net.spec, mode))]
+        if min(windows[mode][k] for k in need) < 1:
             raise AssertionError(f"{mode} missed a kernel: {windows[mode]}")
         back = report[mode]["back"]
         if back["detections"] < 1 or not back["finite"]:
@@ -3112,8 +3345,8 @@ def main() -> int:
                phase_kernel_backbone2(dev, flagship, back, frames128,
                                       frames256, built),
                phase_kernel_se(dev, flagship, frames128, built),
-               phase_kernel_dense(dev, flagship, back, frames128, frames256,
-                                  built)]
+               *phase_kernel_dense(dev, flagship, back, frames128,
+                                   frames256, built)]
     detect_launches = phase_parity(flagship, corpus, production)
     phase_stress(flagship, stress)
     phase_best(flagship, best, corpus)
@@ -3146,8 +3379,11 @@ def main() -> int:
     entries[3]["launches_turbo_window"] = turbo_launches["turbo"][
         "apply_fused"]
     entries[3]["launches_max_window"] = turbo_launches["max"]["apply_fused"]
-    entries[5]["launches"] = turbo_launches["turbo"]["dense_block"]
-    entries[5]["launches_max_window"] = turbo_launches["max"]["dense_block"]
+    entries[5]["launches"] = turbo_launches["max"]["dense_block"]
+    entries[5]["launches_turbo_window"] = turbo_launches["turbo"][
+        "dense_block"]
+    entries[6]["launches"] = turbo_launches["turbo"]["dense_chain"]
+    entries[6]["launches_max_window"] = turbo_launches["max"]["dense_chain"]
     entries[4]["launches_se_windows"] = {
         name: se_report[name]["launches"]["se_transformer_forward"]
         for name in ("map", "survivors", "fast_map")}

@@ -26,10 +26,13 @@ raises ValueError.
 
 `island` (the detector's precision="turbo" and "max") lists blocks that
 leave the plan: each runs as a single-pass bf16 dense block through the
-island kernel (ops/kernels/dense_bf16.py, csrc/dense_bf16.cu), in block
+island kernels (ops/kernels/dense_bf16.py, csrc/dense_bf16.cu), in block
 order, and a segment that holds island blocks is cut around them (the front
 model's "turbo" island 10-15 leaves A 0-2, B 3-5, C 6-9; "max", every
-block, leaves no segment and only the fp32 stem of csrc/backbone.cu).
+block, leaves no segment and only the fp32 stem of csrc/backbone.cu).  The
+island's blocks launch as `dense_bf16.island_chains` groups them: a run on
+the small maps in one `dense_chain` launch (the front "turbo" island 10-15
+in one; "max" blocks 0-5 one `dense_block` launch each, then 6-15 in one).
 
 A tensor on the CPU goes through the plain versions (`run_segment_plain`,
 `apply_fused_plain`), which repeat the arithmetic in plain torch ops; a
@@ -113,15 +116,6 @@ def _channels(spec: BlazeFace) -> tuple[int, ...]:
     return (spec.stem_features, *spec.block_channels)
 
 
-def _in_sizes(spec: BlazeFace) -> list[int]:
-    """The map size in front of each block."""
-    sizes, h = [], spec.input_size // 2
-    for i in range(len(spec.block_channels)):
-        sizes.append(h)
-        h //= 2 if i in spec.downsample_blocks else 1
-    return sizes
-
-
 def _check_limits(spec: BlazeFace) -> None:
     """ValueError when the spec lies outside the kernel's limits."""
     s, n = spec.input_size, len(spec.block_channels)
@@ -174,7 +168,8 @@ def segment_plan(spec: BlazeFace,
     limits and for an island block the spec does not have."""
     _check_limits(spec)
     island = island_blocks(spec, island)
-    sizes, n = _in_sizes(spec), len(spec.block_channels)
+    sizes = [h for *_, h in kd._shapes(spec)]    # the map in front of each
+    n = len(spec.block_channels)
     if _reference_domain(spec):
         base = dict(SEGMENTS)
     else:
@@ -354,17 +349,26 @@ def _check_input(net: BlazeFaceNet, x: torch.Tensor, island=()) -> None:
 
 
 def _compose(net: BlazeFaceNet, y: torch.Tensor, island, segment,
-             fp32_block, island_block):
-    """The blocks after the stem, as `_schedule` orders them with `island`:
-    (feat88, feat96)."""
+             fp32_block, island_block, chain):
+    """The blocks after the stem, as `_schedule` orders them with `island`,
+    the island's blocks launched as `dense_bf16.island_chains` groups them:
+    island_block(y, i) for a block alone, chain(y, first, last) -> (y, tap
+    map or None) for a chain.  Returns (feat88, feat96)."""
     plan = segment_plan(net.spec, island)
-    step_fn = {"segment": segment, "fp32": fp32_block,
-               "island": island_block}
-    feat88 = None
+    chains = {step[1]: step[2] for step in kd.island_chains(net.spec, island)
+              if step[0] == "chain"}
+    feat88, tap, skip_to = None, net.spec.tap88_block, -1
     for kind, key in _schedule(net.spec, island):
-        y = step_fn[kind](y, key)
-        last = plan[key][1] if kind == "segment" else key
-        if last == net.spec.tap88_block:
+        if kind == "island" and key <= skip_to:
+            continue                          # inside a chain already run
+        if kind == "island" and key in chains:
+            skip_to = chains[key]
+            y, t = chain(y, key, skip_to)
+            feat88 = t if t is not None else feat88
+            continue
+        y = {"segment": segment, "fp32": fp32_block,
+             "island": island_block}[kind](y, key)
+        if (plan[key][1] if kind == "segment" else key) == tap:
             feat88 = y
     return feat88, y
 
@@ -374,8 +378,11 @@ def apply_fused_plain(net: BlazeFaceNet, x: torch.Tensor, island=()):
     """The whole backbone as the plan composes it, in plain torch ops: the
     fp32 stem, then each segment, each block outside the segments in fp32
     (on the front topology: segments A-C, block 11, segment D, as the JAX
-    apply_fused) and each island block as `dense_bf16.dense_block_plain`.
-    It does not call `BlazeFaceNet.forward`."""
+    apply_fused) and the island as `dense_bf16.island_chains` launches it,
+    each block alone as `dense_bf16.dense_block_plain` and each chain as
+    `dense_bf16.dense_chain_plain` (the same blocks composed, so the same
+    numbers as block after block).  It does not call
+    `BlazeFaceNet.forward`."""
     _check_input(net, x, island)
     island = island_blocks(net.spec, island)
     w = list(kbb._leaves(net))
@@ -383,7 +390,8 @@ def apply_fused_plain(net: BlazeFaceNet, x: torch.Tensor, island=()):
         net, torch.relu(kbb._stem(x, w[0], w[1])), island,
         lambda y, seg: run_segment_plain(net, y, seg, island),
         lambda y, i: kbb._block(y, *w[2 + 4 * i:6 + 4 * i], _stride(net, i)),
-        lambda y, i: kd.dense_block_plain(net, i, y))
+        lambda y, i: kd.dense_block_plain(net, i, y),
+        lambda y, first, last: kd.dense_chain_plain(net, first, last, y))
 
 
 # ------------------------------------------------------------------ kernel
@@ -448,8 +456,9 @@ def run_segment_cuda(net: BlazeFaceNet, x: torch.Tensor, seg: str,
 @torch.no_grad()
 def apply_fused_cuda(net: BlazeFaceNet, x: torch.Tensor, island=()):
     """The kernels: what `apply_fused_plain` computes, on a CUDA device: the
-    fp32 stem, each segment, each fp32 block and each island block, on the
-    current stream, without synchronising."""
+    fp32 stem, each segment, each fp32 block, each island block alone and
+    each chain of the island, on the current stream, without
+    synchronising."""
     _check_input(net, x, island)
     kbb._check_cuda(net, x)
     island = island_blocks(net.spec, island)
@@ -460,7 +469,9 @@ def apply_fused_cuda(net: BlazeFaceNet, x: torch.Tensor, island=()):
         net, kbb.stem_forward_cuda(net, x, pack.f32), island,
         lambda y, seg: run_segment_cuda(net, y, seg, pack, island),
         lambda y, i: kbb.block_forward_cuda(net, i, y, pack.f32),
-        lambda y, i: kd.dense_block_cuda(net, i, y, dpack))
+        lambda y, i: kd.dense_block_cuda(net, i, y, dpack),
+        lambda y, first, last: kd.dense_chain_cuda(net, first, last, y,
+                                                   dpack))
     if segment_plan(net.spec, island):
         apply_fused.launches += 1
     return taps
@@ -470,9 +481,11 @@ def apply_fused_cuda(net: BlazeFaceNet, x: torch.Tensor, island=()):
 def segment_inputs(net: BlazeFaceNet, x: torch.Tensor, pack: SegmentPack,
                    island=()) -> dict:
     """Each segment's own input (keyed by its name) and each island block's
-    (keyed by its index) for frames x on a CUDA device (one
-    `apply_fused_cuda` pass through the kernels): what the tools time the
-    segments and the island blocks alone on."""
+    (keyed by its index) for frames x on a CUDA device (one pass through
+    the kernels, every island block alone, `dense_block_cuda`, so that the
+    blocks inside a chain have their inputs too): what the tools time the
+    segments, the island blocks and the chains (a chain's input is its
+    first block's) alone on."""
     island = island_blocks(net.spec, island)
     dpack = kd.dense_pack(net) if island else None
     inputs = {}
@@ -485,9 +498,16 @@ def segment_inputs(net: BlazeFaceNet, x: torch.Tensor, pack: SegmentPack,
         inputs[i] = y
         return kd.dense_block_cuda(net, i, y, dpack)
 
+    def chain(y, first, last):
+        t = None
+        for i in range(first, last + 1):
+            y = island_block(y, i)
+            t = y if i == net.spec.tap88_block else t
+        return y, t
+
     _compose(net, kbb.stem_forward_cuda(net, x, pack.f32), island, segment,
              lambda y, i: kbb.block_forward_cuda(net, i, y, pack.f32),
-             island_block)
+             island_block, chain)
     return inputs
 
 
@@ -506,12 +526,13 @@ def apply_fused(net: BlazeFaceNet, x: torch.Tensor, island=()):
     """(feat88, feat96) NHWC of x (B, S, S, 3): the CUDA kernels for a
     tensor on a CUDA device, the plain version for a tensor on the CPU.
     `island` lists the blocks that run at single-pass bf16 through the
-    island kernel (`dense_bf16.dense_block`) instead of the plan.
+    island kernels (`dense_bf16.dense_block`, `dense_bf16.dense_chain`, as
+    `dense_bf16.island_chains` groups them) instead of the plan.
 
     `apply_fused.launches` counts the calls that launched the split-bf16
     kernel (one per call whose plan has a segment: the stem, every segment
-    and every fp32 block); each island block counts on
-    `dense_bf16.dense_block.launches`."""
+    and every fp32 block); the island's launches count on
+    `dense_bf16.dense_block.launches` and `dense_bf16.dense_chain.launches`."""
     if x.device.type == "cpu":
         return apply_fused_plain(net, x, island)
     return apply_fused_cuda(net, x, island)

@@ -1,4 +1,4 @@
-"""One island block at single-pass bf16 on the card: wrapper of
+"""Island blocks at single-pass bf16 on the card: wrappers of
 csrc/dense_bf16.cu.
 
 `dense_block(net, i, x)` runs block i of `net` (a `BlazeFaceNet`) over x
@@ -10,40 +10,77 @@ max-pooled 2x2/2 at stride 2, zero-padded on the channel axis) and the
 ReLU; fp32 out, (B, H/s, H/s, Cout).  It is the function the JAX package
 computes for a block in `fast_blocks` of `BlazeFace.apply(dense=True)` at
 Precision.DEFAULT, with no Pallas kernel of its own: XLA runs it as a conv.
-The detector's precision="turbo" and "max" run their islands through it
+`dense_chain(net, first, last, x)` runs blocks first..last so, in order, in
+one launch, and returns (the last map, the tap block's map or None).
+
+`island_chains(spec, island)` is the island's plan, by shape alone: every
+maximal run of consecutive island blocks on small maps (the 16x16 and 8x8
+maps of both specs, the stride-2 block between them included) is one chain
+when its layout fits a block's shared memory (`chain_plan`, a mirror of the
+kernel's layout), and every other island block runs alone (the block kernel
+picks its own tiles).
+The detector's precision="turbo" and "max" run their islands so
 (`backbone2.apply_fused(..., island=...)`).
 
-A tensor on the CPU goes through `dense_block_plain`, the module's own
-island step (`BlazeBlock.forward(x, dense=True, fast=True)`: an fp32 conv
-of the rounded operands with TF32 off); a tensor on a CUDA device goes
-through the hand-written kernel, or the call raises.  Nothing else selects between the two.  The kernel
-takes Cin <= Cout <= 128 (`MAX_CHANNELS`), stride 1 or 2, and an even map at
-stride 2 (as every BlazeFace spec the backbone kernels take).
+A tensor on the CPU goes through `dense_block_plain` / `dense_chain_plain`,
+the module's own island step (`BlazeBlock.forward(x, dense=True,
+fast=True)`: an fp32 conv of the rounded operands with TF32 off) and its
+composition; a tensor on a CUDA device goes through the hand-written
+kernels, or the call raises.  Nothing else selects between the two.  The
+block kernel takes Cin <= Cout <= 128 (`MAX_CHANNELS`), stride 1 or 2, and
+an even map at stride 2 (as every BlazeFace spec the backbone kernels
+take); a chain, in addition, maps of at most 256 pixels and channels in
+multiples of 4.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
+from typing import NamedTuple
 
 import torch
 
-from ...models.blazeface import BlazeFaceNet
+from ...models.blazeface import BlazeFace, BlazeFaceNet
 from ...utils.build import NVCC_FLAGS, CudaLibrary
 from . import backbone as kbb
-from .packing import Packed, packed, stamp
+from .packing import Packed, c_ints, packed, stamp
 
 __all__ = ["dense_block", "dense_block_plain", "dense_block_cuda",
-           "dense_pack", "DensePack", "MAX_CHANNELS", "LIBRARY"]
+           "dense_chain", "dense_chain_plain", "dense_chain_cuda",
+           "island_chains", "chain_plan", "ChainPlan", "tile_plan",
+           "dense_pack",
+           "DensePack", "MAX_CHANNELS", "SMEM_MAX", "LIBRARY"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc", "dense_bf16.cu")
 MAX_CHANNELS = 128
 
+# csrc/dense_bf16.cu's constants, which the chain's layout mirror repeats
+SMEM_MAX = 232448          # a block's shared memory on sm_90
+WARPS = 16                 # 512 threads
+CHAIN_PIXELS = 256         # a chain's map: an m-tile a warp
+MAX_CHAIN = 16             # blocks per chain launch
+MAX_STAGES = 4             # taps in the chain's weight ring
+SKIP_NT = 4                # n-tiles of a stride-2 chain unit
+CHAIN_NT = 12              # n-tiles of any chain unit
+
 
 def _configure(lib: ctypes.CDLL) -> None:
     fn = lib.headpose_dense_bf16_block
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.headpose_dense_bf16_chain
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.headpose_dense_bf16_block_plan
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.headpose_dense_bf16_chain_plan
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
@@ -55,15 +92,169 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ------------------------------------------------------------ layouts
+class ChainPlan(NamedTuple):
+    """island_chain_kernel's layout for one chain: weight-ring slots,
+    shared memory in bytes, the fp32 map's bytes (rounded to 16), and NT
+    (the widest n-tile unit of a warp, rounded up to 4)."""
+    stages: int
+    smem: int
+    map: int
+    nt: int
+
+
+def _block_takes(h: int, cin: int, cout: int, stride: int) -> bool:
+    return (1 <= cin <= cout <= MAX_CHANNELS and h >= 1 and stride in (1, 2)
+            and (stride == 1 or h % 2 == 0))
+
+
+def _units(n_pix: int, nt: int) -> tuple[int, int, int]:
+    """(m-tiles, n-tile groups, n-tiles a group): the warps' units."""
+    m_tiles = _cdiv(n_pix, 16)
+    groups = min(max(WARPS // m_tiles, 1), nt)
+    per = _cdiv(nt, groups)
+    return m_tiles, _cdiv(nt, per), per
+
+
+def chain_plan(channels, strides, h: int) -> ChainPlan | None:
+    """The chain kernel's layout of blocks with `channels` (n + 1 counts),
+    `strides` (n) on an h x h input map (`make_chain` and `chain_layout` in
+    the source): the fp32 map at each resolution's own channel stride (its
+    widest map), the largest block's bf16 A operand with its halo, and as
+    many ring slots of the widest tap's weights as fit (at most
+    MAX_STAGES), with an 8-byte mbarrier a slot.  None when the kernel does not take the chain: a map over
+    CHAIN_PIXELS, channels not multiples of 4, more than MAX_CHAIN blocks, a
+    warp's unit wider than CHAIN_NT n-tiles, or fewer than 2 slots fit."""
+    channels, strides = [int(c) for c in channels], [int(s) for s in strides]
+    n = len(strides)
+    if not 1 <= n <= MAX_CHAIN or len(channels) != n + 1:
+        return None
+    widest, level, lv, per = [channels[0]], [], 0, 0
+    sides = []
+    for k in range(n):
+        cin, cout, s = channels[k], channels[k + 1], strides[k]
+        if (not _block_takes(h, cin, cout, s) or cin % 4 or cout % 4
+                or h * h > CHAIN_PIXELS):
+            return None
+        level.append(lv)
+        sides.append(h)
+        if s == 2:
+            lv += 1
+            widest.append(0)
+        widest[lv] = max(widest[lv], cout)
+        h //= s
+        unit = _units(h * h, _round_up(cout, 8) // 8)[2]
+        if (s == 2 and unit > SKIP_NT) or unit > CHAIN_NT:
+            return None
+        per = max(per, unit)
+    map_, a, slot = 0, 0, 0
+    for k in range(n):
+        cin, cout, s, side = channels[k], channels[k + 1], strides[k], sides[k]
+        cs_in = _round_up(widest[level[k]], 4)
+        cs_out = _round_up(widest[level[k] + (s == 2)], 4)
+        ho, kp = side // s, _round_up(cin, 16)
+        pc, ws = (side + 2, kp // 2 + 4) if s == 1 else (side + 1,
+                                                          kp // 2 + 2)
+        map_ = max(map_, 4 * side * side * cs_in, 4 * ho * ho * cs_out)
+        a = max(a, 4 * pc * pc * ws)
+        slot = max(slot, 4 * _round_up(cout, 8) * (kp // 2 + 4))
+    ring = _round_up(map_, 16) + _round_up(a, 16)
+    bars = 8 * MAX_STAGES
+    stages = min(max(SMEM_MAX - ring - bars, 0) // slot, MAX_STAGES)
+    if stages < 2:
+        return None
+    return ChainPlan(stages, ring + stages * slot + bars, _round_up(map_, 16),
+                     _round_up(per, 4))
+
+
+def _shapes(spec: BlazeFace) -> list[tuple[int, int, int, int]]:
+    """(Cin, Cout, stride, input side) of every block of `spec`."""
+    chans = (spec.stem_features, *spec.block_channels)
+    out, h = [], spec.input_size // 2
+    for i in range(len(spec.block_channels)):
+        s = 2 if i in spec.downsample_blocks else 1
+        out.append((chans[i], chans[i + 1], s, h))
+        h //= s
+    return out
+
+
+def _chain_args(spec: BlazeFace, first: int, last: int):
+    """(channels, strides, input side) of blocks first..last."""
+    shapes = _shapes(spec)[first:last + 1]
+    return ([shapes[0][0]] + [c[1] for c in shapes], [c[2] for c in shapes],
+            shapes[0][3])
+
+
+@functools.lru_cache(maxsize=256)
+def _island_chains(spec: BlazeFace, island: tuple[int, ...]):
+    shapes = _shapes(spec)
+    steps, run = [], []
+
+    def flush():
+        if run and chain_plan(*_chain_args(spec, run[0], run[-1])):
+            steps.append(("chain", run[0], run[-1]))
+        else:
+            steps.extend(("block", i) for i in run)
+        run.clear()
+
+    for i in island:
+        cin, cout, s, h = shapes[i]
+        small = (h * h <= CHAIN_PIXELS and cin % 4 == 0 and cout % 4 == 0
+                 and _block_takes(h, cin, cout, s))
+        if not (small and run and i == run[-1] + 1):
+            flush()
+        if small:
+            run.append(i)
+        else:
+            steps.append(("block", i))
+    flush()
+    return tuple(steps)
+
+
+def island_chains(spec: BlazeFace, island=()) -> tuple[tuple, ...]:
+    """The island's launches, in block order: ("block", i) for a block that
+    runs alone (`dense_block`), ("chain", first, last) for a run of blocks
+    in one launch (`dense_chain`).  A chain is a maximal run of
+    consecutive island blocks on maps of at most CHAIN_PIXELS pixels
+    (channels in multiples of 4) whose layout fits (`chain_plan`); a run
+    that does not fit runs block by block.  Decided by shape alone.
+    ValueError for a block `spec` does not have."""
+    island = tuple(sorted({int(i) for i in island}))
+    n = len(spec.block_channels)
+    bad = [i for i in island if not 0 <= i < n]
+    if bad:
+        raise ValueError(f"island blocks {bad} are not blocks of this spec "
+                         f"(0..{n - 1})")
+    return _island_chains(spec, island)
+
+
+def tile_plan(batch: int, h: int, cin: int, cout: int,
+              stride: int) -> tuple[int, int, int] | None:
+    """island_block_kernel's own launch plan of one block, from the built
+    library (needs nvcc): (channel slices, output rows a tile, shared
+    memory bytes), or None when the kernel does not take the block."""
+    plan = (ctypes.c_int * 3)()
+    rc = LIBRARY.load().headpose_dense_bf16_block_plan(batch, h, cin, cout,
+                                                       stride, plan)
+    return tuple(plan) if rc == 0 else None
+
+
 # ------------------------------------------------------------------ weights
 def _kernel_leaves(net: BlazeFaceNet):
-    """Per block: the composed kernel as (9, Np, Kp), [tap][out][in] with tap
-    = 3 a + b, zero-padded to the mma tile (Np = Cout rounded up to 8, Kp =
-    Cin rounded up to 16), in fp32: `packed` rounds it to bf16 once."""
+    """Per block: the composed kernel as (9, Np, Kp + 8), [tap][out][in]
+    with tap = 3 a + b, zero-padded to the mma tile (Np = Cout rounded up
+    to 8, Kp = Cin rounded up to 16) and each row by 8 more zeros: the
+    image of the kernels' weight rows in shared memory (16 bytes longer, so
+    that a warp's B-fragment loads hit 32 banks), a tap one copy.  fp32:
+    `packed` rounds it to bf16 once."""
     for blk in net.blocks:
         K, _ = blk.composed()                          # (Cout, Cin, 3, 3)
         cout, cin = K.shape[:2]
-        pad = K.new_zeros((9, _round_up(cout, 8), _round_up(cin, 16)))
+        pad = K.new_zeros((9, _round_up(cout, 8), _round_up(cin, 16) + 8))
         pad[:, :cout, :cin] = K.permute(2, 3, 0, 1).reshape(9, cout, cin)
         yield pad
 
@@ -79,17 +270,20 @@ def _bias_leaves(net: BlazeFaceNet):
 
 @dataclasses.dataclass(frozen=True)
 class DensePack:
-    """Every block's composed kernel in bf16 (`kernels`, (9, Np, Kp) each,
-    16-byte aligned) and its bias in fp32 (`biases`, (Np,) each)."""
+    """Every block's composed kernel in bf16 (`kernels`, (9, Np, Kp + 8)
+    each, 16-byte aligned: what both kernels read) and its bias in fp32
+    (`biases`, (Np,) each)."""
     kernels: Packed
     biases: Packed
     shapes: tuple[tuple[int, int], ...]    # (Np, Kp) per block
 
     def kernel(self, block: int) -> torch.Tensor:
-        """Block `block`'s composed kernel, (9, Np, Kp) bfloat16."""
+        """Block `block`'s composed kernel, (9, Np, Kp) bfloat16: a view of
+        the pack without the rows' 8 pad columns."""
         n, k = self.shapes[block]
         off = self.kernels.offsets[block]
-        return self.kernels.weights[off:off + 9 * n * k].view(9, n, k)
+        return self.kernels.weights[off:off + 9 * n * (k + 8)].view(
+            9, n, k + 8)[:, :, :k]
 
     def bias(self, block: int) -> torch.Tensor:
         """Block `block`'s composed bias, (Np,) float32."""
@@ -139,9 +333,10 @@ def dense_block_plain(net: BlazeFaceNet, i: int,
 def dense_block_cuda(net: BlazeFaceNet, i: int, x: torch.Tensor,
                      pack: DensePack | None = None) -> torch.Tensor:
     """The kernel: what `dense_block_plain` computes, on a CUDA device, one
-    launch on the current stream, without synchronising.  `pack` is
-    `dense_pack(net)`, when the caller holds it.  Raises on anything the
-    kernel does not take, and when the launch fails."""
+    launch of island_block_kernel on the current stream, without
+    synchronising.  `pack` is `dense_pack(net)`, when the caller holds it.
+    Raises on anything the kernel does not take, and when the launch
+    fails."""
     _check_input(net, i, x)
     kbb._check_cuda(net, x)
     blk = net.blocks[i]
@@ -177,3 +372,100 @@ def dense_block(net: BlazeFaceNet, i: int, x: torch.Tensor) -> torch.Tensor:
 
 
 dense_block.launches = 0
+
+
+# ------------------------------------------------------------------ chains
+def _check_chain(net: BlazeFaceNet, first: int, last: int,
+                 x: torch.Tensor) -> None:
+    """ValueError unless blocks first..last are one chain of the island plan
+    (`island_chains`) and x is their (B, H, H, Cin) float32 input."""
+    n = len(net.blocks)
+    if not 0 <= first <= last < n:
+        raise ValueError(f"blocks {first}..{last} are not blocks of this "
+                         f"spec (0..{n - 1})")
+    steps = island_chains(net.spec, range(first, last + 1))
+    if steps != (("chain", first, last),):
+        raise ValueError(f"blocks {first}..{last} are not a chain of the "
+                         f"island plan (it runs them as {steps})")
+    _check_input(net, first, x)
+    h = _shapes(net.spec)[first][3]
+    if x.shape[1] != h:
+        raise ValueError(f"chain {first}-{last} takes (B, {h}, {h}, "
+                         f"{x.shape[3]}), got {tuple(x.shape)}")
+
+
+def _tap_of(net: BlazeFaceNet, first: int, last: int) -> int | None:
+    """The spec's tap block when it lies in first..last, else None."""
+    tap = net.spec.tap88_block
+    return tap if first <= tap <= last else None
+
+
+@torch.no_grad()
+def dense_chain_plain(net: BlazeFaceNet, first: int, last: int,
+                      x: torch.Tensor):
+    """Blocks first..last of `net` as one chain, in plain torch ops over
+    NHWC x: `dense_block_plain` block after block.  Returns (the last
+    block's map, the tap block's map when it lies in the chain, else
+    None)."""
+    _check_chain(net, first, last, x)
+    tap, y, t = _tap_of(net, first, last), x, None
+    for i in range(first, last + 1):
+        y = dense_block_plain(net, i, y)
+        if i == tap:
+            t = y
+    return y, t
+
+
+@torch.no_grad()
+def dense_chain_cuda(net: BlazeFaceNet, first: int, last: int,
+                     x: torch.Tensor, pack: DensePack | None = None):
+    """The kernel: what `dense_chain_plain` computes, on a CUDA device, one
+    launch of island_chain_kernel on the current stream, without
+    synchronising.  `pack` is `dense_pack(net)`, when the caller holds it.
+    Raises on anything the kernel does not take, and when the launch
+    fails."""
+    _check_chain(net, first, last, x)
+    kbb._check_cuda(net, x)
+    channels, strides, h = _chain_args(net.spec, first, last)
+    pack = pack if pack is not None else dense_pack(net)
+    B, ho = x.shape[0], h
+    sides = []
+    for s in strides:
+        ho //= s
+        sides.append(ho)
+    out = x.new_empty((B, ho, ho, channels[-1]))
+    tap = _tap_of(net, first, last)
+    inner = tap is not None and tap < last     # the kernel writes it apart
+    tap_out = (x.new_empty((B, sides[tap - first], sides[tap - first],
+                            channels[tap - first + 1])) if inner else None)
+    if B == 0:
+        return out, (tap_out if inner else out if tap is not None else None)
+    blocks = range(first, last + 1)
+    w, b = pack.kernels.weights.data_ptr(), pack.biases.weights.data_ptr()
+    w_ptrs = (ctypes.c_void_p * len(blocks))(
+        *[w + 2 * pack.kernels.offsets[i] for i in blocks])
+    b_ptrs = (ctypes.c_void_p * len(blocks))(
+        *[b + 4 * pack.biases.offsets[i] for i in blocks])
+    with torch.cuda.device(x.device):
+        err = LIBRARY.load().headpose_dense_bf16_chain(
+            x.data_ptr(), w_ptrs, b_ptrs, c_ints(channels), c_ints(strides),
+            len(blocks), h, tap - first if inner else -1, out.data_ptr(),
+            tap_out.data_ptr() if inner else None, B,
+            torch.cuda.current_stream().cuda_stream)
+    kbb._raise_on(err, f"island chain {first}-{last} kernel")
+    dense_chain.launches += 1
+    return out, (tap_out if inner else out if tap is not None else None)
+
+
+def dense_chain(net: BlazeFaceNet, first: int, last: int, x: torch.Tensor):
+    """Blocks first..last of `net` (a chain of `island_chains`) as
+    single-pass bf16 islands over NHWC x, in one launch: the CUDA kernel
+    for a tensor on a CUDA device, the plain version for a tensor on the
+    CPU.  Returns (last map, tap map or None).  `dense_chain.launches`
+    counts the kernel's launches."""
+    if x.device.type == "cpu":
+        return dense_chain_plain(net, first, last, x)
+    return dense_chain_cuda(net, first, last, x)
+
+
+dense_chain.launches = 0

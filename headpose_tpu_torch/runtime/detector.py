@@ -101,7 +101,8 @@ class FaceDetector:
       'turbo'    'fast' with an island of blocks at single-pass bf16 (the
                  TPU's Precision.DEFAULT: bf16 operands, exact products,
                  fp32 sums), dense-composed (one 3x3 conv per block, through
-                 `ops.kernels.dense_bf16.dense_block`), and the four SSD
+                 `ops.kernels.dense_bf16`: the small-map blocks as one chain
+                 launch, the others a launch each), and the four SSD
                  heads so too; the island is `turbo_island`, by default
                  `models.blazeface.turbo_fast_blocks(spec)` (the front
                  model's blocks 10-15, the back model's 11-16).

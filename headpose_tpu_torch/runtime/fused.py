@@ -14,8 +14,10 @@ kernel entry points compose:
                                  at "turbo" and "max" the same plan with
                                  the island's blocks (`island_of`) cut out
                                  and run as single-pass bf16 dense blocks
-                                 through ops.kernels.dense_block (no TPU
-                                 kernel: XLA's conv at Precision.DEFAULT)
+                                 through ops.kernels.dense_bf16 (a block
+                                 alone, or a run on the small maps as one
+                                 chain launch; no TPU kernel: XLA's conv
+                                 at Precision.DEFAULT)
   the four SSD 1x1 heads         matrix products on the NHWC taps, flattened
                                  anchor-major (cell, then anchor), as XLA
                                  computes them outside any kernel in JAX;

@@ -6,9 +6,10 @@ kernels sum in another order than cuBLAS), and detect_fused against detect;
 the split-bf16 segment kernel (apply_fused) against its plain version
 (SPLIT_TOL) and an fp32 backbone (atol 5e-4), on the flagship and the back
 model, and the "fast" detector against the "highest" one; the island
-kernel of "turbo" and "max" (dense_block) against its plain version (1e-5
-of the map), their detects' launches, and the empty island against
-"fast"; the
+kernels of "turbo" and "max" (dense_block, dense_chain) against their
+plain versions (1e-5 of the map a block; a whole chain within one bf16
+step of the map), their layouts against the Python mirrors, their detects'
+launches, and the empty island against "fast"; the
 SE-Transformer head kernel (se_transformer_forward) against its plain
 version (rtol 1e-4 / atol 1e-5),
 and the SE-Transformer model's detect_fused in both head profiles;
@@ -31,7 +32,8 @@ import pytest
 import torch
 
 from headpose_tpu_torch.core.activations import ACTIVATIONS
-from headpose_tpu_torch.models import BlazeFace, BlazeFaceNet, MLPHead
+from headpose_tpu_torch.models import (BLAZEFACE_BACK, BlazeFace, BlazeFaceNet,
+                                       MLPHead)
 from headpose_tpu_torch.models.anchors import generate_anchors
 from headpose_tpu_torch.models.heads import (MLPHeadNet, SETransformerHead,
                                              SETransformerHeadNet)
@@ -532,27 +534,219 @@ def test_island_kernel_rejects_what_it_does_not_take(cuda, flagship):
 
 @pytest.mark.parametrize("mode", ["turbo", "max"])
 def test_turbo_and_max_detect_launch_the_island_kernel(cuda, flagship, mode):
-    """One detect at "turbo" launches the split-bf16 kernel over segments A,
-    B, C 6-9 and the island kernel 6 times; at "max" 16 times and no
-    segment; identical detection sets to "highest" on e2e_production.npz
-    and poses within the JAX certificate's pose max of the mode (4.21 and
-    4.89 degrees)."""
+    """One detect launches exactly the island plan's kernels
+    (`island_chains`: at "turbo" one chain launch for blocks 10-15, at
+    "max" blocks 0-5 one launch each and one chain launch for 6-15) and the
+    split-bf16 kernel over the plan's segments (A, B, C 6-9 at "turbo",
+    none at "max"); identical detection sets to "highest" on
+    e2e_production.npz and poses within the JAX certificate's pose max of
+    the mode (4.21 and 4.89 degrees)."""
     from headpose_tpu_torch.ops.kernels import dense_bf16 as kd
     from headpose_tpu_torch.pretrained import flagship_detector
+    from headpose_tpu_torch.runtime.fused import island_of
 
     det = flagship_detector(precision=mode)
+    spec = flagship.net.backbone.spec
+    island = island_of(spec, mode)
+    steps = kd.island_chains(spec, island)
     img = np.load(os.path.join(GOLDEN, "e2e_production.npz"))["img"]
-    before = (kd.dense_block.launches, kb2.run_segment.launches)
+    before = (kd.dense_block.launches, kd.dense_chain.launches,
+              kb2.run_segment.launches)
     got = det.detect(img)
     torch.cuda.synchronize()
-    n = 6 if mode == "turbo" else 16
     assert (kd.dense_block.launches - before[0],
-            kb2.run_segment.launches - before[1]) == (
-        n, 3 if mode == "turbo" else 0)
+            kd.dense_chain.launches - before[1],
+            kb2.run_segment.launches - before[2]) == (
+        sum(s[0] == "block" for s in steps),
+        sum(s[0] == "chain" for s in steps),
+        len(kb2.segment_plan(spec, island)))
+    assert steps == ((("chain", 10, 15),) if mode == "turbo" else
+                     tuple(("block", i) for i in range(6)) + (
+                         ("chain", 6, 15),))
     want = flagship.detect(img)
     assert torch.equal(got.valid, want.valid)
     tol = {"turbo": 4.21, "max": 4.89}[mode]
     assert float((got.poses - want.poses).abs().max()) < tol
+
+
+def _island_net(cuda, flagship, case):
+    import warnings
+
+    from headpose_tpu_torch.pretrained import load_pretrained
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+
+    if case.startswith("back"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return FaceDetector(*load_pretrained(
+                "unified-back-distilled")).net.backbone
+    if case.startswith("flagship"):
+        return flagship.net.backbone
+    return _random_init(BlazeFaceNet(WIDE_D, device=cuda), 7)
+
+
+# one bf16 step of the map's largest |value| (tests/
+# test_torch_island_chain.py::CHAIN_TOL_FRAC)
+CHAIN_TOL_FRAC = 2.0 ** -7
+
+
+@pytest.mark.parametrize("case", ["flagship_b3", "back_b2", "wide_d_b2",
+                                  "flagship_b128"])
+def test_island_chain_matches_plain(cuda, flagship, case):
+    """Every chain of the "turbo" and "max" plans (the flagship, the back
+    model, the wide spec), on the backbone's own map in front of it: (a)
+    block by block, each of the kernel's prefix chains first..k against
+    dense_block_plain of block k on the prefix first..k-1's map (the
+    chain's own intermediate: the kernel computes a block the same way
+    whatever follows it, and the whole chain equals its longest prefix and
+    its tap its prefix to the tap bit for bit) within 1e-5 of the map's
+    largest |value|, the island block's own tolerance; (b) the whole chain
+    against dense_chain_plain within CHAIN_TOL_FRAC of the map's largest
+    |value| (an fp32 ulp before a block's bf16 rounding can move an element
+    a bf16 step, and the blocks after it carry that on).  One launch counted
+    per call."""
+    from headpose_tpu_torch.ops.kernels import dense_bf16 as kd
+    from headpose_tpu_torch.runtime.fused import island_of
+
+    b = int(case.split("_b")[1])
+    imgs = _corpus(b)
+    net = _island_net(cuda, flagship, case)
+    x = preprocess(torch.from_numpy(imgs).to(cuda),
+                   net.spec.input_size).contiguous()
+    inputs = kb2.segment_inputs(net, x, kb2.pack_backbone(net),
+                                tuple(range(len(net.blocks))))
+    chains = {s for mode in ("turbo", "max")
+              for s in kd.island_chains(net.spec, island_of(net.spec, mode))
+              if s[0] == "chain"}
+    assert chains
+    tap = net.spec.tap88_block
+    for _, first, last in sorted(chains):
+        y0 = inputs[first]
+        before = kd.dense_chain.launches
+        got, got_tap = kd.dense_chain(net, first, last, y0)
+        assert kd.dense_chain.launches == before + 1
+        prev = y0
+        for k in range(first, last + 1):                          # (a)
+            cur, t = kd.dense_chain_cuda(net, first, k, y0)
+            want = kd.dense_block_plain(net, k, prev)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(
+                cur, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+            if k == tap:
+                assert torch.equal(got_tap, cur)
+            prev = cur
+        assert torch.equal(got, prev)
+        if not first <= tap <= last:
+            assert got_tap is None
+        want, want_tap = kd.dense_chain_plain(net, first, last, y0)  # (b)
+        for g, w in ((got, want), (got_tap, want_tap)):
+            if w is not None:
+                torch.testing.assert_close(
+                    g, w, rtol=0,
+                    atol=CHAIN_TOL_FRAC * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("model", ["flagship", "back"])
+def test_island_is_batch_invariant(cuda, flagship, model):
+    """An image's maps do not depend on its place in the batch: at "turbo"
+    and "max", apply_fused over 3 corpus frames gives each frame's feat88
+    and feat96 bit for bit as apply_fused over that frame alone (every
+    island block and chain sums its taps in one order for every image,
+    whatever tiles the batch gives the block kernel)."""
+    from headpose_tpu_torch.runtime.fused import island_of
+
+    net = _island_net(cuda, flagship, model)
+    x = preprocess(torch.from_numpy(_corpus(3)).to(cuda),
+                   net.spec.input_size).contiguous()
+    for mode in ("turbo", "max"):
+        island = island_of(net.spec, mode)
+        whole = kb2.apply_fused(net, x, island)
+        for j in range(3):
+            alone = kb2.apply_fused(net, x[j:j + 1], island)
+            for w, a in zip(whole, alone):
+                assert torch.equal(w[j], a[0]), (mode, j)
+
+
+@pytest.mark.parametrize("mode", ["turbo", "max"])
+def test_turbo_and_max_detect_is_batch_invariant(cuda, mode):
+    """detect([a, b]) answers b as detect([b]) does: the backbone's maps
+    bit for bit (test_island_is_batch_invariant), so the same detection
+    set; boxes, keypoints and scores within 1e-5 and poses within 1e-3
+    degrees, the serve phase's bounds for one answer through two routes
+    (the SSD 1x1 heads are cuBLAS GEMMs over B x cells rows, whose sum
+    order may change with the row count: at "max" the boxes of one such
+    pair differed in the last bits)."""
+    from headpose_tpu_torch.pretrained import flagship_detector
+
+    det = flagship_detector(precision=mode)
+    imgs = _corpus(2)
+    pair, alone = det.detect(imgs), det.detect(imgs[1:2])
+    assert torch.equal(pair.valid[1], alone.valid[0])
+    assert int(alone.valid.sum()) >= 1
+    for k, tol in (("boxes", 1e-5), ("keypoints", 1e-5), ("scores", 1e-5),
+                   ("poses", 1e-3)):
+        torch.testing.assert_close(getattr(pair, k)[1], getattr(alone, k)[0],
+                                   rtol=0, atol=tol)
+
+
+def test_island_chain_rejects_what_it_does_not_take(cuda, flagship):
+    """A float16 input, a run the plan does not make a chain, another
+    input side: ValueError, no launch; an empty batch: empty maps (the tap
+    too), no launch."""
+    from headpose_tpu_torch.ops.kernels import dense_bf16 as kd
+
+    net = flagship.net.backbone
+    before = kd.dense_chain.launches
+    with pytest.raises(ValueError, match="float32"):
+        kd.dense_chain(net, 12, 15, torch.zeros(
+            (1, 8, 8, 96), device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError, match="not a chain"):
+        kd.dense_chain(net, 5, 7, torch.zeros((1, 32, 32, 42), device=cuda))
+    with pytest.raises(ValueError, match="takes"):
+        kd.dense_chain(net, 12, 15, torch.zeros((1, 16, 16, 96),
+                                                device=cuda))
+    y, t = kd.dense_chain(net, 10, 15, torch.zeros((0, 16, 16, 80),
+                                                   device=cuda))
+    assert tuple(y.shape) == (0, 8, 8, 96) and tuple(t.shape) == (
+        0, 16, 16, 88)
+    assert kd.dense_chain.launches == before
+
+
+def test_island_plans_match_the_kernel(cuda):
+    """The island plans against the library's own: every block of the
+    front, back and wide specs at B = 1, 3, 128 has a tile plan of the
+    block kernel (`tile_plan`, headpose_dense_bf16_block_plan) within a
+    block's shared memory, at 1 to 16 output rows a tile; the Python mirror
+    of the chain kernel's layout (`chain_plan`, which `island_chains`
+    reads) equals headpose_dense_bf16_chain_plan on every small-map run of
+    "max", and a run that fits no chain."""
+    import ctypes
+
+    from headpose_tpu_torch.ops.kernels import dense_bf16 as kd
+    from headpose_tpu_torch.ops.kernels.packing import c_ints
+
+    lib = kd.LIBRARY.load()
+    too_wide = BlazeFace(input_size=32, stem_features=128,
+                         block_channels=(128, 128), downsample_blocks=(1,),
+                         tap88_block=0)
+    for spec in (BlazeFace(), BLAZEFACE_BACK, WIDE_D, too_wide):
+        for cin, cout, s, h in kd._shapes(spec):
+            for b in (1, 3, 128):
+                plan = kd.tile_plan(b, h, cin, cout, s)
+                assert plan is not None and plan[2] <= kd.SMEM_MAX
+                assert 1 <= plan[1] <= min(16, h // s)
+        n = len(spec.block_channels)
+        runs = {(first, n - 1) for first in range(n)
+                if kd._shapes(spec)[first][3] ** 2 <= kd.CHAIN_PIXELS}
+        for first, last in runs:
+            channels, strides, h = kd._chain_args(spec, first, last)
+            out = (ctypes.c_int * 4)()
+            rc = lib.headpose_dense_bf16_chain_plan(
+                c_ints(channels), c_ints(strides), len(strides), h, out)
+            want = kd.chain_plan(channels, strides, h)
+            assert (rc == 0) == (want is not None)
+            if want is not None:
+                assert tuple(out) == want
 
 
 def test_empty_island_is_fast_on_the_card(cuda, flagship):

@@ -264,10 +264,11 @@ def test_island_block_is_the_module_island_step(models):
 
 
 def test_dense_pack_is_the_rounded_composition(models):
-    """The kernel's weight pack: per block the composed K rounded to bf16
-    once (after the fp32 product), laid out (9, Np, Kp) [tap][out][in] with
-    zero padding, and the fp32 bias padded to Np; built once per module and
-    rebuilt when a weight changes."""
+    """The kernels' weight pack: per block the composed K rounded to bf16
+    once (after the fp32 product), laid out (9, Np, Kp + 8) [tap][out][in]
+    with zero padding (`kernel(i)` the (9, Np, Kp) view without the rows'
+    8 pad columns), and the fp32 bias padded to Np; built once per module
+    and rebuilt when a weight changes."""
     net = models["flagship"][3].backbone
     pack = kd.dense_pack(net)
     assert kd.dense_pack(net).kernels is pack.kernels
@@ -282,6 +283,11 @@ def test_dense_pack_is_the_rounded_composition(models):
         assert torch.equal(w[:, :cout, :cin], want)
         assert not w[:, cout:].float().any()
         assert not w[:, :, cin:].float().any()
+        n, k = w.shape[1:]
+        off = pack.kernels.offsets[i]
+        rows = pack.kernels.weights[off:off + 9 * n * (k + 8)].view(9, n,
+                                                                    k + 8)
+        assert torch.equal(rows[:, :, :k], w) and not rows[:, :, k:].any()
         assert torch.equal(pack.bias(i)[:cout], bias)
     net2 = BlazeFaceNet(BLAZEFACE_FRONT, device="cpu")
     net2.load_state_dict(net.state_dict())

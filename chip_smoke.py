@@ -135,6 +135,35 @@ is one JSON object, except the nvidia-smi line:
            same call on the port's CPU detector: valid identical, final
            track states identical, smoothed poses within 1e-3 deg and boxes
            within 1e-5; wall times;
+  train    head training (the feature extractor, fit, the Keras golden
+           trajectory, the trained head served, the 14 heads evaluated);
+  detector_train  detector training at full width, each trainer's first
+           10 steps also on the CPU on the same data, init and batch
+           draws, every loss term within TRAIN_LOSS_RTOL and finite
+           (calibration's, on images synthesized once and given to both,
+           within twice its own noise floor: the CPU's gap when every
+           input pixel moves one ulp up or down; its exact fp32 targets
+           within TRAIN_LOSS_RTOL):
+           (a) fit_detector(BLAZEFACE_FRONT) on 1024 seeded 128x128
+           squares with keypoints, batch 64, until the mean loss of the
+           last 20 steps is under half the first 20's; (b) front->back
+           distillation: warmstart_params, distill_prefix (student tap 0,
+           teacher tap -1; the frozen leaves bitwise) and distill_detector
+           (feat_cell_eps 0.2) on 512 seeded blob frames; (c)
+           calibrate_fast_params of the flagship's "turbo" island, batch
+           64, lr 1e-5; steps/s on card and CPU, the card's peak memory;
+           each trained detector joined to the flagship's heads and served
+           on 16 corpus frames against the port's CPU detector (sets
+           identical; at "highest" boxes and scores within 1e-5 and poses
+           within 1e-3 deg, at "fast" poses within 0.02 deg), (a) and (b)
+           at "highest" and "fast", (c) at "turbo" on the parity corpus by
+           the turbo phase's rule (faces matched at IoU > 0.5, pose p99
+           within 0.43 deg; a face one side alone reports passes when its
+           score lies within the score noise of the threshold), each in its
+           own launch window (#1 once; #3 once and #4
+           twice at "fast"; the island chain once, #3, #4 twice and #1 at
+           "turbo"); the corpus pose p99 of the calibrated and the
+           uncalibrated "turbo" flagship, a reading;
   h5       the Keras-H5 graph compiler and loaders on the card: h5py's
            version (or null); the flagship fixture (tests/golden_torch) from
            its h5py-free twin through core.h5io._model_from_parts and, where
@@ -161,14 +190,17 @@ is one JSON object, except the nvidia-smi line:
            against flagship.detect_single on 16 frames; the sustained
            seconds per dispatch of the "fast" detect at B=128 (500
            dispatches over 8 staged buffers, a reading, not a claim);
+  total    the script's seconds;
   then the {"kernels": [...]} summary (launches from the fused phase;
   apply_fused's from the fast phase, and its back window's beside them;
   se_transformer_forward's from the se phase's map window; dense_chain's
   from the turbo phase's "turbo" window and dense_block's from its "max"
   window, the other window beside each;
-  the serve phase's beside them), the nvidia-smi line, and last
+  the serve phase's beside them, and the detector_train phase's windows
+  of #1, #3, #4 and dense_chain), the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 """
+import dataclasses
 import json
 import os
 import statistics
@@ -3041,6 +3073,458 @@ def phase_train(corpus, card, seed: int):
     return {name: launches[name] for name in paths}
 
 
+# detector training (train.detector, train.calibrate) at full width
+DT_COMPARE = 10               # the first steps of each trainer on the CPU
+DT_FIT_STEPS = 300            # (a) on the card: enough to halve the loss
+DT_FIT_IMAGES, DT_FIT_BATCH = 1024, 64
+DT_PREFIX_STEPS = 100         # (b) distill_prefix on the card
+DT_DISTILL_STEPS = 100        # (b) distill_detector on the card
+DT_DISTILL_IMAGES, DT_DISTILL_BATCH = 512, 32
+DT_CALIB_STEPS = 36           # (c) calibrate_fast_params on the card
+DT_CALIB_BATCH = 64
+DT_SERVE_FRAMES = 16
+# 200 steps of front->back distillation on blob frames leave a detector
+# that finds no face at the production threshold on corpus frames: it is
+# held to the CPU at the threshold the e2e goldens were captured at, so
+# that the sets are not empty
+DT_LOW_THRESHOLD = 0.05
+DT_BOX_TOL = 1e-5             # boxes and scores, card vs CPU at "highest"
+DT_MATCH_TOL = 0.02           # a detection's box, card vs CPU, to pair it
+# calibration's loss is the bf16 rounding residual of the island, carried
+# by a few cells: moving every input pixel by one ulp moves it by percents
+# on the CPU itself (PERF.md §6).  On the same images, the card's
+# first 10 loss terms are held within twice that floor (the larger gap of
+# one ulp up and one ulp down), measured in the same run, or
+# TRAIN_LOSS_RTOL where the floor is lower; the exact targets, which no
+# island rounds, within TRAIN_LOSS_RTOL
+CALIB_FLOOR_FACTOR = 2.0
+DT_POSE_TOL_DEG = 1e-3        # poses, card vs CPU at "highest"
+
+
+def squares(n, size, seed):
+    """Dark-noise frames with one bright square, its box and 6 keypoints (4
+    corners, 2 edge midpoints): tests/test_detector_train.py::_squares and
+    with_kps at `size`."""
+    rng = np.random.default_rng(seed)
+    imgs = rng.integers(0, 60, size=(n, size, size, 3)).astype(np.uint8)
+    boxes = np.zeros((n, 1, 4), np.float32)
+    for i in range(n):
+        s = rng.uniform(0.15, 0.6)
+        cx = rng.uniform(s / 2, 1 - s / 2)
+        cy = rng.uniform(s / 2, 1 - s / 2)
+        boxes[i, 0] = [cx - s / 2, cy - s / 2, cx + s / 2, cy + s / 2]
+        px = (boxes[i, 0] * size).astype(int)
+        imgs[i, px[1]:px[3], px[0]:px[2]] = rng.integers(180, 256, size=3)
+    x1, y1, x2, y2 = (boxes[..., i] for i in range(4))
+    mx = (x1 + x2) / 2
+    kps = np.stack([np.stack(p, -1) for p in (
+        (x1, y1), (x2, y1), (x2, y2), (x1, y2), (mx, y1), (mx, y2))], -2)
+    return imgs, boxes, np.ones((n, 1), np.float32), kps.astype(np.float32)
+
+
+def blobs(n, size, seed):
+    """Smooth blobs + noise (tests/test_detector_train.py TestDistill
+    _images at `size`)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, size=(n, 4, 4, 3))
+    imgs = np.repeat(np.repeat(base, size // 4, 1), size // 4, 2)
+    imgs = imgs + rng.integers(-20, 20, size=(n, size, size, 3))
+    return np.clip(imgs, 0, 255).astype(np.uint8)
+
+
+def timed_run(run, card: bool = True) -> dict:
+    """run(on_sync), a trainer, on the card (or the CPU): its params and
+    history, the rate between the first and the last sync (steps/s,
+    set-up excluded), the wall time and, on the card, the peak memory."""
+    syncs = []
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, hist = run(lambda done, m: syncs.append((done,
+                                                    time.perf_counter())))
+    wall = time.perf_counter() - t0
+    (d0, t_0), (d1, t_1) = syncs[0], syncs[-1]
+    return {"params": params, "history": hist, "wall_s": wall,
+            "steps_per_s": (d1 - d0) / (t_1 - t_0) if d1 > d0 else None,
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                  if card else None)}
+
+
+def busy_share(run) -> dict:
+    """run() (a short training call) under torch.profiler: the device's
+    busy time (its kernels' summed durations) over the host's wall time,
+    and the kernels launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.end - e.time_range.start for e in ev) / 1e6
+    return {"wall_s": wall, "device_busy_s": busy,
+            "busy_share": busy / wall, "kernels": len(ev)}
+
+
+def card_vs_cpu(card: dict, cpu: dict, what: str) -> dict:
+    """Every loss term of the first DT_COMPARE steps within TRAIN_LOSS_RTOL
+    of the CPU's, and every card loss finite."""
+    gap = {}
+    for k, v in cpu.items():
+        if len(v) != DT_COMPARE:
+            raise AssertionError(f"{what}: the CPU ran {len(v)} steps")
+        a = np.asarray(card[k][:DT_COMPARE], np.float64)
+        gap[k] = float(np.abs(a / v - 1.0).max())
+        if not (np.isfinite(card[k]).all() and gap[k] <= TRAIN_LOSS_RTOL):
+            raise AssertionError(f"{what} {k}: card vs CPU rel {gap[k]}")
+    return gap
+
+
+def served_vs_cpu(model, params, precision, imgs, want, what: str,
+                  threshold: float = 0.4, empty_ok: bool = False):
+    """model at `precision` and `threshold` on the card, in its own launch
+    window, against the same model on the port's CPU detector, image by
+    image; the launches exactly `want`.  At "highest" and "fast":
+    identical detection sets (each CPU box matched to the card's nearest
+    one, within DT_MATCH_TOL: two faces of near-equal scores may take each
+    other's slot, and a detector this young gives degenerate boxes); over
+    the matched pairs, at "highest" boxes and scores within DT_BOX_TOL and
+    poses within DT_POSE_TOL_DEG, at "fast" poses within
+    BACK_FAST_POSE_TOL_DEG (the back phase's bound, card vs the CPU's
+    "fast"); at least one detection unless `empty_ok`.  At "turbo" the
+    turbo phase's rule (`turbo_vs_cpu`).  Returns (report, launches, the
+    card's detector)."""
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+
+    det = FaceDetector(model, params, threshold, precision=precision)
+    det.detect(imgs[:2])                      # warm, and build
+    got, counts = launch_window(det.detect, imgs)
+    check_counts(counts, want, f"{what} {precision}")
+    ref = FaceDetector(model, params, threshold, precision=precision,
+                       device="cpu").detect(imgs)
+    if precision == "turbo":
+        out = turbo_vs_cpu(got.trim(), ref.trim(), threshold, what)
+        out["launches"] = counts
+        return out, counts, det
+    errs = {"boxes": 0.0, "scores": 0.0, "poses": 0.0}
+    matched = 0
+    for i, (g, r) in enumerate(zip(got.trim(), ref.trim())):
+        if len(g.boxes) != len(r.boxes):
+            raise AssertionError(f"{what} {precision}: image {i}: scores "
+                                 f"{g.scores} on the card, {r.scores} on "
+                                 "the CPU")
+        free = list(range(len(g.boxes)))
+        for ri in range(len(r.boxes)):      # the nearest box not yet taken
+            d = [float(np.abs(g.boxes[oi] - r.boxes[ri]).max())
+                 for oi in free]
+            if min(d) > DT_MATCH_TOL:
+                raise AssertionError(f"{what} {precision}: image {i}: the "
+                                     f"CPU's box {r.boxes[ri]} is {min(d)} "
+                                     "from the card's nearest")
+            oi = free.pop(int(np.argmin(d)))
+            for k in errs:
+                errs[k] = max(errs[k], float(np.abs(
+                    getattr(g, k)[oi] - getattr(r, k)[ri]).max()))
+        matched += len(r.boxes)
+    pose_tol = {"highest": DT_POSE_TOL_DEG,
+                "fast": BACK_FAST_POSE_TOL_DEG}[precision]
+    out = {"score_threshold": threshold, "detections": matched,
+           "max_abs_diff": errs,
+           "slots_identical": bool(torch.equal(got.valid.cpu(), ref.valid)),
+           "pose_tol_deg": pose_tol, "launches": counts}
+    if not ((matched or empty_ok) and errs["poses"] <= pose_tol and (
+            precision != "highest"
+            or max(errs["boxes"], errs["scores"]) <= DT_BOX_TOL)):
+        raise AssertionError(f"{what} {precision}: card vs CPU {out}")
+    return out, counts, det
+
+
+def turbo_vs_cpu(got, ref, threshold: float, what: str) -> dict:
+    """The card's "turbo" detections `got` against the CPU's `ref` (trimmed
+    Results) by the turbo phase's rule, the CPU's taken as the reference:
+    every face matched one to one at IoU > 0.5 (certify_modes.match_image,
+    the certificate's matching), pose p99 of the pairs within
+    TURBO_POSE_P99_DEG.  The two sides' scores differ by the island's
+    rounding (about 1e-3), so a face one side alone reports passes when its
+    score lies within that noise of the threshold: within the largest score
+    gap of the matched pairs.  Matching by IoU and a p99 take in a face
+    whose two best anchors score within that noise: the sides may report
+    different anchors of it, from another cell or grid, whose poses differ
+    by degrees."""
+    from headpose_tpu_torch.tools.certify_modes import dist, match_image
+
+    gaps, poses, lone = [], [], []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        pairs, _ = match_image({"boxes": r.boxes, "scores": r.scores}, g)
+        gaps += [abs(float(r.scores[a]) - float(g.scores[b]))
+                 for a, b in pairs]
+        poses += [float(np.abs(r.poses[a] - g.poses[b]).max())
+                  for a, b in pairs]
+        lone += [(i, "cpu", float(s)) for a, s in enumerate(r.scores)
+                 if a not in {p[0] for p in pairs}]
+        lone += [(i, "card", float(s)) for b, s in enumerate(g.scores)
+                 if b not in {p[1] for p in pairs}]
+    noise = max(gaps, default=0.0)
+    out = {"score_threshold": threshold, "frames": len(ref),
+           "detections": len(poses), "one_sided": lone,
+           "score_noise": noise, "pose_deg": dist(poses),
+           "pose_p99_tol_deg": TURBO_POSE_P99_DEG}
+    if not (poses and all(s - threshold <= noise for _, _, s in lone)
+            and out["pose_deg"]["p99"] <= TURBO_POSE_P99_DEG):
+        raise AssertionError(f"{what} turbo: card vs CPU {out}")
+    return out
+
+
+def phase_detector_train(corpus, card, seed: int):
+    """Detector training at full width on the card (the docstring's
+    `detector_train` entry).  Returns {window: launch counts}."""
+    report = {"phase": "detector_train", "card": card, "seed": seed}
+    try:
+        windows = detector_train(report, corpus, seed)
+    except BaseException:
+        emit(report)                  # what ran, then the failure
+        raise
+    emit(report)
+    return windows
+
+
+def rel_gaps(got: dict, want: dict) -> dict:
+    """Each history key's largest relative gap |got / want - 1|."""
+    return {k: float(np.abs(np.asarray(got[k], np.float64) / v - 1.0).max())
+            for k, v in want.items()}
+
+
+def calibration_targets(model, params, x, device) -> dict:
+    """calibrate_fast_params' targets of one batch x (CPU) on `device`: the
+    exact fp32 forward (TF32 off) of the original params, scores
+    post-sigmoid, as float64 numpy arrays."""
+    from headpose_tpu_torch.models.blazeface import fp32_exact
+    from headpose_tpu_torch.models.unified import UnifiedPoseNet
+    from headpose_tpu_torch.tools.convert import params_from_jax
+
+    net = UnifiedPoseNet(model, device=device).eval()
+    net.load_state_dict(params_from_jax(model, params))
+    with torch.no_grad(), fp32_exact():
+        out = net(x.to(net.backbone.stem.weight.device))
+    out["scores"] = torch.sigmoid(out["scores"])
+    return {k: out[k].cpu().numpy().astype(np.float64)
+            for k in ("pose_front", "pose_back", "scores", "loc")}
+
+
+def trained_report(card: dict, cpu: dict, what: str, **fields) -> dict:
+    """A trainer's line: its recipe `fields`, first and last loss, the
+    card-vs-CPU gaps (raising beyond TRAIN_LOSS_RTOL), rates and memory."""
+    loss = card["history"]["loss"]
+    return {**fields, "steps": len(loss),
+            "loss_first_last": [float(loss[0]), float(loss[-1])],
+            "card_vs_cpu_rel": card_vs_cpu(card["history"], cpu["history"],
+                                           what),
+            "steps_per_s": {"card": card["steps_per_s"],
+                            "cpu": cpu["steps_per_s"]},
+            "wall_s": {"card": card["wall_s"],
+                       f"cpu_{DT_COMPARE}_steps": cpu["wall_s"]},
+            "peak_memory_bytes": card["peak_memory_bytes"]}
+
+
+def detector_train(report, corpus, seed: int) -> dict:
+    """phase_detector_train's body: fills `report` as it goes."""
+    from headpose_tpu_torch.models import (BLAZEFACE_BACK, BLAZEFACE_FRONT,
+                                           TURBO_FAST_BLOCKS, join_models)
+    from headpose_tpu_torch.pretrained import FLAGSHIP, load_pretrained
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+    from headpose_tpu_torch.tools.certify_modes import certify_parity
+    from headpose_tpu_torch.tools.convert import flatten_params
+    from headpose_tpu_torch.train import calibrate, detector
+
+    t_phase = time.perf_counter()
+    flag_spec, flag_params = load_pretrained(FLAGSHIP)
+    teacher = flag_params["backbone"]
+    imgs = corpus["imgs"][:DT_SERVE_FRAMES]
+    windows = {}
+    fast_want = {"apply_fused": 1, "mlp_head_forward": 2,
+                 "postprocess_nms": 1}
+
+    def serve(name, spec, params, frames, threshold, empty_ok=False):
+        """The trained backbone joined to the flagship's heads, served at
+        "highest" and "fast" against the CPU."""
+        model, joined = join_models(
+            spec, params, flag_spec.head88, flag_params["head88"],
+            flag_spec.head96, flag_params["head96"])
+        out = {}
+        for precision, want in (("highest", {"postprocess_nms": 1}),
+                                ("fast", fast_want)):
+            out[precision], windows[f"{name}_{precision}"], _ = \
+                served_vs_cpu(model, joined, precision, frames, want, name,
+                              threshold, empty_ok)
+        return out
+
+    # (a) supervised: fit_detector(BLAZEFACE_FRONT) on seeded squares
+    sq, boxes, mask, kps = squares(DT_FIT_IMAGES, 128, seed)
+    cfg_a = detector.DetectorFitConfig(
+        steps=DT_FIT_STEPS, batch_size=DT_FIT_BATCH, warmup_steps=50,
+        steps_per_sync=50, seed=seed)
+    fit_args = (BLAZEFACE_FRONT, sq, boxes, mask)
+    a = timed_run(lambda s: detector.fit_detector(
+        *fit_args, cfg_a, keypoints=kps, kp_weight=1.0, on_sync=s))
+    a_cpu = timed_run(lambda s: detector._fit_detector(
+        *fit_args, dataclasses.replace(cfg_a, steps_per_sync=5),
+        keypoints=kps, kp_weight=1.0, on_sync=s, device="cpu",
+        stop=DT_COMPARE), card=False)
+    loss = a["history"]["loss"]
+    halving = [float(loss[:20].mean()), float(loss[-20:].mean())]
+    report["fit_detector"] = trained_report(
+        a, a_cpu, "fit_detector", spec="BLAZEFACE_FRONT", images=len(sq),
+        batch=DT_FIT_BATCH, kp_weight=1.0, loss_mean_first_last_20=halving)
+    report["fit_detector"]["profiled_50_steps"] = busy_share(
+        lambda: detector.fit_detector(
+            *fit_args, dataclasses.replace(cfg_a, steps=50),
+            keypoints=kps, kp_weight=1.0))
+    if not halving[1] < 0.5 * halving[0]:
+        raise AssertionError(f"fit_detector: the mean loss went {halving} "
+                             f"in {DT_FIT_STEPS} steps")
+    held_out = squares(DT_SERVE_FRAMES, 128, seed + 1)[0]
+    report["fit_detector"]["serve"] = {
+        "corpus": serve("fit", BLAZEFACE_FRONT, a["params"], imgs, 0.4,
+                        empty_ok=True),      # a square detector: no face
+        "held_out_squares": serve("fit_squares", BLAZEFACE_FRONT,
+                                  a["params"], held_out, 0.4)}
+
+    # (b) distillation front -> back: warm start, prefix, whole network
+    frames = blobs(DT_DISTILL_IMAGES, 128, seed)
+    ws = detector.warmstart_params(BLAZEFACE_BACK, BLAZEFACE_FRONT, teacher,
+                                   key=torch.Generator().manual_seed(seed))
+    cfg_p = detector.DetectorDistillConfig(
+        steps=DT_PREFIX_STEPS, batch_size=DT_DISTILL_BATCH,
+        learning_rate=2e-3, warmup_steps=20, steps_per_sync=25, seed=seed)
+    prefix_args = (BLAZEFACE_BACK, 0, BLAZEFACE_FRONT, -1, teacher, frames)
+    p = timed_run(lambda s: detector.distill_prefix(
+        *prefix_args, cfg_p, init_params=ws, on_sync=s))
+    p_cpu = timed_run(lambda s: detector._distill_prefix(
+        *prefix_args, dataclasses.replace(cfg_p, steps_per_sync=5),
+        init_params=ws, on_sync=s, device="cpu", stop=DT_COMPARE),
+        card=False)
+    report["distill_prefix"] = trained_report(
+        p, p_cpu, "distill_prefix", images=len(frames),
+        batch=DT_DISTILL_BATCH, taps="student 0, teacher -1")
+    got, start = flatten_params(p["params"]), flatten_params(ws)
+    moved = [k for k in start if not np.array_equal(got[k], start[k])]
+    report["distill_prefix"]["moved_leaves"] = moved
+    if not moved or any(not k.startswith(("stem/", "blocks/0/"))
+                        for k in moved):
+        raise AssertionError(f"distill_prefix moved {moved} (the stem and "
+                             "block 0 only may move)")
+    # at lr 4e-4 the card's and the CPU's trajectories part by up to 1.2e-3
+    # in 10 steps (Adam turns gradients whose last bits differ into
+    # lr-sized steps; PERF.md §6), at 1e-4 by at most 5.7e-5
+    cfg_d = detector.DetectorDistillConfig(
+        steps=DT_DISTILL_STEPS, batch_size=DT_DISTILL_BATCH,
+        learning_rate=1e-4, warmup_steps=20, steps_per_sync=25, seed=seed,
+        feat_cell_eps=0.2)
+    distill_args = (BLAZEFACE_BACK, BLAZEFACE_FRONT, teacher, frames)
+    d = timed_run(lambda s: detector.distill_detector(
+        *distill_args, cfg_d, init_params=p["params"], on_sync=s))
+    d_cpu = timed_run(lambda s: detector._distill_detector(
+        *distill_args, dataclasses.replace(cfg_d, steps_per_sync=5),
+        init_params=p["params"], on_sync=s, device="cpu", stop=DT_COMPARE),
+        card=False)
+    report["distill_detector"] = trained_report(
+        d, d_cpu, "distill_detector", images=len(frames),
+        batch=DT_DISTILL_BATCH, feat_cell_eps=0.2)
+    report["distill_detector"]["profiled_50_steps"] = busy_share(
+        lambda: detector.distill_detector(
+            *distill_args, dataclasses.replace(cfg_d, steps=50),
+            init_params=p["params"]))
+    report["distill_detector"]["serve"] = serve(
+        "distill", BLAZEFACE_BACK, d["params"], imgs, DT_LOW_THRESHOLD)
+
+    # (c) calibration of the flagship's "turbo" island
+    calib = dict(steps=DT_CALIB_STEPS, batch=DT_CALIB_BATCH,
+                 learning_rate=1e-5, fast_blocks=TURBO_FAST_BLOCKS,
+                 seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params_c, hist_c = calibrate.calibrate_fast_params(flag_spec, flag_params,
+                                                       **calib)
+    wall_c = time.perf_counter() - t0
+    peak_c = torch.cuda.max_memory_allocated()
+    # the card's first DT_COMPARE batches, synthesized once on the card as
+    # its run draws them and handed bitwise to the card and the CPU
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.stack([calibrate.synthesize_images(gen, DT_CALIB_BATCH, 128)
+                     for _ in range(DT_COMPARE)]).cpu()
+    given = dict(calib, loss_weights=(1.0, 1.0, 10.0, 0.1), stop=DT_COMPARE)
+    _, hist_c_given = calibrate._calibrate(flag_spec, flag_params, images=x,
+                                           device=None, **given)
+    t0 = time.perf_counter()
+    _, hist_c_cpu = calibrate._calibrate(flag_spec, flag_params, images=x,
+                                         device="cpu", **given)
+    wall_c_cpu = time.perf_counter() - t0
+    # the objective's own noise floor: the CPU again with every pixel one
+    # ulp up, and one ulp down; its loss is a bf16 rounding residual,
+    # carried by a few cells
+    ulp = [calibrate._calibrate(
+        flag_spec, flag_params, images=torch.nextafter(x, torch.tensor(v)),
+        device="cpu", **given)[1] for v in (np.inf, -np.inf)]
+    # what the island's rounding does not touch: the exact fp32 targets of
+    # the first batch, card vs CPU, relative to each output's largest value
+    targets = {dev: calibration_targets(flag_spec, flag_params, x[0], dev)
+               for dev in (None, "cpu")}
+    report["calibrate"] = {
+        "model": FLAGSHIP, "fast_blocks": list(TURBO_FAST_BLOCKS),
+        "steps": DT_CALIB_STEPS, "batch": DT_CALIB_BATCH,
+        "learning_rate": 1e-5,
+        "loss_first_last": [float(hist_c["loss"][0]),
+                            float(hist_c["loss"][-1])],
+        "loss_history": [float(v) for v in hist_c["loss"]],
+        "steps_per_s_with_setup": {"card": DT_CALIB_STEPS / wall_c,
+                                   "cpu": DT_COMPARE / wall_c_cpu},
+        "peak_memory_bytes": peak_c,
+        "profiled_10_steps": busy_share(
+            lambda: calibrate.calibrate_fast_params(
+                flag_spec, flag_params, **dict(calib, steps=10)))}
+    rc = report["calibrate"]
+    rc["card_vs_cpu_rel"] = rel_gaps(hist_c_given, hist_c_cpu)
+    rc["cpu_one_ulp_rel"] = {k: max(rel_gaps(h, hist_c_cpu)[k] for h in ulp)
+                             for k in hist_c_cpu}
+    # a reading: the card's own run (images synthesized on the card)
+    # against the same images given
+    rc["card_synthesized_vs_given_rel"] = rel_gaps(
+        {k: v[:DT_COMPARE] for k, v in hist_c.items()}, hist_c_given)
+    rc["targets_card_vs_cpu_rel"] = {
+        k: float(np.abs(targets[None][k] - v).max() / np.abs(v).max())
+        for k, v in targets["cpu"].items()}
+    for k, gap in rc["card_vs_cpu_rel"].items():
+        bound = max(TRAIN_LOSS_RTOL,
+                    CALIB_FLOOR_FACTOR * rc["cpu_one_ulp_rel"][k])
+        if not (np.isfinite(hist_c[k]).all() and gap <= bound):
+            raise AssertionError(f"calibrate {k}: card vs CPU rel {gap}, "
+                                 f"bound {bound}")
+    for k, gap in rc["targets_card_vs_cpu_rel"].items():
+        if not gap <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"calibrate targets {k}: card vs CPU rel "
+                                 f"{gap}")
+    for name in ("head88", "head96"):
+        if params_c[name] is not flag_params[name]:
+            raise AssertionError(f"calibration replaced {name}")
+    turbo_want = {"apply_fused": 1, "dense_chain": 1, "mlp_head_forward": 2,
+                  "postprocess_nms": 1}
+    report["calibrate"]["serve"], windows["calibrated_turbo"], det_c = \
+        served_vs_cpu(flag_spec, params_c, "turbo", corpus["imgs"],
+                      turbo_want, "calibrated")
+    report["calibrate"]["turbo_corpus_pose_p99_deg_reading"] = {
+        name: certify_parity(det.detect, corpus)["pose_deg"]["p99"]
+        for name, det in (("calibrated", det_c),
+                          ("uncalibrated", FaceDetector(
+                              flag_spec, flag_params, precision="turbo")))}
+    report["phase_s"] = time.perf_counter() - t_phase
+    return windows
+
+
 H5_DIR = os.path.join(HERE, "tests", "golden_torch")
 H5_NAMES = ("flagship_joined", "se_transformer_head", "head96")
 H5_SCORE_TOL = 1e-5            # tests/test_detection.py:194-207
@@ -3297,8 +3781,9 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the train phase's rows")
+                        help="seed of the train phases' rows and images")
     args = parser.parse_args()
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -3363,6 +3848,7 @@ def main() -> int:
     serve_launches = phase_serve(flagship, corpus, card)
     phase_stream(flagship, corpus, card)
     train_launches = phase_train(corpus, card, args.seed)
+    detector_train_launches = phase_detector_train(corpus, card, args.seed)
     h5_launches = phase_h5(flagship, corpus, frames128, card)
 
     for entry in entries[:3]:
@@ -3390,8 +3876,14 @@ def main() -> int:
     for entry in entries[:4]:         # the trained head's serve step
         entry["launches_train_window"] = {
             path: n[entry["name"]] for path, n in train_launches.items()}
+    for i in (0, 2, 3, 6):            # the trained detectors' serve steps
+        entries[i]["launches_detector_train_window"] = {
+            window: n[entries[i]["name"]]
+            for window, n in detector_train_launches.items()
+            if n[entries[i]["name"]]}
     for entry in entries[:5]:         # the H5 loaders' windows
         entry["launches_h5_window"] = h5_launches.get(entry["name"], {})
+    emit({"phase": "total", "script_s": time.perf_counter() - t_script})
     emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

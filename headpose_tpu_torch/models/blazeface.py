@@ -34,7 +34,20 @@ on the CPU:
     values are exact in fp32), bias unrounded.  That is the JAX function
     at `simulate_fast=True`, the model of the MXU's Precision.DEFAULT.
     When an island is given, the four SSD 1x1 heads run so too;
+  * simulate_fast="weights" or "acts" rounds only that operand of the
+    island's convs (JAX's error-decomposition probes); False rounds
+    neither, the fp32 function JAX computes for an island on its CPU;
+  * `tap(x, tap_blocks)` returns the listed blocks' maps as 'block{i}_out'
+    (NHWC, -1 the stem's; JAX's `apply(tap_blocks=)`), running no block
+    past the last of them and no SSD head: the hooks of stage-wise
+    distillation (train/detector.py::distill_prefix);
   * `turbo_fast_blocks(spec)` is the island of the detector's "turbo" mode.
+
+`BlazeFace.init(generator)` draws random parameters in JAX layout (the
+trainers' start, train/detector.py).  The rounding `bf16_round` is a cast
+there and back, so autograd rounds its cotangent to bf16, as the transpose
+of JAX's `astype` does: the calibration trainer (train/calibrate.py)
+differentiates through it.
 
 The dense island block (`BlazeBlock.forward(x, dense=True, fast=True)`) is
 the plain version of the island kernel (ops/kernels/dense_bf16.py).  TF32
@@ -45,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -52,6 +66,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.device import resolve_device
+from .heads import _uniform
 
 __all__ = ["BlazeFace", "BlazeFaceNet", "BLAZEFACE_FRONT", "BLAZEFACE_BACK",
            "turbo_fast_blocks", "TURBO_FAST_BLOCKS", "bf16_round",
@@ -70,6 +85,39 @@ class BlazeFace:
     tap88_block: int = 10   # output of this block = 16x16x88 feature map
     cls_channels: tuple[int, int] = (2, 6)    # anchors per cell, front/back grid
     loc_channels: tuple[int, int] = (32, 96)  # 16 values * anchors per cell
+
+    def init(self, generator: torch.Generator) -> dict:
+        """Random parameters in JAX layout (float32 numpy arrays, the
+        kernels HWIO, a depthwise kernel (3, 3, 1, C)): Glorot-uniform with
+        JAX's limits, a conv's sqrt(6 / (fan_in + fan_out)) with fan_in =
+        kh·kw·cin and fan_out = kh·kw·cout, a depthwise kernel's
+        sqrt(6 / (9·cin + 9)); every bias zero.  Each kernel is one
+        `uniform_` of its shape from `generator`, in this order: the stem,
+        then block by block the depthwise and the pointwise kernel, then
+        cls_front, cls_back, loc_front, loc_back."""
+        def conv(kh, kw, cin, cout):
+            lim = math.sqrt(6.0 / (kh * kw * cin + kh * kw * cout))
+            return {"kernel": _uniform(generator, (kh, kw, cin, cout), lim),
+                    "bias": np.zeros((cout,), np.float32)}
+
+        params: dict = {"stem": conv(5, 5, 3, self.stem_features)}
+        blocks, cin = [], self.stem_features
+        for cout in self.block_channels:
+            dw = _uniform(generator, (3, 3, 1, cin),
+                          math.sqrt(6.0 / (9 * cin + 9)))
+            pw = conv(1, 1, cin, cout)
+            blocks.append({"dw_kernel": dw,
+                           "dw_bias": np.zeros((cin,), np.float32),
+                           "pw_kernel": pw["kernel"], "pw_bias": pw["bias"]})
+            cin = cout
+        params["blocks"] = blocks
+        c88 = self.block_channels[self.tap88_block]
+        c96 = self.block_channels[-1]
+        params["cls_front"] = conv(1, 1, c88, self.cls_channels[0])
+        params["cls_back"] = conv(1, 1, c96, self.cls_channels[1])
+        params["loc_front"] = conv(1, 1, c88, self.loc_channels[0])
+        params["loc_back"] = conv(1, 1, c96, self.loc_channels[1])
+        return params
 
 
 BLAZEFACE_FRONT = BlazeFace()
@@ -101,6 +149,20 @@ TURBO_FAST_BLOCKS = turbo_fast_blocks(BLAZEFACE_FRONT)   # (10, ..., 15)
 def bf16_round(t: torch.Tensor) -> torch.Tensor:
     """t rounded to bf16 (to nearest, ties to even), as float32."""
     return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _roundings(mode: bool | str):
+    """(activation rounding, weight rounding) of an island conv under a
+    simulate_fast mode: True rounds both operands, "weights" or "acts" only
+    that one, False neither."""
+    if not mode:
+        return _identity, _identity
+    return (_identity if mode == "weights" else bf16_round,
+            _identity if mode == "acts" else bf16_round)
 
 
 @contextlib.contextmanager
@@ -163,21 +225,22 @@ class BlazeBlock(nn.Module):
         return F.conv2d(x, w, padding=1, groups=groups)
 
     def forward(self, x: torch.Tensor, dense: bool = False,
-                fast: bool = False) -> torch.Tensor:
+                fast: bool | str = False) -> torch.Tensor:
         """The block over NCHW x: separable (the default) or `dense`
-        (`composed`); `fast` runs its convs at single-pass bf16.  With both,
-        the island step: the composed conv of bf16(x) and bf16(K) in fp32
-        (TF32 off) plus the fp32 bias, then the skip and the ReLU, the plain
-        version of the island kernel (ops/kernels/dense_bf16.py)."""
-        r = bf16_round if fast else (lambda t: t)
+        (`composed`); `fast` runs its convs at single-pass bf16 (True: both
+        operands rounded; "weights" or "acts": that one only).  With dense
+        and True, the island step: the composed conv of bf16(x) and bf16(K)
+        in fp32 (TF32 off) plus the fp32 bias, then the skip and the ReLU,
+        the plain version of the island kernel (ops/kernels/dense_bf16.py)."""
+        ra, rw = _roundings(fast)
         with fp32_exact() if fast else contextlib.nullcontext():
             if dense:
                 K, bias = self.composed()
-                t = self._conv3(r(x), r(K)) + bias[:, None, None]
+                t = self._conv3(ra(x), rw(K)) + bias[:, None, None]
             elif fast:
-                t = (self._conv3(r(x), r(self.dw.weight), self.dw.groups)
+                t = (self._conv3(ra(x), rw(self.dw.weight), self.dw.groups)
                      + self.dw.bias[:, None, None])
-                t = (F.conv2d(r(t), r(self.pw.weight))
+                t = (F.conv2d(ra(t), rw(self.pw.weight))
                      + self.pw.bias[:, None, None])
             else:
                 t = self.pw(self.dw(_pad_same(x, 3, 2) if self.stride == 2
@@ -227,32 +290,39 @@ class BlazeFaceNet(nn.Module):
         self.loc_back = nn.Conv2d(c96, spec.loc_channels[1], 1, device=device)
 
     def forward(self, x: torch.Tensor, *, dense: bool = False,
-                fast_blocks: tuple[int, ...] | None = None
+                fast_blocks: tuple[int, ...] | None = None,
+                simulate_fast: bool | str = True
                 ) -> dict[str, torch.Tensor]:
         """x (B, S, S, 3) NHWC → the dict above.  `dense` composes every
         block into one 3x3 conv; `fast_blocks` are the blocks at single-pass
         bf16, and when there are any, the SSD heads run so too (the JAX
-        `BlazeFace.apply` with `simulate_fast=True`).  The stem stays fp32."""
+        `BlazeFace.apply` with `simulate_fast=True`; "weights" or "acts"
+        round that operand only, False neither).  The stem stays fp32."""
         fast = frozenset(fast_blocks or ())
         bad = sorted(i for i in fast if not 0 <= i < len(self.blocks))
         if bad:
             raise ValueError(f"fast_blocks {bad} are not blocks of this "
                              f"spec (0..{len(self.blocks) - 1})")
+        if not (isinstance(simulate_fast, bool)
+                or simulate_fast in ("weights", "acts")):
+            raise ValueError(f"simulate_fast must be True, False, "
+                             f"'weights' or 'acts', got {simulate_fast!r}")
         B = x.shape[0]
-        y = torch.relu(self.stem(_pad_same(x.permute(0, 3, 1, 2), 5, 2)))
+        y = self._stem(x)
         feat88 = None
         for i, block in enumerate(self.blocks):
-            y = block(y, dense=dense, fast=i in fast)
+            y = block(y, dense=dense, fast=simulate_fast if i in fast
+                      else False)
             if i == self.spec.tap88_block:
                 feat88 = y
         feat96 = y
+        ra, rw = _roundings(simulate_fast if fast else False)
 
         def ssd(conv, feat):
-            if not fast:
+            if not fast or not simulate_fast:
                 return _nhwc(conv(feat))
             with fp32_exact():
-                return _nhwc(F.conv2d(bf16_round(feat),
-                                      bf16_round(conv.weight))
+                return _nhwc(F.conv2d(ra(feat), rw(conv.weight))
                              + conv.bias[:, None, None])
 
         scores = torch.cat([ssd(self.cls_front, feat88).reshape(B, -1),
@@ -262,6 +332,28 @@ class BlazeFaceNet(nn.Module):
         return {"feat88": _nhwc(feat88).contiguous(),
                 "feat96": _nhwc(feat96).contiguous(),
                 "scores": scores, "loc": loc}
+
+    def tap(self, x: torch.Tensor,
+            tap_blocks: tuple[int, ...]) -> dict[str, torch.Tensor]:
+        """x (B, S, S, 3) NHWC → {'block{i}_out': the map after block i
+        (NHWC; -1 is the stem's)} for each i in `tap_blocks`, in fp32.  The
+        stem and the blocks up to the last tap run, nothing past them (no
+        later block, no SSD head)."""
+        bad = sorted(i for i in tap_blocks
+                     if not -1 <= i < len(self.blocks))
+        if bad:
+            raise ValueError(f"tap_blocks {bad} are not blocks of this spec "
+                             f"(-1 the stem, 0..{len(self.blocks) - 1})")
+        y = self._stem(x)
+        taps = {-1: y}
+        last = max(tap_blocks, default=-1)
+        for i, block in enumerate(self.blocks[:last + 1]):
+            y = taps[i] = block(y)
+        return {f"block{i}_out": _nhwc(taps[i]).contiguous()
+                for i in tap_blocks}
+
+    def _stem(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.stem(_pad_same(x.permute(0, 3, 1, 2), 5, 2)))
 
 
 def blazeface_from_h5(path) -> tuple[BlazeFace, dict]:

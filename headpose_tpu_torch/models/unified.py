@@ -51,13 +51,16 @@ class UnifiedPoseNet(nn.Module):
 
     def forward(self, x: torch.Tensor, heads: bool = True, *,
                 dense: bool = False,
-                fast_blocks: tuple[int, ...] | None = None
+                fast_blocks: tuple[int, ...] | None = None,
+                simulate_fast: bool | str = True
                 ) -> dict[str, torch.Tensor]:
         """`heads=False` leaves out the pose maps: the detector's survivors
-        profile runs the heads after NMS on the survivors' vectors.  `dense`
-        and `fast_blocks` go to the backbone (`BlazeFaceNet.forward`); the
-        pose heads run in fp32 in every case."""
-        out = self.backbone(x, dense=dense, fast_blocks=fast_blocks)
+        profile runs the heads after NMS on the survivors' vectors.  `dense`,
+        `fast_blocks` and `simulate_fast` go to the backbone
+        (`BlazeFaceNet.forward`); the pose heads run in fp32 in every
+        case."""
+        out = self.backbone(x, dense=dense, fast_blocks=fast_blocks,
+                            simulate_fast=simulate_fast)
         if heads and self.head88 is not None:
             out["pose_front"] = self.head88(out["feat88"])
         if heads and self.head96 is not None:

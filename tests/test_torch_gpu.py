@@ -985,3 +985,243 @@ def test_extractor_on_the_card_matches_the_cpu(cuda):
     for k in ("features88", "features96", "scores"):
         np.testing.assert_allclose(getattr(got, k), getattr(want, k),
                                    rtol=0, atol=1e-4, err_msg=k)
+
+
+# detector training (train.detector, train.calibrate): the first steps on
+# the card against the CPU on the same data, init and batch draws
+TINY_TEACHER = BlazeFace(input_size=16, stem_features=4,
+                         block_channels=(8, 12), downsample_blocks=(1,),
+                         tap88_block=0)
+TINY_STUDENT = BlazeFace(input_size=32, stem_features=4,
+                         block_channels=(8, 8, 12), downsample_blocks=(0, 2),
+                         tap88_block=1)
+TRAIN_STEPS = 5
+# per-step loss terms, card vs CPU: 1e-5 (the trainers stay within 6e-7;
+# TF32 left on moves full-width fit by 2.6e-5 and distill by 3.8e-4 in 5
+# steps on an H100); calibration's loss, on images given bitwise
+# to both, is the island's bf16 rounding residual: 1e-3 (chip_smoke.py's
+# TRAIN_LOSS_RTOL) or twice its own noise floor (`_calibration_floor`),
+# whichever is larger, and its exact targets within 1e-3
+TRAIN_RTOL = {"fit": 1e-5, "prefix": 1e-5, "distill": 1e-5,
+              "calibrate": 1e-3}
+# params after 5 steps: Adam turns an element's tiny gradient into an
+# lr-sized step whatever its size, so a gradient near 0 whose last bits
+# differ moves that element differently (1.1e-5 seen at lr 1e-3)
+TRAIN_PARAM_ATOL = 1e-4
+CALIB_BATCH = 16
+
+
+def _squares(n, size, seed):
+    rng = np.random.default_rng(seed)
+    imgs = rng.integers(0, 60, size=(n, size, size, 3)).astype(np.uint8)
+    boxes = np.zeros((n, 1, 4), np.float32)
+    for i in range(n):
+        s = rng.uniform(0.15, 0.6)
+        cx, cy = rng.uniform(s / 2, 1 - s / 2, size=2)
+        boxes[i, 0] = [cx - s / 2, cy - s / 2, cx + s / 2, cy + s / 2]
+        px = (boxes[i, 0] * size).astype(int)
+        imgs[i, px[1]:px[3], px[0]:px[2]] = rng.integers(180, 256, size=3)
+    return imgs, boxes, np.ones((n, 1), np.float32)
+
+
+def _calibration_model(width):
+    """(model, params, island) calibrated at `width`: the tiny unified
+    model of tests/test_calibrate.py, or the flagship's "turbo" island."""
+    from headpose_tpu_torch.models import (TURBO_FAST_BLOCKS,
+                                           UnifiedPoseModel)
+    from headpose_tpu_torch.pretrained import FLAGSHIP, load_pretrained
+
+    if width != "tiny":
+        return (*load_pretrained(FLAGSHIP), TURBO_FAST_BLOCKS)
+    spec = BlazeFace(input_size=32, stem_features=8,
+                     block_channels=(8, 12, 16), downsample_blocks=(1,),
+                     tap88_block=0)
+    model = UnifiedPoseModel(spec, MLPHead(8, ((4, "tanh"), (3, "linear"))),
+                             MLPHead(16, ((3, "linear"),)))
+    g = torch.Generator().manual_seed(0)
+    params = {"backbone": spec.init(g), "head88": model.head88.init(g),
+              "head96": model.head96.init(g)}
+    return model, params, (0, 1, 2)
+
+
+def _trainer_run(trainer, width, device):
+    """(history, params) of TRAIN_STEPS steps of one trainer on `device`;
+    "tiny" runs the tiny specs, "full" the shipped widths (the front spec,
+    the front→back pair, the flagship)."""
+    from headpose_tpu_torch.models import BLAZEFACE_FRONT
+    from headpose_tpu_torch.train import calibrate, detector
+
+    tiny = width == "tiny"
+    if trainer == "calibrate":
+        model, params, fast = _calibration_model(width)
+        new, hist = calibrate._calibrate(
+            model, params, images=_calibration_images(model),
+            device=device, **_calibration_recipe(fast))
+        return hist, new["backbone"]
+    student, teacher = ((TINY_STUDENT, TINY_TEACHER) if tiny
+                        else (BLAZEFACE_BACK, BLAZEFACE_FRONT))
+    if trainer == "fit":
+        spec = TINY_STUDENT if tiny else BLAZEFACE_FRONT
+        imgs, boxes, mask = _squares(32, spec.input_size, 0)
+        cfg = detector.DetectorFitConfig(steps=TRAIN_STEPS, batch_size=8,
+                                         warmup_steps=2, steps_per_sync=2)
+        params, hist = detector.fit_detector(spec, imgs, boxes, mask, cfg,
+                                             device=device)
+        return hist, params
+    t = teacher.init(torch.Generator().manual_seed(1))
+    imgs = np.random.default_rng(2).integers(
+        0, 256, (24, teacher.input_size, teacher.input_size, 3),
+        dtype=np.uint8)
+    ws = detector.warmstart_params(student, teacher, t)
+    cfg = detector.DetectorDistillConfig(steps=TRAIN_STEPS, batch_size=6,
+                                         warmup_steps=2, steps_per_sync=2,
+                                         feat_cell_eps=0.2)
+    if trainer == "prefix":
+        params, hist = detector.distill_prefix(
+            student, 0, teacher, 0 if tiny else -1, t, imgs, cfg,
+            init_params=ws, device=device)
+    else:
+        params, hist = detector.distill_detector(student, teacher, t, imgs,
+                                                 cfg, init_params=ws,
+                                                 device=device)
+    return hist, params
+
+
+@pytest.mark.parametrize("width", ["tiny", "full"])
+@pytest.mark.parametrize("trainer", ["fit", "prefix", "distill",
+                                     "calibrate"])
+def test_trainer_first_steps_on_the_card_match_the_cpu(cuda, trainer, width):
+    """Every per-step loss term of the first 5 steps within TRAIN_RTOL of
+    the CPU's, and the params within TRAIN_PARAM_ATOL, with TF32 switched
+    ON around the call: the trainers turn it off for the whole step
+    (forward and backward) and restore it after."""
+    from headpose_tpu_torch.tools.convert import flatten_params
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got, p_card = _trainer_run(trainer, width, None)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    want, p_cpu = _trainer_run(trainer, width, "cpu")
+    floor = _calibration_floor(width, want) if trainer == "calibrate" else {}
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert len(got[k]) == TRAIN_STEPS and np.isfinite(got[k]).all()
+        np.testing.assert_allclose(
+            got[k], want[k], err_msg=k,
+            rtol=max(TRAIN_RTOL[trainer], 2.0 * floor.get(k, 0.0)))
+    if trainer == "calibrate":    # its params follow the loss's rounding
+        _assert_calibration_targets_agree(width)         # noise: no params
+        return
+    a, b = flatten_params(p_card), flatten_params(p_cpu)
+    for k in b:
+        np.testing.assert_allclose(a[k], b[k], rtol=0,
+                                   atol=TRAIN_PARAM_ATOL, err_msg=k)
+
+
+def _calibration_recipe(fast) -> dict:
+    return dict(steps=TRAIN_STEPS, batch=CALIB_BATCH, learning_rate=1e-5,
+                fast_blocks=fast, seed=0, loss_weights=(1.0, 1.0, 10.0, 0.1))
+
+
+def _calibration_images(model) -> torch.Tensor:
+    """TRAIN_STEPS batches synthesized once on the CPU from calibrate's own
+    draws (seed 0), given bitwise to the card and the CPU."""
+    from headpose_tpu_torch.train import calibrate
+
+    gen = torch.Generator().manual_seed(0)
+    return torch.stack([calibrate.synthesize_images(
+        gen, CALIB_BATCH, model.backbone.input_size, device="cpu")
+        for _ in range(TRAIN_STEPS)])
+
+
+def _calibration_floor(width, want) -> dict:
+    """The calibration objective's own noise floor on the CPU: the largest
+    relative change of each loss term over the first steps when every
+    input pixel moves one ulp up or down (chip_smoke.py's
+    CALIB_FLOOR_FACTOR holds the card within twice it).  Its loss is the
+    island's bf16 rounding residual, carried by a few cells."""
+    from headpose_tpu_torch.train import calibrate
+
+    model, params, fast = _calibration_model(width)
+    x = _calibration_images(model)
+    ulp = [calibrate._calibrate(
+        model, params, device="cpu", **_calibration_recipe(fast),
+        images=torch.nextafter(x, torch.tensor(v)))[1]
+        for v in (np.inf, -np.inf)]
+    return {k: max(float(np.abs(h[k] / want[k] - 1.0).max()) for h in ulp)
+            for k in want}
+
+
+def _assert_calibration_targets_agree(width):
+    """Calibration's targets, the exact fp32 forward (TF32 off) of the
+    original params on the first batch, which no island rounds: card
+    against CPU within TRAIN_RTOL["calibrate"] of each output's largest
+    value."""
+    from headpose_tpu_torch.models.blazeface import fp32_exact
+    from headpose_tpu_torch.models.unified import UnifiedPoseNet
+    from headpose_tpu_torch.tools.convert import params_from_jax
+
+    model, params, _ = _calibration_model(width)
+    x = _calibration_images(model)[0]
+    outs = []
+    for device in (None, "cpu"):
+        net = UnifiedPoseNet(model, device=device).eval()
+        net.load_state_dict(params_from_jax(model, params))
+        with torch.no_grad(), fp32_exact():
+            out = net(x.to(net.backbone.stem.weight.device))
+        out["scores"] = torch.sigmoid(out["scores"])
+        outs.append({k: out[k].cpu().double().numpy() for k in (
+            "pose_front", "pose_back", "scores", "loc")})
+    for k, want in outs[1].items():
+        assert (np.abs(outs[0][k] - want).max()
+                <= TRAIN_RTOL["calibrate"] * np.abs(want).max()), k
+
+
+def test_ssd_targets_on_the_card_are_the_cpus(cuda):
+    """With cell collisions (several GTs in one cell, masked rows), the
+    card's targets equal the CPU's bit for bit: the winner of a cell is
+    resolved explicitly, not by the order of a scatter."""
+    from headpose_tpu_torch.models import BLAZEFACE_FRONT
+    from headpose_tpu_torch.train.detector import ssd_targets
+
+    rng = np.random.default_rng(4)
+    B, K = 64, 12
+    s = rng.uniform(0.05, 0.7, (B, K))
+    c = rng.uniform(0, 1, (B, K, 2))
+    c[:, 1::2] = c[:, 0:-1:2] + rng.uniform(-1e-3, 1e-3, (B, K // 2, 2))
+    boxes = np.concatenate([c - s[..., None] / 2, c + s[..., None] / 2],
+                           -1).astype(np.float32)
+    mask = (rng.uniform(size=(B, K)) > 0.2).astype(np.float32)
+    kps = rng.uniform(0, 1, (B, K, 6, 2)).astype(np.float32)
+    for spec in (BLAZEFACE_FRONT, TINY_STUDENT):
+        got = ssd_targets(spec, torch.from_numpy(boxes).to(cuda), mask,
+                          torch.from_numpy(kps).to(cuda))
+        want = ssd_targets(spec, torch.from_numpy(boxes), mask,
+                           torch.from_numpy(kps))
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+def test_distill_prefix_on_the_card_keeps_frozen_leaves(cuda):
+    """distill_prefix on the card (front→back, stem + block 0 trained):
+    every other leaf comes back bit for bit, the trained ones move."""
+    from headpose_tpu_torch.models import BLAZEFACE_FRONT
+    from headpose_tpu_torch.tools.convert import flatten_params
+    from headpose_tpu_torch.train import detector
+
+    t = BLAZEFACE_FRONT.init(torch.Generator().manual_seed(0))
+    ws = detector.warmstart_params(BLAZEFACE_BACK, BLAZEFACE_FRONT, t)
+    imgs = np.random.default_rng(0).integers(0, 256, (16, 128, 128, 3),
+                                             dtype=np.uint8)
+    cfg = detector.DetectorDistillConfig(steps=20, batch_size=8,
+                                         warmup_steps=2, steps_per_sync=10)
+    got, hist = detector.distill_prefix(BLAZEFACE_BACK, 0, BLAZEFACE_FRONT,
+                                        -1, t, imgs, cfg, init_params=ws)
+    assert np.isfinite(hist["loss"]).all()
+    a, b = flatten_params(got), flatten_params(ws)
+    moved = {k for k in b if not np.array_equal(a[k], b[k])}
+    assert moved and all(k.startswith(("stem/", "blocks/0/")) for k in moved)

@@ -236,6 +236,19 @@ try:
     raise AssertionError("read an H5 file with h5py blocked")
 except ImportError:
     pass
+import headpose_tpu_torch.train.calibrate
+from headpose_tpu_torch.models import BlazeFace
+from headpose_tpu_torch.train.detector import DetectorFitConfig, fit_detector
+
+tiny = BlazeFace(input_size=32, stem_features=4, block_channels=(8, 8, 12),
+                 downsample_blocks=(0, 2), tap88_block=1)
+frames = np.random.default_rng(0).integers(0, 256, (8, 32, 32, 3),
+                                           dtype=np.uint8)
+boxes = np.tile(np.float32([[[0.2, 0.2, 0.6, 0.6]]]), (8, 1, 1))
+_, hist = fit_detector(tiny, frames, boxes, np.ones((8, 1), np.float32),
+                       DetectorFitConfig(steps=2, batch_size=4),
+                       device="cpu")
+assert len(hist["loss"]) == 2 and np.isfinite(hist["loss"]).all()
 leaked = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "headpose_tpu", "h5py")]
 assert not leaked, leaked
@@ -266,11 +279,17 @@ def test_entry_points_without_a_card_raise(monkeypatch):
     from headpose_tpu_torch.tools.extract_features import (FeatureExtractor,
                                                            extract_dataset)
     from headpose_tpu_torch.train import config_96, evaluate, fit
+    from headpose_tpu_torch.models import BLAZEFACE_FRONT
+    from headpose_tpu_torch.pretrained import FLAGSHIP
+    from headpose_tpu_torch.train import calibrate, detector
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     head, head_params = load_pretrained("hrchr82r-96")
     ds = Dataset(np.zeros((8, 96), np.float32), np.zeros((8, 3), np.float32))
     frames = np.zeros((2, 128, 128, 3), np.uint8)
+    front = BLAZEFACE_FRONT
+    front_params = front.init(torch.Generator().manual_seed(0))
+    boxes = np.float32([[[0.2, 0.2, 0.6, 0.6]]] * 2)
     for factory in (flagship_detector, best_detector,
                     lambda: _build_detector(None),
                     lambda: _build_detector("unified-best-distilled"),
@@ -281,6 +300,18 @@ def test_entry_points_without_a_card_raise(monkeypatch):
                     lambda: evaluate_head_pose_model(head, ds,
                                                      params=head_params),
                     lambda: backfill.backfill_runs(".", "missing.npz"),
-                    lambda: train_cli.main([])):
+                    lambda: train_cli.main([]),
+                    lambda: detector.fit_detector(
+                        front, frames, boxes, np.ones((2, 1), np.float32)),
+                    lambda: detector.distill_targets(front, front_params,
+                                                     frames),
+                    lambda: detector.distill_detector(front, front,
+                                                      front_params, frames),
+                    lambda: detector.distill_prefix(front, 0, front, 0,
+                                                    front_params, frames),
+                    lambda: calibrate.synthesize_images(
+                        torch.Generator(), 2),
+                    lambda: calibrate.calibrate_fast_params(
+                        *load_pretrained(FLAGSHIP), steps=1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             factory()

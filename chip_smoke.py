@@ -16,7 +16,8 @@ serving runtime (PoseServer, DynamicBatcher, PoseClient), the offline
 timeline (detect_stream, IoU tracking, process_frames) and
 precision="turbo" and "max" (the split-bf16 segments cut around a
 single-pass bf16 island whose blocks run through the island kernel,
-csrc/dense_bf16.cu); it exits non-zero
+csrc/dense_bf16.cu), the AOT artifacts of tools/aot.py replayed with no
+model code, and the edge pipeline's native postprocess; it exits non-zero
 on any failure (no phase catches its own failure).  It imports torch, numpy
 and the port: never jax, nor the headpose_tpu package.  Every line it prints
 is one JSON object, except the nvidia-smi line:
@@ -190,14 +191,39 @@ is one JSON object, except the nvidia-smi line:
            against flagship.detect_single on 16 frames; the sustained
            seconds per dispatch of the "fast" detect at B=128 (500
            dispatches over 8 staged buffers, a reading, not a claim);
+  aot      the AOT artifacts (tools/aot.py: torch.export programs whose
+           kernels are the torch.library ops of ops/kernels/library.py):
+           the flagship at "highest", "fast", "turbo" and "max" (widths 1
+           and 128), best_detector() and the SE-Transformer model at
+           "fast" (128); each program's op nodes against the source
+           detect's launches, its replay of the 128 main-path frames in
+           its own launch window (every count as the source's) and by
+           profiler kernel name (the port's kernels over frames staged on
+           the card, a second call's in each of 3 windows, up to 13 while
+           they differ, as the source's), its
+           slab bit for bit the source's, again after a load in a fresh process that imports no model
+           code (jax, headpose_tpu and h5py blocked), B=1 and B=7 through
+           the "highest" artifact (B=7 padded to width 128: bitwise the
+           source's rows of that batch, its own B=7 detect at the serve
+           bounds, the network's gap between the two printed), the "fast" replay through the parity gate and the
+           http CLI over that artifact (16 frames against direct detect);
+           export and load seconds, program bytes, source and replay
+           walls;
+  edge     the native postprocess (runtime/edge.py, native/
+           postprocess.cpp, g++ on the card's host) against kernel #1's
+           slab on the flagship's outputs and the kernels phase's fuzz:
+           boxes, keypoints and poses bitwise, scores within 2e-7; the
+           versions of h5py and tensorflow; where tensorflow imports, the
+           flagship's .tflite through EdgeDetector against detect;
   total    the script's seconds;
   then the {"kernels": [...]} summary (launches from the fused phase;
   apply_fused's from the fast phase, and its back window's beside them;
   se_transformer_forward's from the se phase's map window; dense_chain's
   from the turbo phase's "turbo" window and dense_block's from its "max"
   window, the other window beside each;
-  the serve phase's beside them, and the detector_train phase's windows
-  of #1, #3, #4 and dense_chain), the nvidia-smi line, and last
+  the serve phase's beside them, the detector_train phase's windows
+  of #1, #3, #4 and dense_chain, and the aot phase's replay windows), the
+  nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 """
 import dataclasses
@@ -2648,20 +2674,21 @@ def serve_one(name, det, corpus, card):
     return report, many, batch
 
 
-def serve_cli(det, frames) -> dict:
+def serve_cli(det, frames, args=("--model", "unified-best-distilled",
+                                  "--precision", "fast")) -> dict:
     """The CLI as a user starts it, `python -m headpose_tpu_torch.runtime.
-    http --model unified-best-distilled --precision fast` (on the card: it
-    has no device flag), on a free port: 16 frames through PoseClient
-    against `det`'s direct detect; the process is stopped at the end."""
+    http --model unified-best-distilled --precision fast` (or with `args`,
+    e.g. an AOT artifact's directory; on the card: it has no device flag),
+    on a free port: 16 frames through PoseClient against `det`'s direct
+    detect; the process is stopped at the end."""
     import select
 
     from headpose_tpu_torch.runtime.client import PoseClient
 
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "headpose_tpu_torch.runtime.http", "--model",
-         "unified-best-distilled", "--precision", "fast", "--port", "0"],
-        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)
+    command = [sys.executable, "-m", "headpose_tpu_torch.runtime.http",
+               *args, "--port", "0"]
+    proc = subprocess.Popen(command, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
     try:
         out, deadline = [], time.monotonic() + 300
         while not (out and out[-1].startswith("serving on ")):
@@ -2680,8 +2707,7 @@ def serve_cli(det, frames) -> dict:
         proc.terminate()
         proc.wait(timeout=60)
     direct = det.detect(np.stack(frames[:16])).trim()
-    return {"command": "python -m headpose_tpu_torch.runtime.http --model "
-                       "unified-best-distilled --precision fast --port 0",
+    return {"command": " ".join(["python", *command[1:]]),
             "frames": 16, "dispatches": stats["dispatches"],
             "errors": stats["errors"],
             "vs_direct": served_vs_direct(got, direct)}
@@ -3776,6 +3802,403 @@ def phase_h5(flagship, corpus, frames128, card):
     return per_kernel
 
 
+# ------------------------------------------------- deployment artifacts
+# a replay may load only these of the port (tools/aot.py's claim)
+AOT_ALLOWED = ("headpose_tpu_torch", "headpose_tpu_torch.tools",
+               "headpose_tpu_torch.tools.aot", "headpose_tpu_torch.ops",
+               "headpose_tpu_torch.ops.kernels",
+               "headpose_tpu_torch.ops.kernels.library",
+               "headpose_tpu_torch.ops.detection",
+               "headpose_tpu_torch.runtime",
+               "headpose_tpu_torch.runtime.results",
+               "headpose_tpu_torch.utils", "headpose_tpu_torch.utils.build")
+# the op that carries each counted wrapper's launches in a program
+AOT_OP_OF = {"postprocess_nms": "postprocess", "run_segment":
+             "backbone2_segment", "dense_block": "dense_block",
+             "dense_chain": "dense_chain", "mlp_head_forward": "mlp_head",
+             "se_transformer_forward": "se_transformer"}
+
+_AOT_LOADER = """\
+import json, sys, time
+
+sys.path.insert(0, {here!r})
+
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "headpose_tpu", "h5py"):
+            raise ImportError(f"{{name}} blocked")
+        return None
+
+
+sys.meta_path.insert(0, _Block())
+
+import numpy as np
+import torch
+
+import headpose_tpu_torch.tools.aot as aot
+
+imgs = np.load({frames!r})
+t0 = time.perf_counter()
+torch.zeros(1, device="cuda")
+cuda_init_s = time.perf_counter() - t0
+slabs, load_s = {{}}, {{}}
+for name, path in {artifacts!r}.items():
+    t0 = time.perf_counter()
+    det = aot.load_exported(path)
+    for width in det.batch_sizes:
+        det.program(width)
+    load_s[name] = time.perf_counter() - t0
+    slabs[name] = det.call(imgs).cpu().numpy()
+    if name == "highest":
+        for b in (1, 7):
+            slabs[f"highest_b{{b}}"] = det.call(imgs[:b]).cpu().numpy()
+torch.cuda.synchronize()
+np.savez({out!r}, **slabs)
+mods = sorted(m for m in sys.modules if m.startswith("headpose_tpu_torch"))
+bad = [m for m in mods if m not in {allowed!r}]
+bad += [m for m in sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "headpose_tpu", "h5py")]
+assert not bad, bad
+print(json.dumps({{"cuda_init_s": cuda_init_s, "load_s": load_s,
+                  "modules": mods}}))
+"""
+
+
+def port_kernels(kinds: dict) -> dict:
+    """The port's own kernels among kernel_kinds' counts (the cuDNN,
+    cuBLAS and elementwise kernels of the plain ops dropped)."""
+    own = ("split_bf16", "island", "island_chain", "stem", "mlp_head")
+    named = ("cta_kernel", "block_kernel", "gate_kernel", "kv_kernel",
+             "attend_kernel")
+    return {k: n for k, n in kinds.items()
+            if k in own or any(name in k for name in named)}
+
+
+def settled_kinds(fn) -> dict:
+    """kernel_kinds of the second of two warm fn() calls in one profiled
+    window: the kernels after a spin kernel launched between them.  The
+    profiler drops a window's first launches now and then, most often late
+    in a long process (PERF.md §7: the aot phase, which comes last, lost
+    the stem and the first segments of a B=128 `detect` so): the second
+    call lies clear of the window's start.  {} when the marker itself went
+    missing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda._sleep(1000)
+        fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(ev) if "spin_kernel" in e.name]
+    return kernel_kinds(ev[marks[-1] + 1:]) if marks else {}
+
+
+def port_kernels_alike(replay, source, more: int = 10) -> tuple:
+    """port_kernels of both calls, each kind the most of 3 windows
+    (settled_kinds).  The profiler drops an event now and then and never
+    adds one, so while the two differ each takes up to `more` windows
+    further, every kind the most over all its windows.  Returns (replay's,
+    source's, windows each)."""
+    a, b, windows = {}, {}, 0
+    while windows < 3 or (a != b and windows < 3 + more):
+        for fn, counts in ((replay, a), (source, b)):
+            for kind, n in port_kernels(settled_kinds(fn)).items():
+                counts[kind] = max(n, counts.get(kind, 0))
+        windows += 1
+    return a, b, windows
+
+
+def aot_fresh_process(artifacts: dict, imgs, tmp: str) -> dict:
+    """Every artifact loaded and replayed in a process of its own with jax,
+    headpose_tpu and h5py blocked, which asserts that it loaded no module
+    of the port outside AOT_ALLOWED: its slabs and load seconds."""
+    frames = os.path.join(tmp, "frames.npy")
+    out = os.path.join(tmp, "slabs.npz")
+    np.save(frames, imgs)
+    proc = subprocess.run(
+        [sys.executable, "-c", _AOT_LOADER.format(
+            here=HERE, frames=frames, artifacts=artifacts, out=out,
+            allowed=AOT_ALLOWED)],
+        capture_output=True, text=True, timeout=600, cwd=HERE)
+    if proc.returncode != 0:
+        raise AssertionError(f"aot: the fresh process failed:\n"
+                             f"{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    with np.load(out) as f:
+        report["slabs"] = {k: f[k] for k in f.files}
+    return report
+
+
+def phase_aot(corpus, card):
+    """The AOT artifacts (tools/aot.py) on the card: the flagship exported
+    at "highest", "fast", "turbo" and "max" (widths 1 and 128),
+    best_detector() and the SE-Transformer model (se_model) at "fast"
+    (128).  For each: the port's op nodes of each program against the
+    launches of the source's detect (one op per counted launch), the replay
+    of the 128 main-path frames in its own launch window (every count as
+    the source detect's) and by profiler kernel name (the port's kernels,
+    port_kernels_alike, as the source's), its slab bit for bit the
+    source's, and again after a load in a fresh process that loads no model
+    code (aot_fresh_process); width 1 bitwise too where it is exported (the
+    flagship's four modes); through the "highest" artifact B=1 bitwise and
+    B=7 (the width-128 program, padded) bitwise the source's rows of the
+    same padded batch and at the serve bounds (SERVE_TOL) of its B=7
+    detect; the
+    flagship's "fast" replay through the corpus parity gate; the http CLI
+    over the "fast" artifact in its own process, 16 frames against direct
+    detect.  Export and load seconds (the fresh process's first load also
+    imports torch.export's loader), program bytes and the detect walls of
+    source and replay (B=1 pads to 128 where 1 is not exported).  Returns
+    {artifact: the replay window's launches}."""
+    import tempfile
+
+    from headpose_tpu_torch.ops.image import preprocess
+    from headpose_tpu_torch.pretrained import best_detector, flagship_detector
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+    from headpose_tpu_torch.runtime.results import BatchResults
+    from headpose_tpu_torch.tools.aot import export_detector, load_exported
+
+    imgs128 = np.concatenate([corpus["imgs"], corpus["imgs"][:16]])
+    sources = {
+        "highest": (flagship_detector(), (1, 128)),
+        "fast": (flagship_detector(precision="fast"), (1, 128)),
+        "turbo": (flagship_detector(precision="turbo"), (1, 128)),
+        "max": (flagship_detector(precision="max"), (1, 128)),
+        "best_fast": (best_detector(precision="fast"), (128,)),
+        "se_fast": (FaceDetector(*se_model(), precision="fast"), (128,))}
+    report = {"phase": "aot", "card": card, "frames": "128 main-path "
+              "frames (the 112 corpus frames + the first 16), 128x128 uint8"}
+    windows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, (det, widths) in sources.items():
+            path = paths[name] = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            meta = export_detector(det, path, batch_sizes=widths)
+            export_s = time.perf_counter() - t0
+            want, source_counts = launch_window(det.detect, imgs128)
+            aot = load_exported(path)
+            got, counts = launch_window(aot.detect, imgs128)
+            ops = meta["programs"]["128"]["ops"]
+            want_ops = {op: source_counts[k] for k, op in AOT_OP_OF.items()}
+            have_ops = {op: ops.count(op) for op in want_ops}
+            staged = torch.from_numpy(imgs128).to(det.device)
+            kinds, source_kinds, profiled = port_kernels_alike(
+                lambda: aot.detect(staged), lambda: det.detect(staged))
+            entry = {
+                "precision": meta["config"]["precision"],
+                "head_eval": meta["config"]["head_eval"],
+                "widths": meta["batch_sizes"], "export_s": export_s,
+                "program_bytes": {
+                    w: os.path.getsize(os.path.join(path, p["file"]))
+                    for w, p in meta["programs"].items()},
+                "ops_b128": ops, "launches": counts,
+                "source_launches": source_counts, "kernels": kinds,
+                "source_kernels": source_kinds,
+                "profiled_windows": profiled,
+                "bitwise_b128": torch.equal(got.slab, want.slab),
+                "bitwise_b1": (torch.equal(aot.detect(imgs128[:1]).slab,
+                                           det.detect(imgs128[:1]).slab)
+                               if 1 in widths else None),
+                "detect_wall": detect_walls(aot.detect, imgs128),
+                "source_detect_wall": detect_walls(det.detect, imgs128)}
+            report[name] = entry
+            windows[name] = counts
+            if have_ops != want_ops or counts != source_counts or \
+                    kinds != source_kinds or not kinds:
+                emit(report)
+                raise AssertionError(
+                    f"aot {name}: ops {have_ops} (want {want_ops}), "
+                    f"launches {counts} (source {source_counts}), kernels "
+                    f"{kinds} (source {source_kinds})")
+            if not entry["bitwise_b128"] or entry["bitwise_b1"] is False:
+                emit(report)
+                raise AssertionError(f"aot {name}: the replayed slab differs "
+                                     "from the source's at an exported "
+                                     "width")
+            if name == "highest":
+                entry["launches_chunked"] = {
+                    f"b{b}": launch_window(aot.detect, imgs128[:b])[1]
+                    for b in (1, 7)}
+                if any(n["postprocess_nms"] != 1 or sum(n.values()) != 1
+                       for n in entry["launches_chunked"].values()):
+                    emit(report)
+                    raise AssertionError(f"aot highest: chunked launches "
+                                         f"{entry['launches_chunked']}")
+            if name == "fast":
+                parity = corpus_parity(aot.detect(corpus["imgs"]).trim(),
+                                       corpus, "aot")
+                del parity["phase"]
+                entry["parity"] = parity
+                entry["cli"] = serve_cli(det, list(corpus["imgs"]),
+                                         ("--model", path))
+                if entry["cli"]["errors"]:
+                    raise AssertionError(f"aot cli: {entry['cli']}")
+        fresh = aot_fresh_process(paths, imgs128, tmp)
+    report["fresh_process"] = {k: fresh[k] for k in ("cuda_init_s",
+                                                     "load_s", "modules")}
+    for name, (det, _) in sources.items():
+        want = det.detect(imgs128).slab.cpu().numpy()
+        if not np.array_equal(fresh["slabs"][name], want):
+            emit(report)
+            raise AssertionError(f"aot {name}: the fresh process's slab "
+                                 "differs from the source's")
+    # chunked through the "highest" artifact: B=1 is its width 1; B=7 runs
+    # the width-128 program over 7 frames and 121 zero frames, row for row
+    # the source's detect of that padded batch; the source's own B=7 detect
+    # sees another batch (cuDNN's convs choose by it), held at the serve
+    # bounds
+    high = sources["highest"][0]
+    got1, got7 = fresh["slabs"]["highest_b1"], fresh["slabs"]["highest_b7"]
+    padded = np.concatenate([imgs128[:7], np.zeros((121,) + imgs128.shape[1:],
+                                                   np.uint8)])
+    want7 = high.detect(imgs128[:7])
+    chunked = {
+        "b1": {"bitwise": bool(np.array_equal(
+            got1, high.detect(imgs128[:1]).slab.cpu().numpy()))},
+        "b7": {"bitwise_source_padded_rows": bool(np.array_equal(
+            got7, high.detect(padded).slab[:7].cpu().numpy())),
+            "bitwise_source_b7": bool(np.array_equal(
+                got7, want7.slab.cpu().numpy())),
+            "vs_direct_b7": served_vs_direct(
+                BatchResults(torch.from_numpy(got7)).trim(), want7.trim())}}
+    # where the source's B=7 detect parts from its padded batch's rows: the
+    # network's outputs
+    with torch.inference_mode():
+        x = preprocess(torch.from_numpy(padded).to(high.device))
+        rows, seven = high.net(x), high.net(x[:7])
+    chunked["b7"]["network_max_abs_diff_b7_vs_padded_rows"] = {
+        k: float((seven[k] - rows[k][:7]).abs().max())
+        for k in ("feat88", "feat96", "scores", "loc", "pose_front",
+                  "pose_back")}
+    if not (chunked["b1"]["bitwise"]
+            and chunked["b7"]["bitwise_source_padded_rows"]):
+        report["highest_chunked"] = chunked
+        emit(report)
+        raise AssertionError("aot highest: a chunked replay differs from "
+                             "the source's detect of the same rows")
+    report["highest_chunked"] = chunked
+    emit(report)
+    return windows
+
+
+def phase_edge(flagship, corpus, card):
+    """The edge pipeline's host half on the card's host: the g++-built
+    NativePostprocess (runtime/edge.py, native/postprocess.cpp) against
+    kernel #1's slab on the flagship's outputs for the 128 main-path frames
+    and on the kernels phase's fuzz (every case with max_faces > 0; the
+    back model's anchors and 1/256 decode where the case says so): counts
+    identical, boxes, keypoints and poses bit for bit, scores within 2e-7
+    (a sigmoid ulp).  The versions of h5py and tensorflow (or null); where
+    tensorflow imports, the flagship exported by export_unified_tflite and
+    served by EdgeDetector on 16 corpus frames against the card's detect
+    (sets identical, poses within 1e-3 deg)."""
+    from headpose_tpu_torch.models.anchors import (BACK_CONFIG, FRONT_CONFIG,
+                                                   generate_anchors)
+    from headpose_tpu_torch.ops.detection import split_slab
+    from headpose_tpu_torch.ops.image import preprocess
+    from headpose_tpu_torch.ops.kernels.postprocess import postprocess_slab
+    from headpose_tpu_torch.runtime.edge import (NativePostprocess,
+                                                 native_available)
+
+    if not native_available():
+        raise AssertionError("edge: g++ could not build "
+                             "native/postprocess.cpp")
+    imgs128 = np.concatenate([corpus["imgs"], corpus["imgs"][:16]])
+    with torch.inference_mode():
+        o = flagship.net(preprocess(torch.from_numpy(imgs128).to(
+            flagship.device)))
+    cases = [dict(name="flagship_b128", thr=0.4, iou=0.3, mf=100,
+                  inputs=[o[k].cpu().numpy() for k in ("scores", "loc",
+                                                       "pose_front",
+                                                       "pose_back")])]
+    cases += [dict(c, inputs=fuzz_inputs(c["b"], c["seed"],
+                                         c.get("loc_std", 8.0),
+                                         c.get("bias", 0.0),
+                                         c.get("quantize", False),
+                                         c.get("nonfinite", False)))
+              for c in FUZZ if c["mf"] > 0]
+    report = {"phase": "edge", "card": card, "cases": {}}
+    for c in cases:
+        size = c.get("input_size", 128)
+        anchors = generate_anchors(BACK_CONFIG if size == 256
+                                   else FRONT_CONFIG).astype(np.float32)
+        dev = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+               for a in c["inputs"]]
+        slab = postprocess_slab(*dev, torch.from_numpy(anchors).cuda(),
+                                score_threshold=c["thr"],
+                                iou_threshold=c["iou"], input_size=size,
+                                max_faces=c["mf"])
+        want = {k: v.cpu().numpy() for k, v in split_slab(slab).items()}
+        got = NativePostprocess(anchors, input_size=size,
+                                score_threshold=c["thr"],
+                                iou_threshold=c["iou"],
+                                max_faces=c["mf"])(*c["inputs"])
+        score_err = 0.0
+        for i, res in enumerate(got):
+            n = int(want["valid"][i].sum())
+            same = (len(res) == n
+                    and np.array_equal(res.boxes, want["boxes"][i, :n])
+                    and np.array_equal(res.keypoints,
+                                       want["keypoints"][i, :n])
+                    and np.array_equal(res.poses, want["poses"][i, :n]))
+            if n:
+                score_err = max(score_err, float(np.abs(
+                    res.scores - want["scores"][i, :n]).max()))
+            if not same or not score_err <= 2e-7:
+                emit(report)
+                raise AssertionError(f"edge {c['name']} image {i}: the native "
+                                     f"postprocess differs from kernel #1 "
+                                     f"(score err {score_err})")
+        report["cases"][c["name"]] = {
+            "images": len(got), "detections": int(sum(len(r) for r in got)),
+            "score_max_abs_err": score_err}
+    versions = {}
+    for mod in ("h5py", "tensorflow"):
+        try:
+            versions[mod] = __import__(mod).__version__
+        except ImportError:
+            versions[mod] = None
+    report["versions"] = versions
+    if versions["tensorflow"] is None:
+        report["tflite"] = ("tensorflow does not import on this machine: "
+                            "the .tflite export and EdgeDetector not run")
+    else:
+        import tempfile
+
+        from headpose_tpu_torch.pretrained import load_flagship
+        from headpose_tpu_torch.runtime.edge import EdgeDetector
+        from headpose_tpu_torch.tools.tflite import export_unified_tflite
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "flagship.tflite")
+            exported = export_unified_tflite(*load_flagship(), path)
+            edge = EdgeDetector(path)
+            frames = corpus["imgs"][:16]
+            got = [edge.detect_single(f) for f in frames]
+        direct = flagship.detect(frames).trim()
+        pose = 0.0
+        for i, (g, w) in enumerate(zip(got, direct)):
+            if len(g) != len(w):
+                raise AssertionError(f"edge tflite frame {i}: {len(g)} "
+                                     f"detections, detect {len(w)}")
+            if len(w):
+                pose = max(pose, float(np.abs(g.poses - w.poses).max()))
+        report["tflite"] = {"bytes": exported["bytes"],
+                            "maxerr": exported["maxerr"], "frames": 16,
+                            "pose_deg_max_vs_detect": pose}
+        if not pose <= 1e-3:
+            raise AssertionError(f"edge tflite: poses {pose} deg from "
+                                 "detect")
+    emit(report)
+
+
 def main() -> int:
     import argparse
 
@@ -3850,6 +4273,8 @@ def main() -> int:
     train_launches = phase_train(corpus, card, args.seed)
     detector_train_launches = phase_detector_train(corpus, card, args.seed)
     h5_launches = phase_h5(flagship, corpus, frames128, card)
+    aot_launches = phase_aot(corpus, card)
+    phase_edge(flagship, corpus, card)
 
     for entry in entries[:3]:
         entry["launches"] = fused_launches[entry["name"]]
@@ -3883,6 +4308,10 @@ def main() -> int:
             if n[entries[i]["name"]]}
     for entry in entries[:5]:         # the H5 loaders' windows
         entry["launches_h5_window"] = h5_launches.get(entry["name"], {})
+    for entry in entries:             # the AOT replays' windows
+        entry["launches_aot_window"] = {
+            name: n[entry["name"]] for name, n in aot_launches.items()
+            if n[entry["name"]]}
     emit({"phase": "total", "script_s": time.perf_counter() - t_script})
     emit({"kernels": entries})
     print(card, flush=True)

@@ -6,7 +6,7 @@ does not import the kernels' wrappers and the models they read."""
 import importlib
 
 _EXPORTS = {
-    "bicubic_matrix": ".bicubic",
+    "bicubic_matrix": ".bicubic", "resize_bicubic_np": ".bicubic",
     "MAX_FACES": ".detection", "postprocess": ".detection",
     "decode_boxes": ".detection", "decode_keypoints": ".detection",
     "pairwise_iou": ".detection", "nms_static": ".detection",

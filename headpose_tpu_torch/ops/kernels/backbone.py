@@ -20,45 +20,30 @@ second, and S divisible by 16.  `BLAZEFACE_BACK` (taps at S/16 and S/32) is
 outside it and raises.
 
 `stem_forward_cuda` and `block_forward_cuda` launch the stem or one block
-alone, in fp32: the split-bf16 backbone (`backbone2.apply_fused`) runs its
-stem and block 11 through them.  They count no launch of their own; the
-caller's wrapper counts.
+alone, in fp32, through the ops `headpose_tpu_torch::backbone_stem` and
+`::backbone_block` (ops/kernels/library.py): the split-bf16 backbone
+(`backbone2.apply_fused`) runs its stem and block 11 through them, and an
+exported program (tools/aot.py) holds them as nodes.  They count no launch
+of their own; the caller's wrapper counts.  `backbone_forward_cuda` (kernel
+#2) is on no exported program's path (`detect` at "highest" runs the cuDNN
+network, `detect_fused` is not exported): it stays a direct ctypes launch.
 """
 from __future__ import annotations
-
-import ctypes
-import os
 
 import torch
 import torch.nn.functional as F
 
 from ...models.blazeface import BlazeFace, BlazeFaceNet
-from ...utils.build import NVCC_FLAGS_FMA, CudaLibrary
+from . import library as lib
 from .packing import Packed, c_ints, packed
 
 __all__ = ["backbone_forward", "backbone_forward_plain",
            "backbone_forward_cuda", "backbone_pack", "stem_forward_cuda",
            "block_forward_cuda", "LIBRARY"]
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "csrc", "backbone.cu")
+LIBRARY = lib.LIBRARIES["backbone"]
+SOURCE = LIBRARY.sources[0]
 MAX_CHANNELS = 128   # the kernels keep up to 4 channels per lane
-
-
-def _configure(lib: ctypes.CDLL) -> None:
-    fn = lib.headpose_backbone_forward
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    fn = lib.headpose_backbone_stem
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.headpose_backbone_block
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-
-LIBRARY = CudaLibrary("backbone", [SOURCE], _configure, NVCC_FLAGS_FMA)
 
 
 def _check_domain(spec: BlazeFace) -> list[int]:
@@ -206,9 +191,6 @@ def _check_cuda(net: BlazeFaceNet, x: torch.Tensor) -> None:
         raise ValueError(f"x must be float32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    if x.data_ptr() % 16:
-        raise ValueError("x must start 16-byte aligned (the kernels stage "
-                         "its rows with 16-byte copies)")
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -241,9 +223,11 @@ def backbone_forward_cuda(net: BlazeFaceNet, x: torch.Tensor):
     buf_a, buf_b = x.new_empty(scratch), x.new_empty(scratch)
     pack = backbone_pack(net)
     n = len(spec.block_channels)
-    lib = LIBRARY.load()
+    if x.data_ptr() % 16:
+        raise ValueError("x must start 16-byte aligned (the kernels stage "
+                         "its rows with 16-byte copies)")
     with torch.cuda.device(x.device):
-        err = lib.headpose_backbone_forward(
+        err = lib.library("backbone").headpose_backbone_forward(
             x.data_ptr(), pack.weights.data_ptr(), c_ints(pack.offsets),
             c_ints(spec.block_channels),
             c_ints(2 if i in spec.downsample_blocks else 1 for i in range(n)),
@@ -265,16 +249,9 @@ def stem_forward_cuda(net: BlazeFaceNet, x: torch.Tensor,
     if x.ndim != 4 or tuple(x.shape[1:]) != (s, s, 3):
         raise ValueError(f"x must be (B, {s}, {s}, 3), got {tuple(x.shape)}")
     _check_cuda(net, x)
-    c = net.spec.stem_features
-    out = x.new_empty((x.shape[0], s // 2, s // 2, c))
     pack = pack if pack is not None else backbone_pack(net)
-    with torch.cuda.device(x.device):
-        err = LIBRARY.load().headpose_backbone_stem(
-            x.data_ptr(), pack.weights.data_ptr() + 4 * pack.offsets[0],
-            pack.weights.data_ptr() + 4 * pack.offsets[1], out.data_ptr(),
-            x.shape[0], s, c, torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "stem kernel")
-    return out
+    return lib.backbone_stem(x, pack.weights, pack.offsets[0],
+                             pack.offsets[1], net.spec.stem_features)
 
 
 @torch.no_grad()
@@ -290,17 +267,10 @@ def block_forward_cuda(net: BlazeFaceNet, i: int, x: torch.Tensor,
     if max(cin, cout) > MAX_CHANNELS:
         raise ValueError(f"block {i} is wider than {MAX_CHANNELS} channels")
     _check_cuda(net, x)
-    h = x.shape[1]
-    out = x.new_empty((x.shape[0], h // blk.stride, h // blk.stride, cout))
     pack = pack if pack is not None else backbone_pack(net)
-    ptr = [pack.weights.data_ptr() + 4 * pack.offsets[2 + 4 * i + k]
-           for k in range(4)]
-    with torch.cuda.device(x.device):
-        err = LIBRARY.load().headpose_backbone_block(
-            x.data_ptr(), *ptr, out.data_ptr(), x.shape[0], h, cin, cout,
-            blk.stride, torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, f"block {i} kernel")
-    return out
+    return lib.backbone_block(x, pack.weights,
+                              list(pack.offsets[2 + 4 * i:6 + 4 * i]), cout,
+                              blk.stride)
 
 
 def backbone_forward(net: BlazeFaceNet, x: torch.Tensor):

@@ -42,7 +42,10 @@ any fp32 block are launches of csrc/backbone.cu (`backbone.stem_forward_
 cuda`, `backbone.block_forward_cuda`) and each segment one call of
 csrc/backbone2.cu: a persistent launch per large-map or stride-2 block, and
 one launch for each run of stride-1 blocks whose map fits in shared memory
-(`segment_launches`).
+(`segment_launches`).  Every launch goes through an op of
+ops/kernels/library.py (`backbone2_segment`, `backbone_stem`,
+`backbone_block`, `dense_block`, `dense_chain`), so that a program exported
+by tools/aot.py holds them as nodes and counts them on replay.
 
 The JAX function's lane coalescing (B % 8 == 0), its channel-major flat-gap
 and parity-plane layouts, its block-diagonal I4 (x) W weight planes and its
@@ -54,15 +57,14 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import os
 import string
 
 import torch
 
 from ...models.blazeface import BlazeFace, BlazeFaceNet
-from ...utils.build import NVCC_FLAGS_FMA, CudaLibrary
 from . import backbone as kbb
 from . import dense_bf16 as kd
+from . import library as lib
 from .packing import Packed, c_ints, packed, stamp
 
 __all__ = ["SEGMENTS", "SPLIT_TOL", "segment_plan", "split_bf16",
@@ -71,8 +73,6 @@ __all__ = ["SEGMENTS", "SPLIT_TOL", "segment_plan", "split_bf16",
            "apply_fused",
            "apply_fused_plain", "apply_fused_cuda", "LIBRARY"]
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "csrc", "backbone2.cu")
 MAX_CHANNELS = 128   # 16 n-tiles of 8 output channels in registers
 
 # How far two implementations of the split-bf16 arithmetic may lie apart:
@@ -94,18 +94,8 @@ SEGMENTS = {
 }
 
 
-def _configure(lib: ctypes.CDLL) -> None:
-    fn = lib.headpose_backbone2_segment
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    fn = lib.headpose_backbone2_groups
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-
-
-LIBRARY = CudaLibrary("backbone2", [SOURCE], _configure, NVCC_FLAGS_FMA)
+LIBRARY = lib.LIBRARIES["backbone2"]
+SOURCE = LIBRARY.sources[0]
 
 
 def _round_up(n: int, m: int) -> int:
@@ -411,7 +401,7 @@ def segment_launches(net: BlazeFaceNet, seg: str, island=()) -> list[int]:
     library."""
     _, channels, strides, h, cin = _segment_args(net, seg, island)
     sizes = (ctypes.c_int * len(channels))()
-    n = LIBRARY.load().headpose_backbone2_groups(
+    n = lib.library("backbone2").headpose_backbone2_groups(
         c_ints(channels), c_ints(strides), len(channels), h, cin, sizes)
     return list(sizes[:n])
 
@@ -419,38 +409,22 @@ def segment_launches(net: BlazeFaceNet, seg: str, island=()) -> list[int]:
 @torch.no_grad()
 def run_segment_cuda(net: BlazeFaceNet, x: torch.Tensor, seg: str,
                      pack: SegmentPack | None = None,
-                     island=()) -> torch.Tensor:
+                     island=(), opens: bool = False) -> torch.Tensor:
     """The kernel: what `run_segment_plain` computes, on a CUDA device, on
-    the current stream, without synchronising.  `pack` is
-    `pack_backbone(net)`, when the caller holds it.  Raises on anything the
-    kernel does not take, and when a launch fails."""
+    the current stream, without synchronising: one call of the op
+    `headpose_tpu_torch::backbone2_segment`.  `pack` is
+    `pack_backbone(net)`, when the caller holds it; `opens` is set by
+    `apply_fused_cuda` on its plan's first segment, whose launch counts the
+    call.  Raises on anything the kernel does not take, and when a launch
+    fails."""
     _check_segment_input(net, x, seg, island)
     kbb._check_cuda(net, x)
     pack = pack if pack is not None else pack_backbone(net)
-    blocks, channels, strides, h, cin = _segment_args(net, seg, island)
-    B = x.shape[0]
-    sizes, hh = [], h
-    for s in strides:
-        hh //= s
-        sizes.append(hh)
-    out = x.new_empty((B, sizes[-1], sizes[-1], channels[-1]))
-    if B == 0:
-        return out
-    scratch = B * max([1] + [s * s * c for s, c in zip(sizes[:-1],
-                                                       channels[:-1])])
-    buf_a, buf_b = x.new_empty(scratch), x.new_empty(scratch)
-    with torch.cuda.device(x.device):
-        err = LIBRARY.load().headpose_backbone2_segment(
-            x.data_ptr(), pack.f32.weights.data_ptr(),
-            c_ints(o for i in blocks for o in pack.f32_offsets(i)),
-            pack.bf16.weights.data_ptr(),
-            c_ints(o for i in blocks for o in pack.bf16_offsets(i)),
-            c_ints(channels), c_ints(strides), len(channels), h, cin,
-            buf_a.data_ptr(), buf_b.data_ptr(),
-            out.data_ptr(), B, torch.cuda.current_stream().cuda_stream)
-    kbb._raise_on(err, f"segment {seg} kernel")
-    run_segment.launches += 1
-    return out
+    blocks, channels, strides, _, _ = _segment_args(net, seg, island)
+    return lib.backbone2_segment(
+        x, pack.f32.weights, [o for i in blocks for o in pack.f32_offsets(i)],
+        pack.bf16.weights, [o for i in blocks for o in pack.bf16_offsets(i)],
+        list(channels), strides, opens)
 
 
 @torch.no_grad()
@@ -465,16 +439,15 @@ def apply_fused_cuda(net: BlazeFaceNet, x: torch.Tensor, island=()):
     current = stamp(net)             # one walk of the parameters for all
     pack = pack_backbone(net, current)   # checked against the weights once
     dpack = kd.dense_pack(net, current) if island else None
-    taps = _compose(
+    first = next(iter(segment_plan(net.spec, island)), None)
+    return _compose(
         net, kbb.stem_forward_cuda(net, x, pack.f32), island,
-        lambda y, seg: run_segment_cuda(net, y, seg, pack, island),
+        lambda y, seg: run_segment_cuda(net, y, seg, pack, island,
+                                        opens=seg == first),
         lambda y, i: kbb.block_forward_cuda(net, i, y, pack.f32),
         lambda y, i: kd.dense_block_cuda(net, i, y, dpack),
         lambda y, first, last: kd.dense_chain_cuda(net, first, last, y,
                                                    dpack))
-    if segment_plan(net.spec, island):
-        apply_fused.launches += 1
-    return taps
 
 
 @torch.no_grad()
@@ -538,5 +511,5 @@ def apply_fused(net: BlazeFaceNet, x: torch.Tensor, island=()):
     return apply_fused_cuda(net, x, island)
 
 
-run_segment.launches = 0
-apply_fused.launches = 0
+run_segment = lib.Counted(run_segment, "backbone2_segment")
+apply_fused = lib.Counted(apply_fused, "apply_fused")

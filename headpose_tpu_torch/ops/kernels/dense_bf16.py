@@ -27,6 +27,9 @@ the module's own island step (`BlazeBlock.forward(x, dense=True,
 fast=True)`: an fp32 conv of the rounded operands with TF32 off) and its
 composition; a tensor on a CUDA device goes through the hand-written
 kernels, or the call raises.  Nothing else selects between the two.  The
+kernels launch through the ops `headpose_tpu_torch::dense_block` and
+`::dense_chain` (ops/kernels/library.py); the chain's op returns the inner
+tap's map, or an empty tensor where the chain has none.  The
 block kernel takes Cin <= Cout <= 128 (`MAX_CHANNELS`), stride 1 or 2, and
 an even map at stride 2 (as every BlazeFace spec the backbone kernels
 take); a chain, in addition, maps of at most 256 pixels and channels in
@@ -37,15 +40,14 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import os
 from typing import NamedTuple
 
 import torch
 
 from ...models.blazeface import BlazeFace, BlazeFaceNet
-from ...utils.build import NVCC_FLAGS, CudaLibrary
 from . import backbone as kbb
-from .packing import Packed, c_ints, packed, stamp
+from . import library as lib
+from .packing import Packed, packed, stamp
 
 __all__ = ["dense_block", "dense_block_plain", "dense_block_cuda",
            "dense_chain", "dense_chain_plain", "dense_chain_cuda",
@@ -53,8 +55,8 @@ __all__ = ["dense_block", "dense_block_plain", "dense_block_cuda",
            "dense_pack",
            "DensePack", "MAX_CHANNELS", "SMEM_MAX", "LIBRARY"]
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "csrc", "dense_bf16.cu")
+LIBRARY = lib.LIBRARIES["dense_bf16"]
+SOURCE = LIBRARY.sources[0]
 MAX_CHANNELS = 128
 
 # csrc/dense_bf16.cu's constants, which the chain's layout mirror repeats
@@ -65,27 +67,6 @@ MAX_CHAIN = 16             # blocks per chain launch
 MAX_STAGES = 4             # taps in the chain's weight ring
 SKIP_NT = 4                # n-tiles of a stride-2 chain unit
 CHAIN_NT = 12              # n-tiles of any chain unit
-
-
-def _configure(lib: ctypes.CDLL) -> None:
-    fn = lib.headpose_dense_bf16_block
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.headpose_dense_bf16_chain
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    fn = lib.headpose_dense_bf16_block_plan
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.headpose_dense_bf16_chain_plan
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-
-LIBRARY = CudaLibrary("dense_bf16", [SOURCE], _configure, NVCC_FLAGS)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -238,7 +219,7 @@ def tile_plan(batch: int, h: int, cin: int, cout: int,
     library (needs nvcc): (channel slices, output rows a tile, shared
     memory bytes), or None when the kernel does not take the block."""
     plan = (ctypes.c_int * 3)()
-    rc = LIBRARY.load().headpose_dense_bf16_block_plan(batch, h, cin, cout,
+    rc = lib.library("dense_bf16").headpose_dense_bf16_block_plan(batch, h, cin, cout,
                                                        stride, plan)
     return tuple(plan) if rc == 0 else None
 
@@ -347,19 +328,9 @@ def dense_block_cuda(net: BlazeFaceNet, i: int, x: torch.Tensor,
     if s == 2 and h % 2:
         raise ValueError(f"block {i} (stride 2) needs an even map, got {h}")
     pack = pack if pack is not None else dense_pack(net)
-    out = x.new_empty((x.shape[0], h // s, h // s, cout))
-    if x.shape[0] == 0:
-        return out
-    w = pack.kernels.weights
-    with torch.cuda.device(x.device):
-        err = LIBRARY.load().headpose_dense_bf16_block(
-            x.data_ptr(), w.data_ptr() + 2 * pack.kernels.offsets[i],
-            pack.biases.weights.data_ptr() + 4 * pack.biases.offsets[i],
-            out.data_ptr(), x.shape[0], h, cin, cout, s,
-            torch.cuda.current_stream().cuda_stream)
-    kbb._raise_on(err, f"island block {i} kernel")
-    dense_block.launches += 1
-    return out
+    return lib.dense_block(x, pack.kernels.weights, pack.biases.weights,
+                           pack.kernels.offsets[i], pack.biases.offsets[i],
+                           cout, s)
 
 
 def dense_block(net: BlazeFaceNet, i: int, x: torch.Tensor) -> torch.Tensor:
@@ -371,7 +342,7 @@ def dense_block(net: BlazeFaceNet, i: int, x: torch.Tensor) -> torch.Tensor:
     return dense_block_cuda(net, i, x)
 
 
-dense_block.launches = 0
+dense_block = lib.Counted(dense_block, "dense_block")
 
 
 # ------------------------------------------------------------------ chains
@@ -426,34 +397,16 @@ def dense_chain_cuda(net: BlazeFaceNet, first: int, last: int,
     fails."""
     _check_chain(net, first, last, x)
     kbb._check_cuda(net, x)
-    channels, strides, h = _chain_args(net.spec, first, last)
+    channels, strides, _ = _chain_args(net.spec, first, last)
     pack = pack if pack is not None else dense_pack(net)
-    B, ho = x.shape[0], h
-    sides = []
-    for s in strides:
-        ho //= s
-        sides.append(ho)
-    out = x.new_empty((B, ho, ho, channels[-1]))
     tap = _tap_of(net, first, last)
     inner = tap is not None and tap < last     # the kernel writes it apart
-    tap_out = (x.new_empty((B, sides[tap - first], sides[tap - first],
-                            channels[tap - first + 1])) if inner else None)
-    if B == 0:
-        return out, (tap_out if inner else out if tap is not None else None)
     blocks = range(first, last + 1)
-    w, b = pack.kernels.weights.data_ptr(), pack.biases.weights.data_ptr()
-    w_ptrs = (ctypes.c_void_p * len(blocks))(
-        *[w + 2 * pack.kernels.offsets[i] for i in blocks])
-    b_ptrs = (ctypes.c_void_p * len(blocks))(
-        *[b + 4 * pack.biases.offsets[i] for i in blocks])
-    with torch.cuda.device(x.device):
-        err = LIBRARY.load().headpose_dense_bf16_chain(
-            x.data_ptr(), w_ptrs, b_ptrs, c_ints(channels), c_ints(strides),
-            len(blocks), h, tap - first if inner else -1, out.data_ptr(),
-            tap_out.data_ptr() if inner else None, B,
-            torch.cuda.current_stream().cuda_stream)
-    kbb._raise_on(err, f"island chain {first}-{last} kernel")
-    dense_chain.launches += 1
+    out, tap_out = lib.dense_chain(
+        x, pack.kernels.weights, pack.biases.weights,
+        [pack.kernels.offsets[i] for i in blocks],
+        [pack.biases.offsets[i] for i in blocks], channels, strides,
+        tap - first if inner else -1)
     return out, (tap_out if inner else out if tap is not None else None)
 
 
@@ -468,4 +421,4 @@ def dense_chain(net: BlazeFaceNet, first: int, last: int, x: torch.Tensor):
     return dense_chain_cuda(net, first, last, x)
 
 
-dense_chain.launches = 0
+dense_chain = lib.Counted(dense_chain, "dense_chain")

@@ -11,34 +11,21 @@ no counterpart here.
 """
 from __future__ import annotations
 
-import ctypes
-import os
-
 import torch
 import torch.nn.functional as F
 
 from ...core.activations import activation_id, get_activation
 from ...models.heads import MLPHeadNet
-from ...utils.build import NVCC_FLAGS_FMA, CudaLibrary
-from .packing import Packed, c_ints, packed
+from . import library as lib
+from .packing import Packed, packed
 
 __all__ = ["mlp_head_forward", "mlp_head_forward_plain",
            "mlp_head_forward_cuda", "head_pack", "domain_error", "LIBRARY"]
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "csrc", "head_mlp.cu")
+LIBRARY = lib.LIBRARIES["head_mlp"]
+SOURCE = LIBRARY.sources[0]
 MAX_LAYERS = 8
 MAX_WIDTH = 896      # 2 buffers x 16 rows x 896 floats, the smallest tile
-
-
-def _configure(lib: ctypes.CDLL) -> None:
-    fn = lib.headpose_mlp_head
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 2)
-    fn.restype = ctypes.c_int
-
-
-LIBRARY = CudaLibrary("head_mlp", [SOURCE], _configure, NVCC_FLAGS_FMA)
 
 
 def _kernel_leaves(net: MLPHeadNet):
@@ -51,7 +38,7 @@ def _kernel_leaves(net: MLPHeadNet):
         yield F.pad(layer.bias, (0, pad))
 
 
-def _table(net: MLPHeadNet, offsets: tuple[int, ...]) -> ctypes.Array:
+def _table(net: MLPHeadNet, offsets: tuple[int, ...]) -> tuple[int, ...]:
     """The launch's layer table (csrc/head_mlp.cu): the number of layers,
     C, then per layer its width, activation id and the starts of its
     weights and bias in the pack."""
@@ -59,7 +46,7 @@ def _table(net: MLPHeadNet, offsets: tuple[int, ...]) -> ctypes.Array:
     for (width, act), w, b in zip(net.spec.layers, offsets[0::2],
                                   offsets[1::2]):
         ints += [width, activation_id(act), w, b]
-    return c_ints(ints)
+    return tuple(ints)
 
 
 def head_pack(net: MLPHeadNet) -> Packed:
@@ -102,7 +89,9 @@ def mlp_head_forward_plain(net: MLPHeadNet, x: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def mlp_head_forward_cuda(net: MLPHeadNet, x: torch.Tensor) -> torch.Tensor:
-    """The kernel: what `mlp_head_forward_plain` computes, on a CUDA device.
+    """The kernel: what `mlp_head_forward_plain` computes, on a CUDA device,
+    one call of the op `headpose_tpu_torch::mlp_head` (ops/kernels/
+    library.py).
 
     Launches on the current stream without synchronising.  Raises on
     anything the kernel does not take, and when the launch fails."""
@@ -117,22 +106,9 @@ def mlp_head_forward_cuda(net: MLPHeadNet, x: torch.Tensor) -> torch.Tensor:
     problem = domain_error(net)
     if problem is not None:
         raise ValueError(problem)
-    n = x.shape[0]
-    out = x.new_empty((n, net.spec.layers[-1][0]))
-    if n == 0:
-        return out
     pack = head_pack(net)
-    lib = LIBRARY.load()
-    with torch.cuda.device(x.device):
-        err = lib.headpose_mlp_head(
-            x.data_ptr(), pack.weights.data_ptr(), out.data_ptr(), n,
-            pack.table, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mlp_head kernel launch failed: "
-                           f"{'unsupported head' if err < 0 else 'CUDA error'}"
-                           f" ({err})")
-    mlp_head_forward.launches += 1
-    return out
+    return lib.mlp_head(x, pack.weights, list(pack.table),
+                        net.spec.layers[-1][0])
 
 
 def mlp_head_forward(net: MLPHeadNet, x: torch.Tensor) -> torch.Tensor:
@@ -145,4 +121,4 @@ def mlp_head_forward(net: MLPHeadNet, x: torch.Tensor) -> torch.Tensor:
     return mlp_head_forward_cuda(net, x)
 
 
-mlp_head_forward.launches = 0
+mlp_head_forward = lib.Counted(mlp_head_forward, "mlp_head")

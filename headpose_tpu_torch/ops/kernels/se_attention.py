@@ -13,23 +13,20 @@ and has no counterpart here.
 """
 from __future__ import annotations
 
-import ctypes
-import os
-
 import torch
 import torch.nn.functional as F
 
 from ...models.heads import SETransformerHeadNet
-from ...utils.build import NVCC_FLAGS_FMA, CudaLibrary
-from .packing import Packed, c_ints, packed
+from . import library as lib
+from .packing import Packed, packed
 from .tf32 import matmul_3xtf32, split_tf32
 
 __all__ = ["se_transformer_forward", "se_transformer_forward_plain",
            "se_transformer_forward_cuda", "se_pack", "split_tf32",
            "matmul_3xtf32", "domain_error", "LIBRARY"]
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "csrc", "se_attention.cu")
+LIBRARY = lib.LIBRARIES["se_attention"]
+SOURCE = LIBRARY.sources[0]
 # the kernel's domain (csrc/se_attention.cu)
 NUM_HEADS = (1, 2, 4, 8)
 KEY_DIMS = (8, 16, 32)
@@ -37,16 +34,6 @@ MAX_HEAD_WIDTH = 64          # num_heads * key_dim
 MAX_CHANNELS = 128
 MAX_FF = MAX_HIDDEN = 256
 MAX_OUT = 8
-
-
-def _configure(lib: ctypes.CDLL) -> None:
-    fn = lib.headpose_se_transformer
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
-
-
-LIBRARY = CudaLibrary("se_attention", [SOURCE], _configure, NVCC_FLAGS_FMA)
 
 
 def _leaves(net: SETransformerHeadNet):
@@ -191,9 +178,10 @@ def se_transformer_forward_plain(net: SETransformerHeadNet,
 def se_transformer_forward_cuda(net: SETransformerHeadNet,
                                 x: torch.Tensor) -> torch.Tensor:
     """The kernel: what `se_transformer_forward_plain` computes, on a CUDA
-    device.  Three launches (the gates; K/V; attention and the tail) on the
-    current stream, or one for 1x1 maps (T = 1: no attention to compute),
-    without synchronising.  Raises on anything the kernel does not take,
+    device, one call of the op `headpose_tpu_torch::se_transformer`
+    (ops/kernels/library.py): three launches (the gates; K/V; attention
+    and the tail) on the current stream, or one for 1x1 maps (T = 1: no
+    attention to compute), without synchronising.  Raises on anything the kernel does not take,
     and when a launch fails."""
     _check_domain(net)
     _check_input(net, x)
@@ -203,34 +191,12 @@ def se_transformer_forward_cuda(net: SETransformerHeadNet,
         raise ValueError(f"net is on {net.query.w.device}, x on {x.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    if x.data_ptr() % 16:
-        raise ValueError("x must start 16-byte aligned (the kernel stages "
-                         "its rows with 16-byte copies)")
     spec = net.spec
-    B, Hs, Ws, C = x.shape
-    T = Hs * Ws
-    hd = spec.num_heads * spec.key_dim
-    out = x.new_empty((B, Hs, Ws, spec.out_features))
-    if B * T == 0:
-        return out
-    # the gate and K/V scratch of the first launch (none for T = 1)
-    gate = x.new_empty((B, C) if T > 1 else (0,))
-    kv = x.new_empty((B * T, 2 * hd) if T > 1 else (0,))
     pack = se_pack(net)
-    dims = (C, C // spec.reduction, spec.num_heads, spec.key_dim,
-            spec.ff_dim, spec.hidden, spec.out_features)
-    lib = LIBRARY.load()
-    with torch.cuda.device(x.device):
-        err = lib.headpose_se_transformer(
-            x.data_ptr(), pack.weights.data_ptr(), gate.data_ptr(),
-            kv.data_ptr(), out.data_ptr(), B, T, c_ints(dims),
-            c_ints(pack.offsets), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"se_transformer kernel launch failed: "
-                           f"{'unsupported head' if err < 0 else 'CUDA error'}"
-                           f" ({err})")
-    se_transformer_forward.launches += 1
-    return out
+    C = spec.in_features
+    dims = [C, C // spec.reduction, spec.num_heads, spec.key_dim,
+            spec.ff_dim, spec.hidden, spec.out_features]
+    return lib.se_transformer(x, pack.weights, dims, list(pack.offsets))
 
 
 def se_transformer_forward(net: SETransformerHeadNet,
@@ -245,4 +211,5 @@ def se_transformer_forward(net: SETransformerHeadNet,
     return se_transformer_forward_cuda(net, x)
 
 
-se_transformer_forward.launches = 0
+se_transformer_forward = lib.Counted(se_transformer_forward,
+                                     "se_transformer")

@@ -1,6 +1,7 @@
 """Detection runtime: the detector, its results, the serving front end
 (batcher, HTTP server, client), temporal smoothing, IoU tracking,
-streaming detection and drawing.
+streaming detection, drawing, and the edge pipeline (TFLite + the native
+C++ postprocess).
 
 Exports resolve lazily (PEP 562), so a light consumer (`runtime.client`
 needs only `results`) does not import the detector and the models.
@@ -20,6 +21,7 @@ _EXPORTS = {
     "tracks_init": ".tracking", "tracks_update": ".tracking",
     "detect_stream": ".streaming",
     "draw_detections": ".viz",
+    "EdgeDetector": ".edge", "NativePostprocess": ".edge",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -4,13 +4,15 @@ Port of headpose_tpu/runtime/demo.py, the reference webcam loop:
 center-square crop, per-frame detection, EMA smoothing (alpha 0.15, per
 tracked face), axis/box/keypoint overlay, optional MP4 recording, 'q' to
 quit; --video for a file and --frames N for a headless run.  Detection runs
-on the card (or the CPU with --device cpu), or on a remote PoseServer
-(--server URL); smoothing and drawing run on the host.
+on the card (or the CPU with --device cpu), on a remote PoseServer
+(--server URL), or through the edge pipeline (--tflite: a tools.tflite
+unified artifact + the native C++ postprocess, runtime.edge, on the host);
+smoothing and drawing run on the host.
 
     python -m headpose_tpu_torch.runtime.demo --video clip.mp4 --headless --frames 100
 
-The edge pipeline's source (--tflite) is not ported yet (ROADMAP.md §1,
-item 10).  Capturing and drawing need OpenCV (`cv2`).
+Capturing and drawing need OpenCV (`cv2`); --tflite needs a TFLite
+interpreter (tensorflow).
 """
 from __future__ import annotations
 
@@ -54,6 +56,22 @@ class _RemoteDetector:
         self.client.close()
 
 
+class _EdgeAdapter:
+    """A detector-shaped adapter over EdgeDetector.  Camera-resolution
+    frames pass straight through: EdgeDetector owns the resize with the
+    TF-exact bicubic kernel (ops/bicubic.py, the matrices the torch path
+    applies).  Results are normalized coordinates, so overlays draw on the
+    full-resolution frame unchanged."""
+
+    def __init__(self, tflite_path: str):
+        from .edge import EdgeDetector
+
+        self.detector = EdgeDetector(tflite_path)
+
+    def detect(self, frame) -> BatchResults:
+        return self.detector.detect(frame)
+
+
 def _smoothed(batch: BatchResults, smoother, tracking: bool) -> BatchResults:
     """One frame's slab (on the host) with its boxes, keypoints and poses
     smoothed: identity-matched tracks, or one filter per NMS slot."""
@@ -88,8 +106,10 @@ def run_demo(model_path: str | None = None, source: int | str = 0,
     (runtime.tracking); False keys the filters by NMS slot.  server: a
     PoseServer URL, where inference runs; the model and serving config live
     there, so model_path/precision/head_eval stay at their defaults.
-    tflite: the edge pipeline's artifact, not ported yet: raises
-    NotImplementedError.  device: None (the card) or "cpu" for the local
+    tflite: a tools.tflite unified artifact, run through the edge pipeline
+    (runtime.edge.EdgeDetector: TFLite + the native C++ postprocess); its
+    config is baked in at export, so model_path/precision/head_eval stay at
+    their defaults.  device: None (the card) or "cpu" for the local
     detector."""
     import cv2
 
@@ -104,12 +124,8 @@ def run_demo(model_path: str | None = None, source: int | str = 0,
         if server is not None and tflite is not None:
             raise ValueError("--server and --tflite are exclusive: pick "
                              "remote inference or the local edge pipeline")
-        if tflite is not None:
-            raise NotImplementedError(
-                "the edge pipeline (--tflite: TFLite + the native C++ "
-                "postprocess) is not ported yet: ROADMAP.md §1, item 10 — "
-                "run the local detector or --server")
-        detector = _RemoteDetector(server)
+        detector = (_RemoteDetector(server) if server is not None
+                    else _EdgeAdapter(tflite))
     else:
         from .detector import FaceDetector
 
@@ -187,8 +203,9 @@ def main(argv=None) -> None:
                         "inference remotely; excludes --model/--precision/"
                         "--head_eval (they live server-side)")
     p.add_argument("--tflite", default=None,
-                   help="unified .tflite artifact (the edge pipeline; not "
-                        "ported yet)")
+                   help="unified .tflite artifact (tools.tflite): run the "
+                        "edge pipeline (TFLite + C++ postprocess); excludes "
+                        "--server/--model/--precision/--head_eval")
     p.add_argument("--camera", type=int, default=0)
     p.add_argument("--video", default=None,
                    help="video file instead of camera")

@@ -40,9 +40,7 @@ from ..models.anchors import (BACK_CONFIG, FRONT_CONFIG, AnchorConfig,
                               generate_anchors)
 from ..models.unified import UnifiedPoseModel, UnifiedPoseNet, unified_from_h5
 from ..ops.detection import (C_LOGIT, C_POSE, C_VALID, MAX_FACES,
-                             cell_index_maps, finish_postprocess,
-                             gather_survivor_features, nms_slab_plain,
-                             prepare_postprocess)
+                             cell_index_maps, gather_survivor_features)
 from ..ops.image import preprocess
 from ..ops.kernels.backbone2 import island_blocks
 from ..ops.kernels.postprocess import postprocess_slab
@@ -281,7 +279,7 @@ class FaceDetector:
         'turbo' and 'max' it is `detect_fused`."""
         if self.precision in ("fast", "turbo", "max"):
             return self.detect_fused(images)
-        return self._detect(images, self.net, _module_forward)
+        return self._detect(images, fused=False)
 
     def detect_fused(self, images) -> BatchResults:
         """`detect` with the network computed through the fused backbone
@@ -300,17 +298,9 @@ class FaceDetector:
                 "spec; this model was graph-compiled (from_h5_compat) and "
                 "exposes none.  Use detect, or load through "
                 "from_h5/from_native.")
-        island = None
-        if self.precision == "turbo":
-            island = island_of(self.model.backbone, "turbo",
-                               self.turbo_island)
-        return self._detect(images, functools.partial(
-            fused_network, self.net, precision=self.precision,
-            island=island), head_forward)
+        return self._detect(images, fused=True)
 
-    def _detect(self, images, network, heads) -> BatchResults:
-        """`network(x, heads=...)` is the network's dict; `heads(head, x)`
-        runs one pose head on rows under the survivors profile."""
+    def _detect(self, images, fused: bool) -> BatchResults:
         x = host_tensor(images)
         if x.ndim == 3:
             x = x[None]
@@ -318,41 +308,60 @@ class FaceDetector:
             raise ValueError(f"images must be (B, H, W, 3) or (H, W, 3), "
                              f"got {tuple(x.shape)}")
         with torch.inference_mode():
-            x = preprocess(x.to(self.device), self.input_size,
-                           self.channel_order)
-            survivors = self.head_eval == "survivors"
-            out = network(x, heads=not survivors)
-            if survivors:
-                # the postprocess copies pose values exactly, so cell-index
-                # maps bring back each survivor's cell in pose channel 0
-                pose_front, pose_back = cell_index_maps(out["feat88"],
-                                                        out["feat96"])
-            else:
-                pose_front, pose_back = out["pose_front"], out["pose_back"]
-            slab = self._postprocess(out["scores"], out["loc"], pose_front,
-                                     pose_back)
-            if survivors:
-                slab[..., C_POSE:C_LOGIT] = self._survivor_poses(out, slab,
-                                                                 heads)
-        return BatchResults(slab)
+            return BatchResults(self._pipeline(x.to(self.device), fused))
+
+    def _pipeline(self, x: torch.Tensor,
+                  fused: bool | None = None) -> torch.Tensor:
+        """The finished (B, F, 21) slab of frames x (B, H, W, 3) on the
+        detector's device: preprocess, the network, the postprocess and,
+        under the survivors profile, the survivors' gather and heads.
+        `fused` None is `detect`'s choice (the fused network at 'fast',
+        'turbo' and 'max'), True `detect_fused`'s.
+
+        A plain tensor function: `detect` calls it under inference mode,
+        and tools/aot.py traces it with `torch.export` (after one call
+        has made the weight packs, which the trace takes as constants).
+        Every kernel it reaches launches through an op of
+        ops/kernels/library.py."""
+        if fused is None:
+            fused = self.precision != "highest"
+        if fused:
+            island = (island_of(self.model.backbone, "turbo",
+                                self.turbo_island)
+                      if self.precision == "turbo" else None)
+            network = functools.partial(fused_network, self.net,
+                                        precision=self.precision,
+                                        island=island)
+            heads = head_forward
+        else:
+            network, heads = self.net, _module_forward
+        x = preprocess(x, self.input_size, self.channel_order)
+        survivors = self.head_eval == "survivors"
+        out = network(x, heads=not survivors)
+        if survivors:
+            # the postprocess copies pose values exactly, so cell-index maps
+            # bring back each survivor's cell in pose channel 0
+            pose_front, pose_back = cell_index_maps(out["feat88"],
+                                                    out["feat96"])
+        else:
+            pose_front, pose_back = out["pose_front"], out["pose_back"]
+        slab = self._postprocess(out["scores"], out["loc"], pose_front,
+                                 pose_back)
+        if survivors:
+            slab[..., C_POSE:C_LOGIT] = self._survivor_poses(out, slab, heads)
+        return slab
 
     def _postprocess(self, scores, loc, pose_front, pose_back):
-        """The finished slab: kernel #1's wrapper (the kernel on a CUDA
-        device, its plain version on the CPU), or at postprocess='xla' the
-        plain chain, on the CPU only."""
-        kw = dict(score_threshold=self.score_threshold,
-                  iou_threshold=self.iou_threshold,
-                  input_size=self.input_size)
-        if self.postprocess != "xla":
-            return postprocess_slab(scores, loc, pose_front, pose_back,
-                                    self.anchors, max_faces=self.max_faces,
-                                    **kw)
-        if scores.is_cuda:
+        """The finished slab through kernel #1's op (the kernel on a CUDA
+        device, its plain version, the plain chain of ops.detection, on the
+        CPU); postprocess='xla' names that plain chain, on the CPU only."""
+        if self.postprocess == "xla" and scores.is_cuda:
             raise ValueError(_XLA_ON_CARD)
-        logits, decoded, pf, pb, logit_thr, iou_thr = prepare_postprocess(
-            scores, loc, pose_front, pose_back, self.anchors, **kw)
-        return finish_postprocess(nms_slab_plain(
-            logits, decoded, pf, pb, logit_thr, iou_thr, self.max_faces))
+        return postprocess_slab(scores, loc, pose_front, pose_back,
+                                self.anchors, max_faces=self.max_faces,
+                                score_threshold=self.score_threshold,
+                                iou_threshold=self.iou_threshold,
+                                input_size=self.input_size)
 
     def _survivor_poses(self, out, slab, heads) -> torch.Tensor:
         """head_eval='survivors': both pose heads on the feature vectors

@@ -464,14 +464,30 @@ class PoseServer:
 
 
 def _build_detector(model_path, **kw):
-    """--model value (registry name / native model dir / H5 file / None) ->
-    detector.
+    """--model value (registry name / native model dir / H5 file / AOT
+    artifact dir / None) -> detector.
 
     `kw` goes to the FaceDetector (precision, head_eval, device, ...); with
     no `device` it serves on the card and raises without one.  An H5 file
-    is imported through FaceDetector.from_h5.  An AOT artifact directory is
-    refused: the port has no tools.aot yet (ROADMAP.md §1, item 5)."""
+    is imported through FaceDetector.from_h5.  An AOT artifact directory
+    (tools.aot) is served by an ExportedDetector, with no model code on the
+    import path; its serving config is baked into its programs, so a flag
+    that would change it is refused."""
     import os
+
+    if (model_path is not None and os.path.isdir(model_path)
+            and os.path.exists(os.path.join(model_path, "aot.json"))):
+        # fail loudly rather than silently ignore conflicting flags
+        baked_ignored = {k: v for k, v in kw.items()
+                         if v not in ("highest", "auto", None)}
+        if baked_ignored:
+            raise ValueError(
+                f"{model_path} is an AOT artifact; its serving config is "
+                f"baked in — re-export it instead of passing "
+                f"{sorted(baked_ignored)} (python -m headpose_tpu_torch."
+                "tools.aot)")
+        from ..tools.aot import load_exported
+        return load_exported(model_path)
 
     from ..pretrained import flagship_detector, resolve_model_path
     from .detector import FaceDetector
@@ -483,11 +499,6 @@ def _build_detector(model_path, **kw):
         raise FileNotFoundError(f"no model at {model_path!r} (neither a "
                                 "path nor a pretrained registry name)")
     if os.path.isdir(model_path):
-        if os.path.exists(os.path.join(model_path, "aot.json")):
-            raise ValueError(
-                f"{model_path} is an AOT artifact; serving one needs "
-                "tools.aot, which the port has not ported yet (ROADMAP.md "
-                "§1, item 5) — serve the native model directory instead")
         return FaceDetector.from_native(model_path, **kw)
     return FaceDetector.from_h5(model_path, **kw)
 
@@ -499,8 +510,9 @@ def main(argv=None) -> None:
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", default=None,
-                   help="H5, native model dir (spec.json + params.npz) or "
-                        "pretrained registry name (e.g. "
+                   help="H5, native model dir (spec.json + params.npz), AOT "
+                        "artifact dir (from tools.aot: serves with no model "
+                        "code) or pretrained registry name (e.g. "
                         "unified-best-distilled); default: shipped flagship")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)

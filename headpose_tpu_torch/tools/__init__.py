@@ -1,5 +1,5 @@
-"""User-facing tools of the port: evaluation, conversion, joining, export,
-CLIs.
+"""User-facing tools of the port: evaluation, conversion, joining, export
+(native, AOT, Keras H5, TFLite), CLIs.
 
 Exports resolve lazily (PEP 562), so a light consumer does not import the
 model and training chain.
@@ -13,6 +13,8 @@ _EXPORTS = {
     "convert_head": ".convert", "validate_conversion": ".convert",
     "batch_convert": ".convert",
     "join_and_save": ".join_cli", "extract_id_from_path": ".join_cli",
+    "export_detector": ".aot", "load_exported": ".aot",
+    "ExportedDetector": ".aot",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -47,6 +47,7 @@ from ..ops.kernels import backbone as kbb
 from ..ops.kernels import backbone2 as kb2
 from ..ops.kernels import head_mlp as khead
 from ..ops.kernels import se_attention as kse
+from ..ops.kernels import library as klib
 from ..utils.build import BUILD_DIR, NVCC_FLAGS_FMA, CudaLibrary
 
 # per source: variant -> [(text in the source, its replacement)]
@@ -223,8 +224,9 @@ def main(argv=None) -> int:
             path = os.path.join(scratch, f"{args.kernel}-{name}.cu")
             with open(path, "w") as f:
                 f.write(varied)
-            mod.LIBRARY = CudaLibrary(f"{args.kernel}-{name}", [path],
-                                      real._configure, NVCC_FLAGS_FMA)
+            klib.LIBRARIES[real.name] = CudaLibrary(
+                f"{args.kernel}-{name}", [path], real._configure,
+                NVCC_FLAGS_FMA)
             with torch.inference_mode():
                 ms, grids = device_ms(call)
                 wall = event_ms(call)
@@ -234,7 +236,7 @@ def main(argv=None) -> int:
                               "event_ms": wall, "grid_ms": grids}),
                   flush=True)
     finally:
-        mod.LIBRARY = real
+        klib.LIBRARIES[real.name] = real
     return 0
 
 

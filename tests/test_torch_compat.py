@@ -207,7 +207,8 @@ def test_run_demo_local_and_server_match_jax(tmp_path, corpus, monkeypatch):
     the port's against JAX's: the same frames, each frame's smoothed faces
     within 2e-3 deg; then through server= against an in-process PoseServer
     on the port's CPU detector: the same faces as the local run; tflite=
-    raises, citing ROADMAP item 10."""
+    and server= together are refused (tflite= itself runs in
+    tests/test_torch_edge.py)."""
     import headpose_tpu.runtime.demo as J
     import headpose_tpu_torch.runtime.demo as T
     from headpose_tpu_torch.pretrained import flagship_detector
@@ -234,8 +235,9 @@ def test_run_demo_local_and_server_match_jax(tmp_path, corpus, monkeypatch):
         np.testing.assert_allclose(a.poses, b.poses, atol=1e-4)
     assert T.run_demo(source=clip, max_frames=3, display=False,
                       use_ema=False, tracking=False, device="cpu") == 3
-    with pytest.raises(NotImplementedError, match="item 10"):
-        T.run_demo(source=clip, tflite="edge.tflite", display=False)
+    with pytest.raises(ValueError, match="exclusive"):
+        T.run_demo(source=clip, tflite="edge.tflite", server="http://x",
+                   display=False)
     with pytest.raises(ValueError, match="server"):
         T.run_demo(source=clip, server="http://x", precision="fast",
                    display=False)

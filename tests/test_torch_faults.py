@@ -16,9 +16,6 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 # names of JAX's __all__ that wait for a later slice (ROADMAP.md §1)
 NOT_PORTED = {
     "": {"parallel"},                                    # item 8
-    "ops": {"resize_bicubic_np"},                        # item 10
-    "tools": {"export_detector", "load_exported", "ExportedDetector"},
-    "runtime": {"EdgeDetector", "NativePostprocess"},    # item 10
 }
 
 

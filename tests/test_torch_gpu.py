@@ -1225,3 +1225,86 @@ def test_distill_prefix_on_the_card_keeps_frozen_leaves(cuda):
     a, b = flatten_params(got), flatten_params(ws)
     moved = {k for k in b if not np.array_equal(a[k], b[k])}
     assert moved and all(k.startswith(("stem/", "blocks/0/")) for k in moved)
+
+
+# ------------------------------------------------ AOT programs on the card
+_AOT_KERNELS = {"highest": ("cta_kernel",),
+                "fast": ("cta_kernel", "mlp_head_kernel", "stem_kernel",
+                         "chain_kernel"),
+                "turbo": ("cta_kernel", "mlp_head_kernel",
+                          "island_chain_kernel"),
+                "max": ("cta_kernel", "mlp_head_kernel",
+                        "island_block_kernel", "island_chain_kernel"),
+                "se_fast": ("cta_kernel", "attend_kernel", "stem_kernel")}
+
+
+def _kernel_names(fn, tries: int = 3) -> set:
+    """The CUDA kernel names of warm fn() calls (torch.profiler), the
+    union over `tries` profiled calls: the profiler drops an event now and
+    then and never adds one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    names = set()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names |= {e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA}
+    return names
+
+
+@pytest.mark.parametrize("mode", ["highest", "fast", "turbo", "max",
+                                  "se_fast"])
+def test_aot_replay_runs_the_source_kernels(cuda, flagship, tmp_path, mode):
+    """A program exported on the card holds one op node per counted launch
+    of the source detect; its replay counts the same launches
+    (ops/kernels/library.LAUNCHES), launches the mode's kernels by profiler
+    name, and returns the source's slab bit for bit at the exported width;
+    B=3 (chunked over 8, padded) gives the source's detection sets."""
+    from headpose_tpu_torch.models.unified import UnifiedPoseModel
+    from headpose_tpu_torch.ops.kernels import library
+    from headpose_tpu_torch.pretrained import flagship_detector
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+    from headpose_tpu_torch.tools.aot import export_detector, load_exported
+    from headpose_tpu_torch.tools.convert import params_to_jax
+
+    if mode == "se_fast":
+        spec = UnifiedPoseModel(backbone=flagship.model.backbone,
+                                head88=SETransformerHead(88),
+                                head96=SETransformerHead(96))
+        params = {"backbone": params_to_jax(
+            flagship.model.backbone, flagship.net.backbone.state_dict())}
+        for name, c in (("head88", 88), ("head96", 96)):
+            head = _se_head(cuda, c, in_features=c)
+            params[name] = params_to_jax(head.spec, head.state_dict())
+        det = FaceDetector(spec, params, precision="fast")
+    else:
+        det = flagship_detector(precision=mode)
+    imgs = _corpus(8)
+    meta = export_detector(det, str(tmp_path), batch_sizes=(8,))
+    aot = load_exported(str(tmp_path))
+
+    def window(fn, x):
+        torch.cuda.synchronize()
+        before = dict(library.LAUNCHES)
+        out = fn(x)
+        torch.cuda.synchronize()
+        return out, {k: library.LAUNCHES[k] - before[k] for k in before}
+
+    want, source = window(det.detect, imgs)
+    got, replay = window(aot.detect, imgs)
+    assert replay == source
+    ops = meta["programs"]["8"]["ops"]
+    assert source["postprocess"] == ops.count("postprocess") == 1
+    for op in ("backbone2_segment", "dense_block", "dense_chain", "mlp_head",
+               "se_transformer"):
+        assert ops.count(op) == source[op], op
+    assert torch.equal(got.slab, want.slab)
+    names = _kernel_names(lambda: aot.detect(imgs))
+    for kernel in _AOT_KERNELS[mode]:
+        assert any(kernel in n for n in names), (kernel, sorted(names))
+    few = aot.detect(imgs[:3])
+    assert torch.equal(few.valid, det.detect(imgs[:3]).valid)

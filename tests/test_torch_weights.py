@@ -146,6 +146,9 @@ def test_ast_scan_finds_no_jax_or_headpose_tpu_import():
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
+    for new in ("tools/aot.py", "tools/h5export.py", "tools/tflite.py",
+                "runtime/edge.py", "ops/kernels/library.py"):
+        assert os.path.join(PORT, new) in files, new
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -249,6 +252,36 @@ _, hist = fit_detector(tiny, frames, boxes, np.ones((8, 1), np.float32),
                        DetectorFitConfig(steps=2, batch_size=4),
                        device="cpu")
 assert len(hist["loss"]) == 2 and np.isfinite(hist["loss"]).all()
+import tempfile
+
+import torch
+
+from headpose_tpu_torch.ops import resize_bicubic_np
+from headpose_tpu_torch.ops.image import preprocess
+from headpose_tpu_torch.runtime.edge import NativePostprocess
+from headpose_tpu_torch.tools.aot import export_detector, load_exported
+from headpose_tpu_torch.tools.h5export import save_unified_h5
+from headpose_tpu_torch.tools.tflite import TFLiteModel
+
+with tempfile.TemporaryDirectory() as d:
+    export_detector(det, d, batch_sizes=(1,), image_shape=img.shape[:2])
+    assert torch.equal(load_exported(d).detect(img).slab,
+                       det.detect(img).slab)
+    try:
+        save_unified_h5(det.model, load_pretrained("unified-stoqa9pt-"
+                                                   "hrchr82r")[1],
+                        d + "/x.h5")
+        raise AssertionError("wrote an H5 file with h5py blocked")
+    except ImportError:
+        pass
+with torch.no_grad():
+    out = det.net(preprocess(torch.from_numpy(img[None])))
+edge = NativePostprocess(det.anchors.numpy())(
+    out["scores"].numpy(), out["loc"].numpy(), out["pose_front"].numpy(),
+    out["pose_back"].numpy())
+assert len(edge[0]) == len(res) and (edge[0].poses == res.poses).all()
+assert resize_bicubic_np(img.astype(np.float32), (128, 128)).shape == (
+    128, 128, 3)
 leaked = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "headpose_tpu", "h5py")]
 assert not leaked, leaked

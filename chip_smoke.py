@@ -215,6 +215,26 @@ is one JSON object, except the nvidia-smi line:
            boxes, keypoints and poses bitwise, scores within 2e-7; the
            versions of h5py and tensorflow; where tensorflow imports, the
            flagship's .tflite through EdgeDetector against detect;
+  parallel the multi-device paths (headpose_tpu_torch.parallel.dryrun, its
+           ranks spawned as processes): (a) one NCCL rank, mesh 1x1, the
+           flagship at "highest" and "fast" (and the survivors profile,
+           detect_fused, best_detector()'s model and the back model) on
+           the 128 main-path frames, each slab bitwise the unmeshed
+           detector's and each launch window equal to its, fit(mesh=) on
+           the train phase's rows within rtol 1e-5 of fit (bitwise or
+           not, printed); (b) two gloo ranks on cuda:0, mesh 2x1, the same
+           batch at 64 rows a rank against the unsharded detect (valid
+           identical, poses and boxes within 1e-5), every rank's launch
+           windows the unmeshed path's, the DynamicBatcher over the mesh
+           detector (widths (2, 4, 8, 12), 3 frames at the serve bounds,
+           rank 1 following); (c) the same two ranks: dp fit within rtol
+           1e-4 of one rank, block mode within 1e-5 of per-epoch, a run
+           saved and resumed against one that was not, the TP step (mesh
+           1x2) of the mlp, se_transformer and ensemble families against
+           the unsharded step (loss and updated parameters); the
+           collectives that went through host memory; per-rank walls of
+           the sharded and unsharded detect (readings: the ranks share
+           one card);
   total    the script's seconds;
   then the {"kernels": [...]} summary (launches from the fused phase;
   apply_fused's from the fast phase, and its back window's beside them;
@@ -222,8 +242,8 @@ is one JSON object, except the nvidia-smi line:
   from the turbo phase's "turbo" window and dense_block's from its "max"
   window, the other window beside each;
   the serve phase's beside them, the detector_train phase's windows
-  of #1, #3, #4 and dense_chain, and the aot phase's replay windows), the
-  nvidia-smi line, and last
+  of #1, #3, #4 and dense_chain, the aot phase's replay windows, and the
+  parallel phase's windows of #1, #3 and #4), the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 """
 import dataclasses
@@ -350,24 +370,11 @@ def cuda_ms(fn, reps: int) -> float:
 def wrappers() -> dict:
     """Each kernel's wrapper; its `launches` counts the kernel's launches
     (for kernel #3 both apply_fused, a call that ran a segment, and
-    run_segment, a segment)."""
-    from headpose_tpu_torch.ops.kernels import (apply_fused,
-                                                backbone_forward,
-                                                dense_block,
-                                                mlp_head_forward,
-                                                postprocess_kernel,
-                                                se_transformer_forward)
-    from headpose_tpu_torch.ops.kernels.backbone2 import run_segment
-    from headpose_tpu_torch.ops.kernels.dense_bf16 import dense_chain
+    run_segment, a segment).  The dryrun's ranks count by the same
+    table."""
+    from headpose_tpu_torch.ops.kernels import kernel_wrappers
 
-    return {"postprocess_nms": postprocess_kernel,
-            "backbone_forward": backbone_forward,
-            "mlp_head_forward": mlp_head_forward,
-            "apply_fused": apply_fused,
-            "se_transformer_forward": se_transformer_forward,
-            "dense_block": dense_block,
-            "dense_chain": dense_chain,
-            "run_segment": run_segment}
+    return kernel_wrappers()
 
 
 def reset_launches() -> None:
@@ -2922,7 +2929,7 @@ def train_twice(tag, cfg, ds, spec=None) -> dict:
                                     card[-1]["val_loss"]]}
 
 
-def phase_train(corpus, card, seed: int):
+def phase_train(corpus, card, seed: int, keep_rows: str | None = None):
     """Head training end to end on the card: (a) features extracted from the
     corpus (card against CPU, and the self-consistency of the pose lookup);
     (b) two heads trained 20 epochs on 16,384 distillation rows, card
@@ -3095,6 +3102,8 @@ def phase_train(corpus, card, seed: int):
     report["evaluate"] = evals
     report["phase_s"] = time.perf_counter() - t_phase
     emit(report)
+    if keep_rows:                 # the parallel phase trains on them too
+        shutil.copy(path, keep_rows)
     shutil.rmtree(tmp)
     return {name: launches[name] for name in paths}
 
@@ -4199,6 +4208,63 @@ def phase_edge(flagship, corpus, card):
     emit(report)
 
 
+# the parallel phase: the dryrun's ranks as processes
+PARALLEL_TIMEOUT_S = 300      # each spawn of ranks
+PARALLEL_KERNELS = ("postprocess_nms", "apply_fused", "mlp_head_forward")
+
+
+def phase_parallel(card, rows: str):
+    """The multi-device paths on the card (parallel/dryrun.py): (a) one
+    NCCL rank, mesh 1x1; (b) and (c) two gloo ranks sharing cuda:0.  Every
+    rank's checks must hold.  Returns the detect windows' launches of #1,
+    #3 and #4 by run, rank and path."""
+    import shutil
+    import tempfile
+
+    from headpose_tpu_torch.parallel.dryrun import (PARTS, failed_checks,
+                                                    launch)
+
+    t_phase = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    common = dict(device="cuda", frames="corpus", batch=128, rows=rows,
+                  timeout=PARALLEL_TIMEOUT_S)
+    runs = {"nccl_1x1": launch(1, os.path.join(out, "a"), backend="nccl",
+                               parts=("detect", "fit"), **common),
+            "gloo_2_ranks": launch(2, os.path.join(out, "b"),
+                                   backend="gloo", same_device=True,
+                                   model_parallel=2, parts=PARTS, **common)}
+    report = {"phase": "parallel", "card": card}
+    launches = {}
+    for run, ranks in runs.items():
+        missed = failed_checks(ranks)
+        if missed:
+            raise AssertionError(f"parallel {run}: {missed}")
+        for r in ranks:
+            det = r["detect"]
+            paths = {k: v for k, v in det.items() if isinstance(v, dict)}
+            report[f"{run}/rank{r['rank']}"] = {
+                "checks": len(r["checks"]), "host_staged": r["host_staged"],
+                "part_s": r["part_s"],
+                "detect": {k: {f: v[f] for f in (
+                    "detections", "bitwise", "pose_max_abs_diff",
+                    "launches_window", "wall_s", "wall_unsharded_s")}
+                    for k, v in paths.items()},
+                "fit": {k: {f: v[f] for f in (
+                    "max_rel", "bitwise", "epoch_ms", "epoch_ms_one_process",
+                    "rows", "epochs") if f in v}
+                    for k, v in r["fit"].items()},
+                "train": r.get("train"), "batcher": r.get("batcher")}
+            for k in PARALLEL_KERNELS:
+                n = {path: v["launches_window"].get(k, 0)
+                     for path, v in paths.items()
+                     if v["launches_window"].get(k, 0)}
+                launches.setdefault(k, {})[f"{run}/rank{r['rank']}"] = n
+    report["phase_s"] = time.perf_counter() - t_phase
+    emit(report)
+    shutil.rmtree(out, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -4270,11 +4336,17 @@ def main() -> int:
     phase_timing(flagship, corpus, card)
     serve_launches = phase_serve(flagship, corpus, card)
     phase_stream(flagship, corpus, card)
-    train_launches = phase_train(corpus, card, args.seed)
+    import shutil
+    import tempfile
+    parallel_tmp = tempfile.mkdtemp(prefix="chip_smoke_rows_")
+    rows = os.path.join(parallel_tmp, "rows96.npz")
+    train_launches = phase_train(corpus, card, args.seed, keep_rows=rows)
     detector_train_launches = phase_detector_train(corpus, card, args.seed)
     h5_launches = phase_h5(flagship, corpus, frames128, card)
     aot_launches = phase_aot(corpus, card)
     phase_edge(flagship, corpus, card)
+    parallel_launches = phase_parallel(card, rows)
+    shutil.rmtree(parallel_tmp, ignore_errors=True)
 
     for entry in entries[:3]:
         entry["launches"] = fused_launches[entry["name"]]
@@ -4312,6 +4384,9 @@ def main() -> int:
         entry["launches_aot_window"] = {
             name: n[entry["name"]] for name, n in aot_launches.items()
             if n[entry["name"]]}
+    for i in (0, 2, 3):               # the parallel phase's windows
+        entries[i]["launches_parallel_window"] = parallel_launches[
+            entries[i]["name"]]
     emit({"phase": "total", "script_s": time.perf_counter() - t_script})
     emit({"kernels": entries})
     print(card, flush=True)

@@ -18,7 +18,7 @@ import importlib
 __version__ = "0.1.0"
 
 _SUBMODULES = ("core", "models", "ops", "data", "utils", "runtime", "train",
-               "tools", "pretrained", "compat")
+               "tools", "pretrained", "compat", "parallel")
 
 __all__ = [*_SUBMODULES, "__version__"]
 

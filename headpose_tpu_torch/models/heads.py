@@ -43,7 +43,7 @@ import torch
 from torch import nn
 
 from ..core.activations import get_activation
-from ..utils.device import resolve_device
+from ..utils.device import local_part, resolve_device
 
 __all__ = ["MLPHead", "ResidualMLPHead", "SkipMLPHead", "SEMLPHead",
            "SETransformerHead", "EnsembleHead", "HEAD_REGISTRY", "MLPHeadNet",
@@ -87,8 +87,50 @@ def _spatial_dropout(x: torch.Tensor, rate: float,
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
+    if isinstance(generator, RowWindow):
+        # x holds rows [start, stop) of the batch the masks are drawn for
+        shape = (generator.rows,) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+        mask = torch.rand(shape, generator=generator.generator,
+                          device=x.device)[generator.start:generator.stop]
+        return torch.where(mask < keep, x / keep, 0.0)
     shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+    if _is_dtensor(x):
+        return _sharded_dropout(x, shape, keep, generator)
     mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowWindow:
+    """Train-mode randomness for rows [start, stop) of a batch of `rows`:
+    the dropout masks are drawn from `generator` for the whole batch and
+    cut to the window, so a data-parallel rank draws its rows of the masks
+    that one process draws for the batch (train/loop.py's fit(mesh=))."""
+    generator: torch.Generator
+    start: int
+    stop: int
+    rows: int
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _sharded_dropout(x, shape, keep: float, generator: torch.Generator):
+    """Dropout of a DTensor activation (tensor parallelism): the masks of
+    the unsharded batch are drawn on every rank from the same generator,
+    and each rank keeps its part under x's placements, so the sharded step
+    drops what the unsharded one drops.  DTensor's own random ops do not
+    draw from a given generator."""
+    from torch.distributed.tensor import DTensor
+
+    full =(torch.rand(shape, generator=generator,
+                       device=x.to_local().device) < keep).expand(x.shape)
+    mask = DTensor.from_local(
+        local_part(full, x.device_mesh, x.placements).contiguous(),
+        x.device_mesh, x.placements, run_check=False)
     return torch.where(mask, x / keep, 0.0)
 
 
@@ -479,18 +521,56 @@ class SETransformerHeadNet(nn.Module):
             x = x[:, None, None, :]
         B, H, W, C = x.shape
         t = self.se(x).reshape(B, H * W, C)
-        q = torch.einsum("btc,chd->bthd", t, self.query.w) + self.query.b
-        k = torch.einsum("bsc,chd->bshd", t, self.key.w) + self.key.b
-        v = torch.einsum("bsc,chd->bshd", t, self.value.w) + self.value.b
-        scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(
-            self.spec.key_dim)
-        o = torch.einsum("bhts,bshd->bthd", torch.softmax(scores, dim=-1), v)
-        o = (torch.einsum("bthd,hdc->btc", o, self.attn_out.w)
-             + self.attn_out.b)
-        t = self.ln1(t + o)
+        if _is_dtensor(self.query.w):
+            o = self._sharded_attention(t)
+        else:
+            o = self._attention(t, self.query.w, self.query.b, self.key.w,
+                                self.key.b, self.value.w, self.value.b,
+                                self.attn_out.w)
+        t = self.ln1(t + (o + self.attn_out.b))
         t = self.ln2(t + self.ff2(torch.relu(self.ff1(t))))
         y = self.out(torch.relu(self.fc(t.reshape(B, H, W, C))))
         return y[:, 0, 0, :] if squeeze else y
+
+    def _attention(self, t, wq, bq, wk, bk, wv, bv, wo):
+        """Multi-head attention of tokens t (B, T, C) up to the output
+        projection's bias, over the heads of the weights given."""
+        q = torch.einsum("btc,chd->bthd", t, wq) + bq
+        k = torch.einsum("bsc,chd->bshd", t, wk) + bk
+        v = torch.einsum("bsc,chd->bshd", t, wv) + bv
+        scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(
+            self.spec.key_dim)
+        o = torch.einsum("bhts,bshd->bthd", torch.softmax(scores, dim=-1), v)
+        return torch.einsum("bthd,hdc->btc", o, wo)
+
+    def _sharded_attention(self, t):
+        """`_attention` under tensor parallelism (parallel.shard_head_params):
+        heads are independent, so each rank attends over its own heads on
+        its local tensors, and its output projection is that rank's part
+        of the sum over heads (Partial on the mesh's 'model' dimension),
+        summed over the ranks (an all-reduce).  The weights' placements say
+        where the heads are sharded; replicated weights make every rank
+        compute the whole sum."""
+        from torch.distributed.tensor import DTensor, Partial, Shard
+
+        mesh = self.query.w.device_mesh
+        heads = [isinstance(p, Shard) for p in self.query.w.placements]
+        rows = [isinstance(p, Shard) for p in t.placements]
+        # t's gradient from each rank's heads is a partial sum, and so is
+        # a weight's from each rank's rows
+        grad = [Partial() if h else p for h, p in zip(heads, t.placements)]
+
+        def local(w):
+            return w.to_local(grad_placements=[
+                Partial() if r else p for r, p in zip(rows, w.placements)])
+
+        o = self._attention(
+            t.to_local(grad_placements=grad),
+            *(local(w) for w in (
+                self.query.w, self.query.b, self.key.w, self.key.b,
+                self.value.w, self.value.b, self.attn_out.w)))
+        o = DTensor.from_local(o, mesh, grad, run_check=False)
+        return o.redistribute(mesh, t.placements)    # the sum over heads
 
 
 class EnsembleHeadNet(nn.Module):

@@ -44,6 +44,8 @@ from ..ops.detection import (C_LOGIT, C_POSE, C_VALID, MAX_FACES,
 from ..ops.image import preprocess
 from ..ops.kernels.backbone2 import island_blocks
 from ..ops.kernels.postprocess import postprocess_slab
+from ..parallel.distributed import all_gather_rows
+from ..parallel.mesh import axis_index, axis_size, mesh_device
 from ..tools.convert import load_native, params_from_jax
 from ..utils.device import resolve_device
 from .fused import PRECISIONS, fused_network, head_forward, island_of
@@ -138,9 +140,18 @@ class FaceDetector:
                      (JAX's XLA postprocess), on the CPU only: on a CUDA
                      device it raises ValueError, since the kernel gives
                      the same slab bit for bit.  Read on every call;
-      mesh, data_axis  multi-device serving, not ported yet (ROADMAP.md §1,
-                     item 8): a mesh, or another data axis than 'data',
-                     raises NotImplementedError.
+      mesh, data_axis  data-parallel serving: a (data, model) DeviceMesh
+                     (parallel.create_mesh) and the name of its batch axis.
+                     `detect` is then a collective that every rank of the
+                     mesh calls with the same global batch, or with a
+                     DTensor sharded on dim 0 over the axis
+                     (parallel.host_local_batch).  Each rank runs the whole
+                     pipeline on its contiguous rows, on its own device,
+                     through the same kernels; the slabs are gathered, and
+                     every rank returns the whole BatchResults.  The batch
+                     must divide by the axis size (`batch_granularity`);
+                     fixed at construction.  The device defaults to the
+                     mesh's (the rank's card, or the CPU).
 
     `model` may also be a graph-compiled unified model (`from_h5_compat`;
     `params` None keeps the module's own weights, a JAX-layout dict loads
@@ -158,11 +169,17 @@ class FaceDetector:
                  head_eval: str = "auto", mesh: Any | None = None,
                  data_axis: str = "data", *,
                  device: str | torch.device | None = None):
-        if mesh is not None or data_axis != "data":
-            raise NotImplementedError(
-                "multi-device serving (FaceDetector(mesh=..., data_axis=...))"
-                " is not ported yet: ROADMAP.md §1, item 8 "
-                "(torch.distributed)")
+        if mesh is not None:
+            if data_axis not in (mesh.mesh_dim_names or ()):
+                raise ValueError(f"data_axis={data_axis!r} is not an axis "
+                                 f"of the mesh {mesh.mesh_dim_names}")
+            if device is None:
+                device = mesh_device(mesh)
+            elif torch.device(device).type != mesh.device_type:
+                raise ValueError(f"device {device} is not on the mesh's "
+                                 f"device type {mesh.device_type!r}")
+        self.mesh = mesh
+        self.data_axis = data_axis
         self.device = resolve_device(device)
         if precision not in PRECISIONS:
             raise ValueError(f"precision={precision!r} is not served by the "
@@ -267,10 +284,12 @@ class FaceDetector:
 
     @property
     def batch_granularity(self) -> int:
-        """Every detect() batch must be a multiple of this: 1, the port
-        serves one device.  Batching front ends (runtime.server.
-        DynamicBatcher) build their pad ladder on it."""
-        return 1
+        """Every detect() batch must be a multiple of this (1 without a
+        mesh; the data-axis size with one — dp serving shards the batch
+        evenly).  Batching front ends (runtime.server.DynamicBatcher) build
+        their pad ladder on it so every dispatch width is servable."""
+        return (axis_size(self.mesh, self.data_axis)
+                if self.mesh is not None else 1)
 
     def detect(self, images) -> BatchResults:
         """images: (B, H, W, 3) or (H, W, 3), uint8/float 0-255, BGR by
@@ -301,6 +320,8 @@ class FaceDetector:
         return self._detect(images, fused=True)
 
     def _detect(self, images, fused: bool) -> BatchResults:
+        if self.mesh is not None:
+            return self._detect_sharded(images, fused)
         x = host_tensor(images)
         if x.ndim == 3:
             x = x[None]
@@ -309,6 +330,47 @@ class FaceDetector:
                              f"got {tuple(x.shape)}")
         with torch.inference_mode():
             return BatchResults(self._pipeline(x.to(self.device), fused))
+
+    def _detect_sharded(self, images, fused: bool) -> BatchResults:
+        """`detect` over the mesh, a collective of every rank: this rank's
+        contiguous rows through `_pipeline`, then the slabs gathered over
+        the data axis.  Every check that can fail runs before the gather,
+        on every rank alike."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        n = self.batch_granularity
+        if isinstance(images, DTensor):
+            want = [Shard(0) if name == self.data_axis else Replicate()
+                    for name in self.mesh.mesh_dim_names]
+            if list(images.placements) != want:
+                raise ValueError(
+                    f"a DTensor batch must be sharded on dim 0 over "
+                    f"{self.data_axis!r} (placements {want}), got "
+                    f"{images.placements}")
+            shape = tuple(images.shape)
+        else:
+            x = host_tensor(images)
+            if x.ndim == 3:
+                x = x[None]
+            shape = tuple(x.shape)
+        if len(shape) != 4 or shape[-1] != 3:
+            raise ValueError(f"images must be (B, H, W, 3) or (H, W, 3), "
+                             f"got {shape}")
+        if shape[0] % n:
+            raise ValueError(
+                f"batch {shape[0]} does not divide over the {n}-way "
+                f"'{self.data_axis}' mesh axis — dp serving shards the "
+                "batch evenly (pad the batch or drop the mesh)")
+        if isinstance(images, DTensor):
+            local = images.to_local()
+        else:
+            rows = shape[0] // n
+            start = axis_index(self.mesh, self.data_axis) * rows
+            local = x[start:start + rows]
+        with torch.inference_mode():
+            slab = self._pipeline(local.to(self.device), fused)
+            return BatchResults(all_gather_rows(
+                slab, self.mesh.get_group(self.data_axis)))
 
     def _pipeline(self, x: torch.Tensor,
                   fused: bool | None = None) -> torch.Tensor:

@@ -20,6 +20,13 @@ The dispatcher thread is the one that launches the kernels: `detect` enqueues
 the work on the card and returns without synchronising, and `trim()`, in the
 same thread, is the one copy that waits for it.  Pure host-side
 orchestration around the detector — no device code of its own.
+
+Over a mesh detector of more than one rank (`FaceDetector(mesh=...)`, whose
+`detect` is a collective), rank 0 owns the front end: before each `detect`
+its dispatcher broadcasts the padded batch's shape and frames to the other
+ranks, which run `follow(detector)` — receive a batch, `detect`, repeat —
+until closing the batcher broadcasts the stop message.  This is the SPMD
+form of JAX's single-process mesh serving.
 """
 from __future__ import annotations
 
@@ -29,10 +36,71 @@ import time
 from concurrent.futures import Future
 
 import numpy as np
+import torch
 
 from .results import Results
 
-__all__ = ["DynamicBatcher"]
+__all__ = ["DynamicBatcher", "follow"]
+
+# frame dtypes a batch broadcast carries, by code
+_DTYPES = (torch.uint8, torch.float32, torch.float64, torch.float16,
+           torch.int32, torch.int64)
+
+
+def _spmd_mesh(detector):
+    """The detector's mesh where its `detect` is a collective of more than
+    one rank, else None."""
+    mesh = getattr(detector, "mesh", None)
+    return mesh if mesh is not None and mesh.size() > 1 else None
+
+
+def _transport(detector) -> torch.device:
+    """Where a broadcast batch lives: the CPU under gloo, the detector's
+    card under NCCL (which takes CUDA tensors only)."""
+    import torch.distributed as dist
+
+    return (torch.device("cpu") if dist.get_backend() == "gloo"
+            else detector.device)
+
+
+def _send(detector, batch: np.ndarray | None) -> None:
+    """Rank 0: the header (1 and the batch's shape and dtype, or 0 to
+    stop), then the frames, to every rank."""
+    from ..parallel.distributed import broadcast_
+
+    device = _transport(detector)
+    header = torch.zeros(6, dtype=torch.int64)
+    if batch is not None:
+        frames = torch.from_numpy(np.ascontiguousarray(batch)).to(device)
+        header[0] = 1
+        header[1:5] = torch.tensor(frames.shape)
+        header[5] = _DTYPES.index(frames.dtype)
+    broadcast_(header.to(device))
+    if batch is not None:
+        broadcast_(frames)
+
+
+def follow(detector) -> int:
+    """The loop of a rank other than 0 behind rank 0's DynamicBatcher over
+    the mesh detector `detector`: receive each batch, run the collective
+    `detect` on it, until the batcher closes.  Returns the batches
+    served."""
+    from ..parallel.distributed import broadcast_
+
+    if _spmd_mesh(detector) is None:
+        raise ValueError("follow() serves a mesh detector of more than one "
+                         "rank")
+    device = _transport(detector)
+    served = 0
+    while True:
+        header = broadcast_(torch.zeros(6, dtype=torch.int64,
+                                        device=device)).cpu()
+        if int(header[0]) == 0:
+            return served
+        frames = torch.empty(tuple(int(d) for d in header[1:5]),
+                             dtype=_DTYPES[int(header[5])], device=device)
+        detector.detect(broadcast_(frames))
+        served += 1
 
 
 class DynamicBatcher:
@@ -67,6 +135,17 @@ class DynamicBatcher:
         # serves batches divisible by g starts the ladder there (e.g.
         # granularity 8: 8, 16, 32, ...) and max_batch rounds UP to the next
         # servable width
+        self._spmd = _spmd_mesh(detector) is not None
+        if self._spmd:
+            import torch.distributed as dist
+
+            if dist.get_rank() != 0:
+                raise RuntimeError(
+                    "a DynamicBatcher over a mesh detector runs on rank 0; "
+                    "the other ranks run runtime.server.follow(detector)")
+            if detector.mesh.size() != dist.get_world_size():
+                raise ValueError("a DynamicBatcher's mesh detector must "
+                                 "span every rank of the process group")
         g = max(1, int(getattr(detector, "batch_granularity", 1)))
         self.max_batch = max_batch = -(-max_batch // g) * g
         widths = []
@@ -132,7 +211,8 @@ class DynamicBatcher:
         return self.submit(frame).result(timeout)
 
     def close(self, timeout: float = 120.0) -> bool:
-        """Flush queued work and stop the dispatcher thread.
+        """Flush queued work and stop the dispatcher thread (over a mesh
+        detector, then stop the followers).
 
         Returns True if the dispatcher fully drained and exited within
         `timeout` (size it to cover a first dispatch, which may build a
@@ -142,6 +222,9 @@ class DynamicBatcher:
         self._closed.set()
         self._thread.join(timeout)
         drained = not self._thread.is_alive()
+        if drained and self._spmd:
+            self._spmd = False            # the followers stop, once
+            _send(self.detector, None)
         if drained:
             while True:  # a submit that raced past the dispatcher's exit
                 try:
@@ -199,6 +282,8 @@ class DynamicBatcher:
                 # pending and future requests
                 width = next(w for w in self.widths if w >= n)
                 batch = np.stack(frames + [frames[0]] * (width - n))
+                if self._spmd:            # the followers' detect, the same
+                    _send(self.detector, batch)
                 # pad by repeating the first frame: rows are independent
                 # through the whole pipeline (convs, per-image NMS), so pad
                 # content only costs compute, never correctness.  detect

@@ -33,8 +33,8 @@ Notes
   padding back off), so exporting `batch_sizes=(1, 128)` covers any load.
 - A replay on CUDA turns TF32 off for the process first, as the
   FaceDetector does: cuDNN would otherwise run the fp32 convs in TF32.
-- Multi-device detectors are not ported (FaceDetector(mesh=...) raises,
-  ROADMAP.md §1, item 8), so there is nothing of a mesh to refuse here.
+- A mesh-sharded detector (FaceDetector(mesh=...)) is refused: its detect
+  is a collective of the mesh's ranks, which a program does not carry.
 """
 from __future__ import annotations
 
@@ -114,6 +114,11 @@ def export_detector(det, path: str, batch_sizes: Sequence[int] = (1, 128),
     the weight packs (and on the card builds the kernels), which the trace
     then takes as constants.  Returns the metadata dict written to aot.json.
     """
+    if getattr(det, "mesh", None) is not None:
+        raise ValueError(
+            "cannot export a mesh-sharded detector: exported programs bake "
+            "their device assignment. Export the single-device detector and "
+            "rebuild FaceDetector(mesh=...) on the serving topology.")
     batch_sizes = sorted(set(int(b) for b in batch_sizes))
     if not batch_sizes or batch_sizes[0] < 1:
         raise ValueError(f"batch_sizes must be positive ints, got {batch_sizes}")

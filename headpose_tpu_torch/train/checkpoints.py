@@ -8,6 +8,13 @@ params (JAX layout), the optimizer state, the epoch and the early-stop
 bookkeeping, so an interrupted run resumes exactly.  JAX checkpoints reach
 the port only through the weight bridge (`tools.convert`); this module
 reads none.
+
+Under a process group of more than one rank every rank calls the savers
+(as every JAX process enters orbax's collective save): each first gathers
+its DTensor leaves (`full_tensor()`, a collective), then rank 0 alone
+removes, writes and prunes, and every rank meets at a barrier before it
+returns, so a rank that goes on to restore reads the finished checkpoint.
+The directory must be the same path on every rank.
 """
 from __future__ import annotations
 
@@ -19,7 +26,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.distributed import barrier, is_distributed
 from ..tools.convert import flatten_params, unflatten_params
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
@@ -29,26 +38,44 @@ _TREE = "tree.npz"
 
 
 def _host(tree: Any) -> Any:
-    """Tensors (any device) → numpy arrays, containers kept."""
+    """Tensors (any device; a DTensor gathered whole) → numpy arrays,
+    containers kept."""
+    from torch.distributed.tensor import DTensor
+
     if isinstance(tree, dict):
         return {k: _host(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_host(v) for v in tree]
+    if isinstance(tree, DTensor):
+        tree = tree.full_tensor()
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return np.asarray(tree)
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 under a process group of more
+    than one rank, else the one process."""
+    return not is_distributed() or dist.get_rank() == 0
+
+
 def save_pytree(path: str, tree: Any) -> None:
     """Save one tree of arrays (e.g. the best params) as the directory
     `path`, replacing it; written beside it first and renamed, so a reader
-    never sees half a checkpoint."""
-    path = os.path.abspath(path)
+    never sees half a checkpoint.  Under a process group, rank 0 writes
+    and every rank returns after it has (see the module's notes)."""
+    host = _host(tree)                  # every rank: DTensors gather here
+    if _writer():
+        _write_tree(os.path.abspath(path), host)
+    barrier()
+
+
+def _write_tree(path: str, host: Any) -> None:
     tmp = f"{path}.{os.getpid()}.tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     with open(os.path.join(tmp, _TREE), "wb") as f:
-        np.savez(f, **flatten_params(_host(tree)))
+        np.savez(f, **flatten_params(host))
     shutil.rmtree(path, ignore_errors=True)
     os.replace(tmp, path)
 
@@ -84,18 +111,22 @@ def save_checkpoint(ckpt_dir: str, step: int, params: Any, opt_state: Any,
     """Save a training checkpoint at ckpt_dir/step_<N>; keep the newest
     `keep`.  params/opt_state are the live pair at `step`; `best_params`
     the early-stopping best weights where they differ from the live ones."""
-    os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"step_{step}")
     tree = {"params": params, "opt_state": opt_state}
     if best_params is not None:
         tree["best_params"] = best_params
-    save_pytree(path, tree)
-    with open(os.path.join(path, "meta.json"), "w") as f:
-        json.dump({"step": step, "has_best_params": best_params is not None,
-                   **(extra or {})}, f, default=_to_py)
-    for old in sorted(_steps(ckpt_dir))[:-keep]:
-        shutil.rmtree(os.path.join(ckpt_dir, f"step_{old}"),
-                      ignore_errors=True)
+    host = _host(tree)                  # every rank: DTensors gather here
+    if _writer():
+        os.makedirs(ckpt_dir, exist_ok=True)
+        _write_tree(os.path.abspath(path), host)
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump({"step": step,
+                       "has_best_params": best_params is not None,
+                       **(extra or {})}, f, default=_to_py)
+        for old in sorted(_steps(ckpt_dir))[:-keep]:
+            shutil.rmtree(os.path.join(ckpt_dir, f"step_{old}"),
+                          ignore_errors=True)
+    barrier()
 
 
 def _steps(ckpt_dir: str) -> list[int]:

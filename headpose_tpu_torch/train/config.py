@@ -48,7 +48,7 @@ class TrainConfig:
     seed: int = 42
     checkpoint_dir: str = "checkpoints"
     run_name: str | None = None
-    data_dim: str = "data"         # mesh axis name (multi-device: not ported)
+    data_dim: str = "data"         # the mesh axis fit(mesh=) shards rows over
     # >1 runs k epochs with the early-stop/NaN/plateau bookkeeping kept in
     # device tensors — same semantics, one host read per k epochs.
     # On-disk checkpoints then land at sync granularity; in-memory

@@ -31,6 +31,17 @@ from a generator of its own.
 
 Entry points run on the card (`device=None`) unless the caller passes
 `device="cpu"`; matrix products run in fp32 with TF32 off.
+
+`fit(mesh=...)` trains data-parallel over the mesh's `cfg.data_dim` axis,
+as JAX's `fit` does over `P('data')`: the batch size rounds down to a
+multiple of the axis size, every rank holds the padded rows and draws the
+same permutation, and takes its contiguous rows of each global batch (and
+its rows of the batch's dropout masks, `models.heads.RowWindow`).  Its
+loss over them is normalised by the global batch's real rows; the
+gradients and the loss terms are summed over the axis in one all-reduce,
+so every rank takes the identical optimizer step.  Validation and test
+metrics are summed the same way.  A 'model' axis is replicated over, as
+JAX's fit does with such a mesh.
 """
 from __future__ import annotations
 
@@ -44,7 +55,8 @@ import torch
 
 from ..data.datasets import Dataset
 from ..models.blazeface import fp32_exact
-from ..models.heads import HEAD_REGISTRY, MLPHead, head_net
+from ..models.heads import HEAD_REGISTRY, MLPHead, RowWindow, head_net
+from ..parallel.distributed import all_reduce_
 from ..tools.convert import params_from_jax, params_to_jax
 from ..utils.device import resolve_device
 from .checkpoints import restore_checkpoint, save_checkpoint, save_pytree
@@ -201,6 +213,70 @@ def _loss_and_metrics(net, batch, generator, reg_rate: float):
     return mse + net.l2_penalty(reg_rate), mae
 
 
+@dataclasses.dataclass(frozen=True)
+class _DataParallel:
+    """This rank's place on the mesh's data axis: `size` ranks summed over
+    by `group`, this one the `index`-th."""
+    group: Any
+    size: int
+    index: int
+
+    @classmethod
+    def of(cls, mesh, axis: str) -> "_DataParallel":
+        from ..parallel.mesh import axis_index, axis_size
+
+        if axis not in (mesh.mesh_dim_names or ()):
+            raise ValueError(f"data_dim={axis!r} is not an axis of the mesh "
+                             f"{mesh.mesh_dim_names}")
+        return cls(mesh.get_group(axis), axis_size(mesh, axis),
+                   axis_index(mesh, axis))
+
+    def rows(self, n: int) -> slice:
+        """This rank's contiguous rows of n (a multiple of size)."""
+        per = n // self.size
+        return slice(self.index * per, (self.index + 1) * per)
+
+
+def _dp_loss_and_metrics(net, batch, generator, reg_rate: float,
+                         dp: _DataParallel, backward: bool):
+    """`_loss_and_metrics` of a global batch, computed by the ranks of the
+    data axis on their rows: each rank's weighted squared error over its
+    rows, normalised by the global batch's real rows, with its gradient
+    (`backward`); the gradients and the sums reduced in one all-reduce;
+    the L2 term (and its gradient) added once.  Every rank returns the
+    same (loss, mae) and holds the same gradients."""
+    rows = dp.rows(batch["x"].shape[0])
+    local = {k: v[rows] for k, v in batch.items()}
+    if generator is not None:
+        generator = RowWindow(generator, rows.start, rows.stop,
+                              batch["x"].shape[0])
+    pred = net(local["x"], generator)
+    err = pred - local["y"]
+    num = (err.square().mean(dim=-1) * local["w"]).sum()
+    mae_num = (err.abs().mean(dim=-1) * local["mask"]).sum()
+    real = local["mask"].sum()
+    params = list(net.parameters()) if backward else []
+    if backward:
+        # the global batch's real rows: every rank holds the whole batch
+        denom = batch["mask"].sum().clamp(min=1e-9)
+        (num / denom).backward()
+    flat = torch.cat([p.grad.reshape(-1) for p in params]
+                     + [torch.stack([num, mae_num, real]).detach()])
+    all_reduce_(flat, dp.group)
+    offset = 0
+    for p in params:
+        p.grad.copy_(flat[offset:offset + p.numel()].view_as(p))
+        offset += p.numel()
+    num, mae_num, real = flat[-3], flat[-2], flat[-1]
+    denom = real.clamp(min=1e-9)
+    l2 = net.l2_penalty(reg_rate)
+    if backward and isinstance(l2, torch.Tensor):
+        l2.backward()
+    if isinstance(l2, torch.Tensor):
+        l2 = l2.detach()
+    return num / denom + l2, mae_num / denom
+
+
 def _epoch_seed(seed: int, epoch: int, stream: int) -> int:
     """A generator seed for one epoch's stream (0 the row order, 1 the
     dropout masks), a function of (seed, epoch) only."""
@@ -219,7 +295,8 @@ def _permutation(seed: int, epoch: int, n: int,
 
 
 def _train_epoch(net, opt: HeadOptimizer, data, perm, generator,
-                 batch_size: int, reg_rate: float):
+                 batch_size: int, reg_rate: float,
+                 dp: _DataParallel | None = None):
     """One pass over the rows in `perm`'s order, a step a batch → (mean
     batch loss, mean batch mae) as device tensors."""
     n_batches = data["x"].shape[0] // batch_size
@@ -228,9 +305,13 @@ def _train_epoch(net, opt: HeadOptimizer, data, perm, generator,
     losses, maes = [], []
     for i in range(n_batches):
         opt.zero_grad()
-        loss, mae = _loss_and_metrics(
-            net, {k: v[i] for k, v in batches.items()}, generator, reg_rate)
-        loss.backward()
+        batch = {k: v[i] for k, v in batches.items()}
+        if dp is None:
+            loss, mae = _loss_and_metrics(net, batch, generator, reg_rate)
+            loss.backward()
+        else:
+            loss, mae = _dp_loss_and_metrics(net, batch, generator,
+                                             reg_rate, dp, backward=True)
         opt.step()
         losses.append(loss.detach())
         maes.append(mae.detach())
@@ -265,8 +346,8 @@ class _Run:
               "active")
 
     def __init__(self, cfg, spec, params, data, val_data, batch_size,
-                 device):
-        self.cfg, self.spec, self.device = cfg, spec, device
+                 device, dp: _DataParallel | None = None):
+        self.cfg, self.spec, self.device, self.dp = cfg, spec, device, dp
         self.net = head_net(spec, device=device)
         self.net.load_state_dict(params_from_jax(spec, params))
         self.names = [n for n, _ in self.net.named_parameters()]
@@ -311,10 +392,10 @@ class _Run:
             self.net, self.opt, self.data,
             _permutation(cfg.seed, epoch, self.data["x"].shape[0],
                          self.device),
-            generator, self.batch_size, cfg.regularizer_rate)
+            generator, self.batch_size, cfg.regularizer_rate, self.dp)
         with torch.no_grad():
-            val_loss, val_mae = _loss_and_metrics(
-                self.net, self.val_data, None, cfg.regularizer_rate)
+            val_loss, val_mae = _metrics(self.net, self.val_data,
+                                         cfg.regularizer_rate, self.dp)
             finite = torch.isfinite(train_loss) & torch.isfinite(val_loss)
             ok, nan = active & finite, active & ~finite
             monitored = (val_loss, val_mae)[self.monitor]
@@ -365,6 +446,15 @@ class _Run:
                 int(wait), bool(stop))
 
 
+def _metrics(net, data, reg_rate: float, dp: _DataParallel | None):
+    """(loss, mae) of a whole padded dataset, inference mode; over the
+    data axis each rank evaluates its rows."""
+    if dp is None:
+        return _loss_and_metrics(net, data, None, reg_rate)
+    return _dp_loss_and_metrics(net, data, None, reg_rate, dp,
+                                backward=False)
+
+
 @dataclasses.dataclass
 class TrainResult:
     spec: Any
@@ -382,12 +472,17 @@ def evaluate(spec, params, ds: Dataset,
     TF32 off.  Sample weights are ignored: test metrics stay comparable
     across weighted and unweighted runs and match the reference evaluator
     (Model-96/test.py:41-54)."""
-    device = resolve_device(device)
+    return _evaluate(spec, params, ds, resolve_device(device), None)
+
+
+def _evaluate(spec, params, ds: Dataset, device: torch.device,
+              dp: _DataParallel | None) -> dict[str, float]:
     net = head_net(spec, device=device).eval()
     net.load_state_dict(params_from_jax(spec, params))
-    data = _pad_dataset(Dataset(ds.features, ds.poses), 1, device)
+    data = _pad_dataset(Dataset(ds.features, ds.poses),
+                        dp.size if dp is not None else 1, device)
     with fp32_exact(), torch.no_grad():
-        loss, mae = _loss_and_metrics(net, data, None, 0.0)
+        loss, mae = _metrics(net, data, 0.0, dp)
     return {"loss": float(loss), "mae": float(mae)}
 
 
@@ -402,14 +497,23 @@ def fit(cfg: TrainConfig, train_ds: Dataset, val_ds: Dataset | None = None,
     `spec`/`params` override the config's head and its fresh init (params
     in JAX layout, e.g. handed over from a JAX process); without params the
     head is initialised from `torch.Generator().manual_seed(cfg.seed)`.
-    Returns the best (restored) params in JAX layout."""
+    Returns the best (restored) params in JAX layout.
+
+    `mesh` (parallel.create_mesh) trains data-parallel over its
+    `cfg.data_dim` axis (see the module's notes); every rank of the mesh
+    calls fit with the same arguments, and `cfg.checkpoint_dir` must be
+    the same path on every rank (rank 0 writes).  The device defaults to
+    the mesh's."""
     from ..data.datasets import difficulty_weights, train_val_split
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device training (fit(mesh=...)) is not ported yet: "
-            "ROADMAP §1 item 8 (torch.distributed)")
     _monitored_key(cfg)                       # fail fast on a bad metric
+    dp = None
+    if mesh is not None:
+        from ..parallel.mesh import mesh_device
+
+        dp = _DataParallel.of(mesh, cfg.data_dim)
+        if device is None:
+            device = mesh_device(mesh)
     device = resolve_device(device)
     if resume and cfg.run_name is None:
         # a fresh random run id can never name an existing checkpoint
@@ -428,8 +532,12 @@ def fit(cfg: TrainConfig, train_ds: Dataset, val_ds: Dataset | None = None,
         params = spec.init(torch.Generator().manual_seed(cfg.seed))
 
     batch_size = min(cfg.batch_size, len(train_ds))
+    n_data = dp.size if dp is not None else 1
+    # rows divide evenly over the data axis: the batch size a multiple of
+    # it, and padding to whole batches covers the training rows too
+    batch_size = max(n_data, batch_size - batch_size % n_data)
     run = _Run(cfg, spec, params, _pad_dataset(train_ds, batch_size, device),
-               _pad_dataset(val_ds, 1, device), batch_size, device)
+               _pad_dataset(val_ds, n_data, device), batch_size, device, dp)
 
     run_id = cfg.run_name or new_run_id()
     ckpt_dir = os.path.join(cfg.checkpoint_dir, run_id)
@@ -511,7 +619,7 @@ def fit(cfg: TrainConfig, train_ds: Dataset, val_ds: Dataset | None = None,
                             else run.params)
     save_pytree(os.path.join(ckpt_dir, "best"), final_params)
 
-    test_metrics = {name: evaluate(spec, final_params, ds, device)
+    test_metrics = {name: _evaluate(spec, final_params, ds, device, dp)
                     for name, ds in (test_sets or {}).items()}
     if logger is not None:
         summary = {"best_epoch": best_epoch + 1, "best_val_loss": best_val,

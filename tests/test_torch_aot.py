@@ -4,6 +4,7 @@ without model code, against the source detector (bit for bit at exported
 widths, row for row when chunked) and against the JAX detector at the
 tolerances of tests/test_torch_detector.py.  The port's counterpart of
 tests/test_aot.py."""
+import copy
 import io
 import json
 import os
@@ -11,6 +12,7 @@ import re
 import shutil
 import subprocess
 import sys
+import types
 import urllib.request
 
 import numpy as np
@@ -368,11 +370,15 @@ class TestValidation:
         with pytest.raises(ValueError, match="Re-export"):
             aot.detect(_frames(2, size=64))
 
-    def test_mesh_detector_is_not_ported(self, detector):
-        """A mesh detector never exists to export: the port's FaceDetector
-        refuses it, citing ROADMAP.md §1, item 8."""
-        with pytest.raises(NotImplementedError, match="item 8"):
-            FaceDetector(detector.model, None, mesh=object(), device="cpu")
+    def test_mesh_detector_is_not_ported(self, detector, tmp_path):
+        """A mesh detector (its detect a collective of the mesh's ranks) is
+        not exported: refused with JAX's message before anything runs."""
+        sharded = copy.copy(detector)
+        sharded.mesh = types.SimpleNamespace(mesh_dim_names=("data",
+                                                             "model"))
+        with pytest.raises(ValueError, match="cannot export a mesh-sharded"):
+            export_detector(sharded, str(tmp_path / "x"))
+        assert not os.path.exists(tmp_path / "x")
 
     def test_rejects_bad_batch_sizes(self, detector, tmp_path):
         with pytest.raises(ValueError, match="positive"):

@@ -6,6 +6,7 @@ checkpoint restore."""
 import collections
 import importlib
 import os
+import types
 
 import numpy as np
 import pytest
@@ -13,25 +14,20 @@ import torch
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
-# names of JAX's __all__ that wait for a later slice (ROADMAP.md §1)
-NOT_PORTED = {
-    "": {"parallel"},                                    # item 8
-}
-
-
 def _surface(pkg: str) -> list[str]:
     mod = importlib.import_module(f"headpose_tpu{'.' + pkg if pkg else ''}")
     return sorted(set(mod.__all__) - {"__version__"})
 
 
 @pytest.mark.parametrize("pkg", ["", "core", "models", "ops", "data",
-                                 "utils", "runtime", "train", "tools"])
+                                 "utils", "runtime", "train", "tools",
+                                 "parallel"])
 def test_subpackages_export_jax_names(pkg):
-    """Every name of JAX's __all__ that the port has ported is importable
-    from the port's subpackage of the same name."""
+    """Every name of JAX's __all__ is importable from the port's
+    subpackage of the same name."""
     port = importlib.import_module(
         f"headpose_tpu_torch{'.' + pkg if pkg else ''}")
-    want = set(_surface(pkg)) - NOT_PORTED.get(pkg, set())
+    want = set(_surface(pkg))
     assert want, pkg
     missing = [n for n in sorted(want) if not hasattr(port, n)]
     assert not missing, missing
@@ -133,7 +129,8 @@ def test_face_detector_takes_jax_positional_order(flagship):
 
 def test_face_detector_refusals(flagship):
     """Another input size or anchor table than the backbone's, an unknown
-    postprocess, and a mesh (ROADMAP §1 item 8) raise."""
+    postprocess, a data axis that the mesh lacks, and a device off the
+    mesh's device type raise."""
     from headpose_tpu_torch.models.anchors import BACK_CONFIG
     from headpose_tpu_torch.runtime.detector import FaceDetector
 
@@ -144,10 +141,13 @@ def test_face_detector_refusals(flagship):
         FaceDetector(model, params, anchor_config=BACK_CONFIG, device="cpu")
     with pytest.raises(ValueError, match="postprocess"):
         FaceDetector(model, params, postprocess="triton", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        FaceDetector(model, params, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        FaceDetector(model, params, data_axis="batch", device="cpu")
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 device_type="cpu")
+    with pytest.raises(ValueError, match="not an axis of the mesh"):
+        FaceDetector(model, params, mesh=mesh, data_axis="batch",
+                     device="cpu")
+    with pytest.raises(ValueError, match="mesh's device type"):
+        FaceDetector(model, params, mesh=mesh, device="cuda")
 
 
 def test_postprocess_backends_match_jax(flagship):

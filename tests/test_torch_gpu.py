@@ -1308,3 +1308,42 @@ def test_aot_replay_runs_the_source_kernels(cuda, flagship, tmp_path, mode):
         assert any(kernel in n for n in names), (kernel, sorted(names))
     few = aot.detect(imgs[:3])
     assert torch.equal(few.valid, det.detect(imgs[:3]).valid)
+
+
+# ---------------------------------------------------------- multi-device
+def _dryrun_detect(tmp_path, nproc, **kw):
+    from headpose_tpu_torch.parallel.dryrun import failed_checks, launch
+
+    ranks = launch(nproc, str(tmp_path), device="cuda", parts=("detect",),
+                   frames="corpus", batch=16, timeout=600, **kw)
+    assert not failed_checks(ranks)
+    return ranks
+
+
+def test_one_rank_nccl_mesh_detect_is_bitwise(cuda, tmp_path):
+    """FaceDetector(mesh=) over a 1x1 NCCL mesh: every path's slab bit for
+    bit the unmeshed detector's, with the same kernel launches."""
+    (rank,) = _dryrun_detect(tmp_path, 1, backend="nccl")
+    paths = {k: v for k, v in rank["detect"].items() if isinstance(v, dict)}
+    assert len(paths) == 6
+    for name, v in paths.items():
+        assert v["bitwise"], name
+        assert v["launches_window"] == v["launches_unsharded"], name
+        assert v["launches_window"]["postprocess_nms"] == 1, name
+
+
+def test_two_gloo_ranks_on_one_card_detect_within_1e5(cuda, tmp_path):
+    """Two gloo ranks sharing cuda:0, mesh 2x1: each path's sharded detect
+    against the unsharded one (valid identical, poses and boxes within
+    1e-5), each rank launching the unmeshed path's kernels on its rows."""
+    ranks = _dryrun_detect(tmp_path, 2, backend="gloo", same_device=True)
+    for rank in ranks:
+        fast = rank["detect"]["flagship_fast"]
+        assert fast["launches_window"] == {"postprocess_nms": 1,
+                                           "mlp_head_forward": 2,
+                                           "apply_fused": 1,
+                                           "run_segment": 4}
+        assert rank["detect"]["batch_granularity"] == 2
+        for name, v in rank["detect"].items():
+            if isinstance(v, dict):            # DETECT_TOL, valid equal
+                assert rank["checks"][f"detect[{name}]"], name

@@ -14,6 +14,7 @@ another sum order); `l2_penalty` at rtol 1e-6.
 import json
 import math
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -365,9 +366,11 @@ def test_resume_without_run_name_raises(tmp_path):
 
 
 def test_mesh_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        fit(_cfg(tmp_path, total_epochs=1), _ds(), mesh=object(),
-            device="cpu")
+    """fit(mesh=) trains data-parallel over cfg.data_dim
+    (tests/test_torch_parallel.py); a mesh without that axis raises."""
+    mesh = types.SimpleNamespace(mesh_dim_names=("batch", "model"))
+    with pytest.raises(ValueError, match="not an axis of the mesh"):
+        fit(_cfg(tmp_path, total_epochs=1), _ds(), mesh=mesh, device="cpu")
 
 
 def test_bad_monitor_and_ensemble_config_raise(tmp_path):

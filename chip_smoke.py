@@ -235,6 +235,34 @@ is one JSON object, except the nvidia-smi line:
            collectives that went through host memory; per-rank walls of
            the sharded and unsharded detect (readings: the ranks share
            one card);
+  matmul_precision  the two strings JAX passes to
+           jax.default_matmul_precision (PR 16): (a) "high", the "fast"
+           network: the flagship, best_detector(), the back model and the
+           SE-Transformer model at "high", each slab (the 128 main-path
+           frames) bitwise its "fast" detector's in its own launch window
+           (#3 once, #4 twice or #5 twice, #1 once: fast's counts), the
+           flagship through the parity and stress gates and its detect
+           walls; (b) from_h5_compat of the flagship fixture at "highest",
+           "high" and "default", #1 alone in each window, "high" bitwise
+           "highest"; (c) the flagship at "default" (every conv and product
+           of bf16-rounded operands): #1 alone in its window, the parity
+           corpus by certify_parity (at least MP_DEFAULT_AGREE_MIN images,
+           pose p99 <= MP_DEFAULT_POSE_P99_DEG) and the stress corpus
+           reported; each single-pass stage (the resize of the production
+           frame, the stem, every block's depthwise and pointwise, the SSD
+           heads, each head layer) on the card against the port's CPU on
+           the CPU's input of that stage within MP_STAGE_FRAC of the
+           output's largest value (the resize within MP_RESIZE_FRAC); the
+           card against the CPU detector on 16 frames, from_h5_compat's
+           "default" against the native one, the detect walls beside
+           "highest"'s (readings); (d) both flagships exported at width
+           128: op nodes the source's launches, the replay's window the
+           source's, its slab bitwise; (e) fit_detector(BLAZEFACE_FRONT)
+           on seeded squares: at "high" MP_HIGH_STEPS steps bitwise
+           "highest" (cuDNN deterministic for both), at "default"
+           MP_TRAIN_STEPS steps whose first 10 loss terms lie within twice
+           the CPU's one-ulp noise floor (the CPU again from the init moved
+           one ulp up and down) or TRAIN_LOSS_RTOL, and whose loss falls;
   total    the script's seconds;
   then the {"kernels": [...]} summary (launches from the fused phase;
   apply_fused's from the fast phase, and its back window's beside them;
@@ -242,8 +270,9 @@ is one JSON object, except the nvidia-smi line:
   from the turbo phase's "turbo" window and dense_block's from its "max"
   window, the other window beside each;
   the serve phase's beside them, the detector_train phase's windows
-  of #1, #3, #4 and dense_chain, the aot phase's replay windows, and the
-  parallel phase's windows of #1, #3 and #4), the nvidia-smi line, and last
+  of #1, #3, #4 and dense_chain, the aot phase's replay windows, the
+  parallel phase's windows of #1, #3 and #4, and the matmul_precision
+  phase's windows), the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 """
 import dataclasses
@@ -2320,18 +2349,27 @@ MAX_POSE_P99_DEG = 1.35        # twice JAX's certified max p99 (0.676)
 MAX_AGREE_MIN = 108            # JAX's certified max: 108 of 112 images
 
 
-def kernel_names_per_call(fn, calls: int = 3) -> dict:
+def kernel_names_per_call(fn, calls: int = 3, want: dict | None = None,
+                          more: int = 10) -> dict:
     """The CUDA kernels one warm fn() launches, counted by kind
     (torch.profiler): "split_bf16" (csrc/backbone2.cu's block_kernel and
     chain_kernel), "island" and "island_chain" (csrc/dense_bf16.cu's
     island_block_kernel and island_chain_kernel), "stem", "mlp_head", and
     every other kernel under its own name.  The profiler drops an event now
-    and then (PERF.md §7) and never adds one: each kind's count is the most
-    of `calls` profiled calls."""
+    and then and never adds one; most often it drops a window's first
+    launches, late in the process (PERF.md §7), which for detect_fused is
+    the stem.  So each of `calls` windows is profiled twice, once alone and
+    once after a spin kernel (settled_kinds), and each kind's count is the
+    most over all of them; while a kind of `want` is still short, up to
+    `more` windows follow."""
     counts: dict[str, int] = {}
-    for _ in range(calls):
-        for kind, n in kernel_kinds(cuda_events(fn, 1)).items():
-            counts[kind] = max(n, counts.get(kind, 0))
+    windows = 0
+    while windows < calls or (want and windows < calls + more and any(
+            counts.get(k, 0) < v for k, v in want.items())):
+        for kinds in (kernel_kinds(cuda_events(fn, 1)), settled_kinds(fn)):
+            for kind, n in kinds.items():
+                counts[kind] = max(n, counts.get(kind, 0))
+        windows += 1
     return counts
 
 
@@ -2447,13 +2485,14 @@ def phase_turbo(flagship, best, back_model, corpus, stress, frames128,
         dets[mode].detect(imgs8)
         torch.cuda.synchronize()
         counts = read_launches()
-        names = kernel_names_per_call(lambda: dets[mode].detect(imgs8))
         steps = kd.island_chains(net.spec, island)
         alone = sum(s[0] == "block" for s in steps)
         chained = sum(s[0] == "chain" for s in steps)
         want = {"split_bf16": sum(len(kb2.segment_launches(net, seg, island))
                                   for seg in plan),
                 "island": alone, "island_chain": chained, "mlp_head": 2}
+        names = kernel_names_per_call(lambda: dets[mode].detect(imgs8),
+                                      want=want)
         report[mode]["per_detect"] = {"counts": counts, "kernels": names,
                                       "plan": plan,
                                       "island_plan": [list(s) for s in steps],
@@ -3038,14 +3077,6 @@ def phase_train(corpus, card, seed: int, keep_rows: str | None = None):
              "fast": fast.detect}
     for fn in paths.values():
         fn(imgs[:8])                          # warm, and build
-    outs, launches, kernels = {}, {}, {}
-    for name, fn in paths.items():
-        torch.cuda.synchronize()
-        reset_launches()                      # this path's window opens
-        outs[name] = fn(imgs)
-        torch.cuda.synchronize()
-        launches[name] = read_launches()      # ... and closes
-        kernels[name] = kernel_names_per_call(lambda: fn(imgs))
     want = {"detect": {"postprocess_nms": 1},
             "detect_fused": {"backbone_forward": 1, "mlp_head_forward": 2,
                              "postprocess_nms": 1},
@@ -3054,6 +3085,16 @@ def phase_train(corpus, card, seed: int, keep_rows: str | None = None):
     want_names = {"detect": {"cta_kernel": 1},
                   "detect_fused": {"stem": 1, "mlp_head": 2, "cta_kernel": 1},
                   "fast": {"mlp_head": 2, "cta_kernel": 1}}
+    outs, launches, kernels = {}, {}, {}
+    for name, fn in paths.items():
+        torch.cuda.synchronize()
+        reset_launches()                      # this path's window opens
+        outs[name] = fn(imgs)
+        torch.cuda.synchronize()
+        launches[name] = read_launches()      # ... and closes
+        least = dict(want_names[name], **(
+            {"split_bf16": 1} if name == "fast" else {}))
+        kernels[name] = kernel_names_per_call(lambda: fn(imgs), want=least)
     for name in paths:
         bad = {k: launches[name][k] for k, v in want[name].items()
                if launches[name][k] != v}
@@ -4265,6 +4306,301 @@ def phase_parallel(card, rows: str):
     return launches
 
 
+# ----------------------------- the precision strings "high", "default"
+# "default" on the parity corpus: the gate at twice the CPU emulation's
+# figures (109/112 images, pose p99 1.05 deg), the rule the turbo phase
+# applies to JAX's certificate of "turbo" and "max"
+MP_DEFAULT_AGREE_MIN = 108
+MP_DEFAULT_POSE_P99_DEG = 2.1
+# a single-pass stage (one product of bf16-rounded operands, the bias
+# unrounded) on the card against the CPU on the same input: only the fp32
+# sum order differs, held within this fraction of the output's largest
+# |value|; the resize is two products with a rounding between them, where
+# an ulp of sum order may flip one bf16 step (2^-8) of the intermediate
+MP_STAGE_FRAC = 1e-5
+MP_RESIZE_FRAC = 2.0 ** -7
+MP_TRAIN_STEPS = 100          # fit_detector at "default" on the card
+MP_TRAIN_IMAGES, MP_TRAIN_BATCH = 512, 64
+MP_HIGH_STEPS = 20            # fit_detector at "high" and "highest"
+
+
+def single_pass_stages(card_net, cpu_net, frames) -> dict:
+    """Each single-pass stage of a "default" UnifiedPoseNet (MLP heads),
+    computed by the port's own functions on the card and on the CPU from
+    the CPU's input of that stage: the resize of `frames` (uint8, not at
+    the model's size) to the model's size, the stem, every block's
+    depthwise and pointwise product, the four SSD heads, each head layer.
+    Returns {stage: |card - cpu| max over the CPU output's largest
+    |value|}."""
+    from headpose_tpu_torch.models.single_pass import linear
+    from headpose_tpu_torch.ops.image import preprocess
+
+    dev = card_net.backbone.stem.weight.device
+    size = cpu_net.backbone.spec.input_size
+    bb = cpu_net.backbone
+    stages = []
+
+    def stage(name, fn, inp):
+        stages.append((name, fn, inp))
+        return fn(cpu_net, inp)
+
+    def to(t, device):
+        return (tuple(v.to(device) for v in t) if isinstance(t, tuple)
+                else t.to(device))
+
+    with torch.inference_mode():
+        x = stage("resize", lambda n, t: preprocess(t, size, "bgr", True),
+                  torch.from_numpy(frames))
+        y = stage("stem", lambda n, t: n.backbone._stem(t, True), x)
+        for i, blk in enumerate(bb.blocks):
+            t = stage(f"block{i}_depthwise",
+                      lambda n, v, i=i: n.backbone.blocks[i].depthwise(v),
+                      y)
+            y = blk.finish(stage(
+                f"block{i}_pointwise",
+                lambda n, v, i=i: n.backbone.blocks[i].pointwise(v), t), y)
+            if i == bb.spec.tap88_block:
+                f88 = y
+        stage("ssd", lambda n, v: torch.cat(
+            [o.reshape(o.shape[0], -1) for o in n.backbone.ssd(*v, True)],
+            1), (f88, y))
+        for name, feat in (("head88", f88), ("head96", y)):
+            h = feat.permute(0, 2, 3, 1)
+            head = getattr(cpu_net, name)
+            for j, act in enumerate(head._acts):
+                h = act(stage(f"{name}_layer{j}",
+                              lambda n, v, name=name, j=j: linear(
+                                  getattr(n, name).layers[j], v, True), h))
+        gaps = {}
+        for name, fn, inp in stages:
+            want = fn(cpu_net, inp)
+            got = fn(card_net, to(inp, dev)).cpu()
+            gaps[name] = float((got - want).abs().max()
+                               / want.abs().max())
+    return gaps
+
+
+def one_ulp_params(params, direction: float):
+    """Every leaf of a JAX-layout params tree moved one fp32 ulp toward
+    `direction` (+inf or -inf)."""
+    if isinstance(params, dict):
+        return {k: one_ulp_params(v, direction) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [one_ulp_params(v, direction) for v in params]
+    a = np.asarray(params, np.float32)
+    return np.nextafter(a, np.float32(direction)).astype(np.float32)
+
+
+def phase_matmul_precision(back_model, corpus, production, stress, card,
+                           seed: int):
+    """The two strings JAX passes to jax.default_matmul_precision, on the
+    card (the docstring's `matmul_precision` entry).  Returns {window:
+    launch counts}."""
+    report = {"phase": "matmul_precision", "card": card, "seed": seed}
+    try:
+        windows = matmul_precision(report, back_model, corpus, production,
+                                   stress, seed)
+    except BaseException:
+        emit(report)                  # what ran, then the failure
+        raise
+    emit(report)
+    return windows
+
+
+def matmul_precision(report, back_model, corpus, production, stress,
+                     seed: int) -> dict:
+    """phase_matmul_precision's body: fills `report` as it goes."""
+    import tempfile
+
+    from headpose_tpu_torch.models import BLAZEFACE_FRONT
+    from headpose_tpu_torch.pretrained import best_detector, flagship_detector
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+    from headpose_tpu_torch.tools.aot import export_detector, load_exported
+    from headpose_tpu_torch.tools.certify_modes import (certify_parity,
+                                                        certify_stress)
+    from headpose_tpu_torch.tools.convert import flatten_params
+    from headpose_tpu_torch.train import detector
+
+    t_phase = time.perf_counter()
+    imgs128 = np.concatenate([corpus["imgs"], corpus["imgs"][:16]])
+    windows = {}
+    fast_want = {"apply_fused": 1, "mlp_head_forward": 2,
+                 "postprocess_nms": 1}
+
+    # (a) native "high": the "fast" network, slab for slab
+    flag_high = flagship_detector(precision="high")
+    pairs = {
+        "flagship": (flag_high, flagship_detector(precision="fast")),
+        "best": (best_detector(precision="high"),
+                 best_detector(precision="fast")),
+        "back": (FaceDetector(*back_model, precision="high"),
+                 FaceDetector(*back_model, precision="fast")),
+        "se": (FaceDetector(*se_model(), precision="high"),
+               FaceDetector(*se_model(), precision="fast"))}
+    high = report["high"] = {}
+    for name, (det, fast) in pairs.items():
+        det.detect(imgs128[:2])
+        want, want_counts = launch_window(fast.detect, imgs128)
+        got, counts = launch_window(det.detect, imgs128)
+        windows[f"high_{name}"] = counts
+        high[name] = {"launches": counts, "head_eval": det.head_eval,
+                      "detections": int(got.valid.sum()),
+                      "bitwise_fast": torch.equal(got.slab, want.slab)}
+        named = ({"se_transformer_forward"} if name == "se"
+                 else {"mlp_head_forward"}) | {"apply_fused",
+                                               "postprocess_nms"}
+        if name in ("flagship", "best"):
+            check_counts(counts, fast_want, f"high {name}")
+        if counts != want_counts or any(counts[k] < 1 for k in named):
+            raise AssertionError(f"high {name}: launches {counts}, fast's "
+                                 f"{want_counts}")
+        if not high[name]["bitwise_fast"]:
+            raise AssertionError(f"high {name}: the slab differs from "
+                                 "fast's")
+    tol = {**PRODUCTION_TOL, "poses": PARITY_BUDGET_DEG}
+    parity = check_parity(flag_high.detect, corpus, production, "high", tol)
+    stressed = check_stress(flag_high.detect, flag_high, stress, "high")
+    del parity["phase"], stressed["phase"]
+    high["flagship"].update(parity=parity, stress=stressed,
+                            detect_wall=detect_walls(flag_high.detect,
+                                                     imgs128))
+
+    # (b) graph-compiled "high": fp32, bitwise "highest"
+    compat = {p: FaceDetector.from_h5_compat(h5_twin("flagship_joined"),
+                                             precision=p)
+              for p in ("highest", "high", "default")}
+    slabs = {}
+    for p, det in compat.items():
+        det.detect(imgs128[:2])
+        slabs[p], windows[f"graph_{p}"] = launch_window(det.detect, imgs128)
+        check_counts(windows[f"graph_{p}"], {"postprocess_nms": 1},
+                     f"graph {p}")
+    report["graph"] = {
+        "high_bitwise_highest": torch.equal(slabs["high"].slab,
+                                            slabs["highest"].slab),
+        "launches": {p: windows[f"graph_{p}"] for p in compat}}
+    if not report["graph"]["high_bitwise_highest"]:
+        raise AssertionError("graph high: the slab differs from highest's")
+
+    # (c) "default" on the flagship
+    default = flagship_detector(precision="default")
+    default.detect(imgs128[:2])
+    got, windows["default"] = launch_window(default.detect, imgs128)
+    check_counts(windows["default"], {"postprocess_nms": 1}, "default")
+    cpu_default = flagship_detector(precision="default", device="cpu")
+    par = certify_parity(default.detect, corpus)
+    st = certify_stress(default.detect, stress)
+    stages = single_pass_stages(default.net, cpu_default.net,
+                                np.repeat(production["img"][None], 4, 0))
+    report["default"] = {
+        "launches": windows["default"], "parity": par, "stress": st,
+        "gate": {"agree_images_min": MP_DEFAULT_AGREE_MIN,
+                 "pose_p99_max_deg": MP_DEFAULT_POSE_P99_DEG},
+        "stages_vs_cpu_frac": stages,
+        "stage_frac_max": max(v for k, v in stages.items()
+                              if k != "resize"),
+        "vs_cpu_16": versus(default.detect(corpus["imgs"][:16]).trim(),
+                            cpu_default.detect(corpus["imgs"][:16]).trim()),
+        "graph_vs_native": versus(slabs["default"].trim(), got.trim()),
+        "detect_wall": detect_walls(default.detect, imgs128),
+        "highest_detect_wall": detect_walls(flagship_detector().detect,
+                                            imgs128)}
+    if not (par["agree_images"] >= MP_DEFAULT_AGREE_MIN
+            and par["pose_deg"]["p99"] <= MP_DEFAULT_POSE_P99_DEG):
+        raise AssertionError(f"default parity: {par['agree_images']} "
+                             f"images, pose {par['pose_deg']}")
+    bad = {k: v for k, v in stages.items()
+           if v > (MP_RESIZE_FRAC if k == "resize" else MP_STAGE_FRAC)}
+    if bad:
+        raise AssertionError(f"default stages vs the CPU: {bad}")
+
+    # (d) export: each string baked into its program
+    aot = report["aot"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, det in (("high", flag_high), ("default", default)):
+            path = os.path.join(tmp, name)
+            meta = export_detector(det, path, batch_sizes=(128,))
+            want, source_counts = launch_window(det.detect, imgs128)
+            replay, counts = launch_window(load_exported(path).detect,
+                                           imgs128)
+            ops = meta["programs"]["128"]["ops"]
+            want_ops = {op: source_counts[k] for k, op in AOT_OP_OF.items()}
+            have_ops = {op: ops.count(op) for op in want_ops}
+            aot[name] = {"precision": meta["config"]["precision"],
+                         "ops": ops, "launches": counts,
+                         "bitwise": torch.equal(replay.slab, want.slab)}
+            windows[f"aot_{name}"] = counts
+            if (have_ops != want_ops or counts != source_counts
+                    or not aot[name]["bitwise"]
+                    or meta["config"]["precision"] != name):
+                raise AssertionError(f"aot {name}: {aot[name]}, ops want "
+                                     f"{want_ops}, source launches "
+                                     f"{source_counts}")
+
+    # (e) the detector trainer at both strings
+    sq, boxes, mask, kps = squares(MP_TRAIN_IMAGES, 128, seed)
+    cfg = detector.DetectorFitConfig(
+        steps=MP_TRAIN_STEPS, batch_size=MP_TRAIN_BATCH, warmup_steps=10,
+        steps_per_sync=10, seed=seed)
+    args = (BLAZEFACE_FRONT, sq, boxes, mask)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # a gap is the string's
+    try:
+        runs = {p: detector.fit_detector(
+            *args, dataclasses.replace(cfg, steps=MP_HIGH_STEPS,
+                                       precision=p),
+            keypoints=kps, kp_weight=1.0) for p in ("highest", "high")}
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    (ph, hh), (pg, hg) = runs["highest"], runs["high"]
+    fh, fg = flatten_params(ph), flatten_params(pg)
+    train = report["train"] = {
+        "high_bitwise_highest": all(np.array_equal(fh[k], fg[k])
+                                    for k in fh) and all(
+            np.array_equal(hh[k], hg[k]) for k in hh),
+        "high_steps": MP_HIGH_STEPS}
+    if not train["high_bitwise_highest"]:
+        raise AssertionError("fit_detector high: not bitwise highest")
+    dcfg = dataclasses.replace(cfg, precision="default")
+    init = BLAZEFACE_FRONT.init(detector._generator(seed, 0))
+    card = timed_run(lambda s: detector.fit_detector(
+        *args, dcfg, keypoints=kps, kp_weight=1.0, init_params=init,
+        on_sync=s))
+
+    def cpu_run(params):
+        return detector._fit_detector(
+            *args, dataclasses.replace(dcfg, steps_per_sync=5),
+            keypoints=kps, kp_weight=1.0, init_params=params, device="cpu",
+            stop=DT_COMPARE)[1]
+
+    cpu = cpu_run(init)
+    ulp = [cpu_run(one_ulp_params(init, v)) for v in (np.inf, -np.inf)]
+    loss = card["history"]["loss"]
+    first = {k: v[:DT_COMPARE] for k, v in card["history"].items()}
+    train["default"] = {
+        "steps": MP_TRAIN_STEPS, "images": MP_TRAIN_IMAGES,
+        "batch": MP_TRAIN_BATCH,
+        "loss_mean_first_last_20": [float(loss[:20].mean()),
+                                    float(loss[-20:].mean())],
+        "card_vs_cpu_rel": rel_gaps(first, cpu),
+        "cpu_one_ulp_rel": {k: max(rel_gaps(h, cpu)[k] for h in ulp)
+                            for k in cpu},
+        "steps_per_s": card["steps_per_s"], "wall_s": card["wall_s"]}
+    td = train["default"]
+    for k, gap in td["card_vs_cpu_rel"].items():
+        bound = max(TRAIN_LOSS_RTOL,
+                    CALIB_FLOOR_FACTOR * td["cpu_one_ulp_rel"][k])
+        if not (np.isfinite(card["history"][k]).all() and gap <= bound):
+            raise AssertionError(f"fit_detector default {k}: card vs CPU "
+                                 f"rel {gap}, bound {bound}")
+    if not td["loss_mean_first_last_20"][1] < td[
+            "loss_mean_first_last_20"][0]:
+        raise AssertionError(f"fit_detector default: the loss did not "
+                             f"fall ({td['loss_mean_first_last_20']})")
+    report["phase_s"] = time.perf_counter() - t_phase
+    return windows
+
+
 def main() -> int:
     import argparse
 
@@ -4347,6 +4683,9 @@ def main() -> int:
     phase_edge(flagship, corpus, card)
     parallel_launches = phase_parallel(card, rows)
     shutil.rmtree(parallel_tmp, ignore_errors=True)
+    precision_launches = phase_matmul_precision(back_model, corpus,
+                                                production, stress, card,
+                                                args.seed)
 
     for entry in entries[:3]:
         entry["launches"] = fused_launches[entry["name"]]
@@ -4387,6 +4726,10 @@ def main() -> int:
     for i in (0, 2, 3):               # the parallel phase's windows
         entries[i]["launches_parallel_window"] = parallel_launches[
             entries[i]["name"]]
+    for entry in entries:             # the "high" and "default" windows
+        entry["launches_matmul_precision_window"] = {
+            name: n[entry["name"]] for name, n in precision_launches.items()
+            if n[entry["name"]]}
     emit({"phase": "total", "script_s": time.perf_counter() - t_script})
     emit({"kernels": entries})
     print(card, flush=True)

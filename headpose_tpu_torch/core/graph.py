@@ -19,10 +19,14 @@ Semantics kept from the JAX compiler:
     have several outputs, and tf-keras numbers a nested submodel's outer
     calls from 1 where Keras 3 numbers them from 0 (`ModelDef.keras3`);
   * dropout layers are the identity (inference semantics);
-  * every convolution and product runs in fp32 with TF32 off
-    (`matmul_precision="highest"`, the one value served); a Dense layer and
-    a 1x1 convolution at stride 1 are one GEMM each, nn.Linear's, so a
-    1x1-conv head graph computes what the native head module computes.
+  * every convolution and product runs in fp32 with TF32 off at
+    `matmul_precision` "highest" and "high" (on the TPU, "high" is three
+    bf16 passes, an emulation of fp32); at "default" (one bf16 pass on the
+    TPU) each one's two operands are rounded to bf16 first, the products
+    exact and the sums fp32, the bias unrounded (models/single_pass.py);
+    a Dense layer and a 1x1 convolution at stride 1 are one GEMM each,
+    nn.Linear's, so a 1x1-conv head graph computes what the native head
+    module computes.
 
 Weights keep their Keras layout as the module's parameters (HWIO
 convolutions, (in, out) dense kernels), so `GraphModel.params` is the JAX
@@ -40,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.blazeface import fp32_exact
+from ..models.single_pass import bf16_round, fp32_exact, single_pass_of
 from ..utils.device import resolve_device
 from .activations import get_activation as _activation
 from .h5io import LayerDef, ModelDef, _as_modeldef
@@ -86,22 +90,29 @@ def _pad_nchw(x: torch.Tensor, kernel, strides, padding: str,
     return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value)
 
 
-def _dense(x, kernel, bias):
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _dense(x, kernel, bias, rnd=_identity):
     """x (..., C) @ kernel (C, K) + bias over the last axis, as nn.Linear
     computes it (one GEMM with the bias in its epilogue), so that a graph's
-    dense or 1x1 layer and the native head's Linear are the same op."""
-    return F.linear(x, kernel.t().contiguous(), bias)
+    dense or 1x1 layer and the native head's Linear are the same op.
+    `rnd` rounds both operands (`GraphModel`'s matmul precision)."""
+    return F.linear(rnd(x), rnd(kernel).t().contiguous(), bias)
 
 
-def _conv2d(x, kernel, bias, strides, padding, groups=1, dilation=(1, 1)):
-    """NHWC x, HWIO kernel (with I = C / groups) → NHWC conv + bias.  A 1x1
-    kernel at stride 1 is a product over the channel axis (`_dense`)."""
+def _conv2d(x, kernel, bias, strides, padding, groups=1, dilation=(1, 1),
+            rnd=_identity):
+    """NHWC x, HWIO kernel (with I = C / groups) → NHWC conv + bias, of
+    rnd(x) and rnd(kernel).  A 1x1 kernel at stride 1 is a product over the
+    channel axis (`_dense`)."""
     strides = _pair(strides)
     if kernel.shape[:2] == (1, 1) and strides == (1, 1) and groups == 1:
-        return _dense(x, kernel[0, 0], bias)
-    w = kernel.permute(3, 2, 0, 1)
-    y = F.conv2d(_pad_nchw(x.permute(0, 3, 1, 2), w.shape[2:], strides,
-                           padding, dilation),
+        return _dense(x, kernel[0, 0], bias, rnd)
+    w = rnd(kernel).permute(3, 2, 0, 1)
+    y = F.conv2d(_pad_nchw(rnd(x).permute(0, 3, 1, 2), w.shape[2:],
+                           strides, padding, dilation),
                  w, stride=strides, dilation=dilation, groups=groups)
     y = y.permute(0, 2, 3, 1)
     return y if bias is None else y + bias
@@ -111,10 +122,10 @@ def _conv2d(x, kernel, bias, strides, padding, groups=1, dilation=(1, 1)):
 # per-layer apply functions: (layer, params_for_layer, inputs) -> output
 # ---------------------------------------------------------------------------
 
-def _apply_conv2d(layer: LayerDef, p, xs):
+def _apply_conv2d(layer: LayerDef, p, xs, rnd):
     cfg = layer.config
     y = _conv2d(xs[0], p["kernel"], p.get("bias"), cfg["strides"],
-                _padding(cfg), dilation=_dilation(cfg))
+                _padding(cfg), dilation=_dilation(cfg), rnd=rnd)
     return _activation(cfg.get("activation"))(y)
 
 
@@ -124,25 +135,26 @@ def _dw_kernel(p):
     return p["depthwise_kernel"] if "depthwise_kernel" in p else p["kernel"]
 
 
-def _depthwise(x, dk, bias, cfg):
+def _depthwise(x, dk, bias, cfg, rnd):
     """Depthwise HWC·mult kernel as a grouped conv: output channel
     c·mult + m reads input channel c."""
     kh, kw, cin, mult = dk.shape
     return _conv2d(x, dk.reshape(kh, kw, 1, cin * mult), bias,
                    cfg["strides"], _padding(cfg), groups=cin,
-                   dilation=_dilation(cfg))
+                   dilation=_dilation(cfg), rnd=rnd)
 
 
-def _apply_depthwise_conv2d(layer: LayerDef, p, xs):
+def _apply_depthwise_conv2d(layer: LayerDef, p, xs, rnd):
     cfg = layer.config
-    y = _depthwise(xs[0], _dw_kernel(p), p.get("bias"), cfg)
+    y = _depthwise(xs[0], _dw_kernel(p), p.get("bias"), cfg, rnd)
     return _activation(cfg.get("activation"))(y)
 
 
-def _apply_separable_conv2d(layer: LayerDef, p, xs):
+def _apply_separable_conv2d(layer: LayerDef, p, xs, rnd):
     cfg = layer.config
-    y = _depthwise(xs[0], _dw_kernel(p), None, cfg)
-    y = _conv2d(y, p["pointwise_kernel"], p.get("bias"), (1, 1), "VALID")
+    y = _depthwise(xs[0], _dw_kernel(p), None, cfg, rnd)
+    y = _conv2d(y, p["pointwise_kernel"], p.get("bias"), (1, 1), "VALID",
+                rnd=rnd)
     return _activation(cfg.get("activation"))(y)
 
 
@@ -160,7 +172,7 @@ def _transpose_trim(k: int, s: int, padding: str) -> tuple[int, int]:
     return k - 1 - pad_a, k - 1 - (pad_len - pad_a)
 
 
-def _apply_conv2d_transpose(layer: LayerDef, p, xs):
+def _apply_conv2d_transpose(layer: LayerDef, p, xs, rnd):
     cfg = layer.config
     out_pad = cfg.get("output_padding")
     if out_pad is not None and any(int(v) != 0
@@ -176,8 +188,8 @@ def _apply_conv2d_transpose(layer: LayerDef, p, xs):
         raise NotImplementedError(f"padding {padding!r}")
     strides = _pair(cfg["strides"])
     kernel = p["kernel"]                      # (kh, kw, filters, in)
-    y = F.conv_transpose2d(xs[0].permute(0, 3, 1, 2),
-                           kernel.permute(3, 2, 0, 1), stride=strides)
+    y = F.conv_transpose2d(rnd(xs[0]).permute(0, 3, 1, 2),
+                           rnd(kernel).permute(3, 2, 0, 1), stride=strides)
     pads = []
     for axis, (k, s) in enumerate(zip(kernel.shape[:2], strides)):
         start, end = _transpose_trim(int(k), s, padding)
@@ -193,8 +205,8 @@ def _apply_conv2d_transpose(layer: LayerDef, p, xs):
     return _activation(cfg.get("activation"))(y)
 
 
-def _apply_dense(layer: LayerDef, p, xs):
-    y = _dense(xs[0], p["kernel"], p.get("bias"))
+def _apply_dense(layer: LayerDef, p, xs, rnd):
+    y = _dense(xs[0], p["kernel"], p.get("bias"), rnd)
     return _activation(layer.config.get("activation"))(y)
 
 
@@ -237,25 +249,26 @@ def _apply_layernorm(layer: LayerDef, p, xs):
     return y
 
 
-def _apply_mha(layer: LayerDef, p, xs):
+def _apply_mha(layer: LayerDef, p, xs, rnd):
     """Keras MultiHeadAttention: self (q), cross (q, v; key defaults to
     value) or full (q, v, k); the parser puts the call refs in (query,
     value[, key]) order.  Weights: query/kernel (C, H, D), key/kernel,
     value/kernel, attention_output/kernel (H, D, C) and their biases."""
+    def product(equation, a, b):
+        return torch.einsum(equation, rnd(a), rnd(b))
+
     q_in = xs[0]
     v_in = xs[1] if len(xs) > 1 else xs[0]
     k_in = xs[2] if len(xs) > 2 else v_in
-    q = torch.einsum("btc,chd->bthd", q_in, p["query/kernel"]) \
-        + p["query/bias"]
-    k = torch.einsum("bsc,chd->bshd", k_in, p["key/kernel"]) + p["key/bias"]
-    v = torch.einsum("bsc,chd->bshd", v_in, p["value/kernel"]) \
-        + p["value/bias"]
+    q = product("btc,chd->bthd", q_in, p["query/kernel"]) + p["query/bias"]
+    k = product("bsc,chd->bshd", k_in, p["key/kernel"]) + p["key/bias"]
+    v = product("bsc,chd->bshd", v_in, p["value/kernel"]) + p["value/bias"]
     d = q.shape[-1]
-    scores = torch.einsum("bthd,bshd->bhts", q, k) / torch.sqrt(
+    scores = product("bthd,bshd->bhts", q, k) / torch.sqrt(
         torch.tensor(float(d), dtype=q.dtype, device=q.device))
     attn = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhts,bshd->bthd", attn, v)
-    return (torch.einsum("bthd,hdc->btc", out, p["attention_output/kernel"])
+    out = product("bhts,bshd->bthd", attn, v)
+    return (product("bthd,hdc->btc", out, p["attention_output/kernel"])
             + p["attention_output/bias"])
 
 
@@ -414,6 +427,10 @@ _LAYER_FNS: dict[str, Callable] = {
     "Dropout": lambda l, p, xs: xs[0],
     "InputLayer": None,  # handled by the schedule
 }
+# the layers of convs and products, which take `rnd`: the rounding of
+# their operands under the graph's matmul precision
+_PRODUCTS = frozenset({"Conv2D", "DepthwiseConv2D", "SeparableConv2D",
+                       "Conv2DTranspose", "Dense", "MultiHeadAttention"})
 
 
 def _module_key(name: str) -> str:
@@ -473,19 +490,17 @@ class GraphModel(nn.Module):
     layout).
 
     `device=None` means the card, and raises when there is none.
-    `matmul_precision` is "highest" (exact fp32, TF32 off), the one value
-    served: "high" and "default" are not certified on the card (ROADMAP.md
-    §1, the remaining precision modes) and raise NotImplementedError."""
+    `matmul_precision` is one of `models.single_pass.MATMUL_PRECISIONS`,
+    the strings the JAX package passes to `jax.default_matmul_precision`:
+    "highest" and "high" compute exact fp32 (TF32 off; the TPU's "high" is
+    three bf16 passes, an emulation of fp32), "default" rounds the operands
+    of every conv and product to bf16 (one pass on the TPU;
+    models/single_pass.py).  Any other string raises NotImplementedError."""
 
     def __init__(self, model_def: ModelDef, matmul_precision: str = "highest",
                  *, device: str | torch.device | None = None):
         super().__init__()
-        if matmul_precision != "highest":
-            raise NotImplementedError(
-                f"matmul_precision={matmul_precision!r} is not served by the "
-                "port: only 'highest' (exact fp32) is; 'high' and 'default' "
-                "wait for their certification on the card (ROADMAP.md §1, "
-                "item 4: the remaining precision modes)")
+        single_pass_of(matmul_precision)            # raises if not served
         device = resolve_device(device)
         self.definition = model_def
         self.matmul_precision = matmul_precision
@@ -513,7 +528,7 @@ class GraphModel(nn.Module):
         key = _module_key(name)
         return dict(self.layers[key]) if key in self.layers else {}
 
-    def _run(self, inputs: list) -> list:
+    def _run(self, inputs: list, rnd) -> list:
         values: dict[tuple[str, int], Any] = {}
         for name, x in zip(self._input_names, inputs):
             values[(name, 0)] = x
@@ -528,7 +543,7 @@ class GraphModel(nn.Module):
             layer = model.layers[name]
             xs = [lookup(r) for r in layer.inbound[j]]
             if layer.submodel is not None:
-                outs = self.subgraphs[_module_key(name)]._run(xs)
+                outs = self.subgraphs[_module_key(name)]._run(xs, rnd)
                 out = outs[0] if len(outs) == 1 else outs
             elif layer.class_name == "TFOpLambda":
                 kw = (layer.call_kwargs[j]
@@ -539,16 +554,22 @@ class GraphModel(nn.Module):
                 fn = _LAYER_FNS.get(layer.class_name)
                 if fn is None:
                     raise NotImplementedError(f"layer {layer.class_name}")
-                out = fn(layer, self._layer_params(name), xs)
+                rounding = (rnd,) if layer.class_name in _PRODUCTS else ()
+                out = fn(layer, self._layer_params(name), xs, *rounding)
             values[self._node_key(name, j)] = out
         return [lookup(ref) for ref in model.outputs]
 
-    def forward(self, *inputs):
+    def forward(self, *inputs, single_pass: bool | None = None):
+        """The graph's outputs at the model's matmul precision, or with
+        `single_pass` given, at single-pass bf16 (True) or fp32 (False):
+        a FaceDetector's precision string sets it for its network."""
+        if single_pass is None:
+            single_pass = single_pass_of(self.matmul_precision)
         device = self.device
         xs = [torch.as_tensor(np.asarray(x, np.float32), device=device)
               if not isinstance(x, torch.Tensor) else x for x in inputs]
         with fp32_exact():
-            outs = self._run(xs)
+            outs = self._run(xs, bf16_round if single_pass else _identity)
         return outs[0] if len(outs) == 1 else tuple(outs)
 
     @property
@@ -616,6 +637,7 @@ class TrainableGraphHead:
 
     def make_net(self, *, device=None) -> "TrainableGraphHeadNet":
         return TrainableGraphHeadNet(self._gm.definition,
+                                     self._gm.matmul_precision,
                                      device=resolve_device(device))
 
     def param_pairs(self):
@@ -626,15 +648,21 @@ class TrainableGraphHead:
 
 class TrainableGraphHeadNet(nn.Module):
     """The module of a `TrainableGraphHead`: (N, C) rows run as (N, 1, 1, C)
-    maps and come back as (N, outputs); a map runs as it is."""
+    maps and come back as (N, outputs); a map runs as it is, at the graph
+    model's own matmul precision.  A caller's `single_pass` does not reach
+    it: JAX's head runs under the GraphModel's own
+    `jax.default_matmul_precision`, which overrides the caller's."""
 
-    def __init__(self, model_def: ModelDef, *, device: torch.device):
+    def __init__(self, model_def: ModelDef, matmul_precision: str = "highest",
+                 *, device: torch.device):
         super().__init__()
-        self.graph = GraphModel(copy.deepcopy(model_def), device=device)
+        self.graph = GraphModel(copy.deepcopy(model_def), matmul_precision,
+                                device=device)
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        del generator                 # dropout is the identity here
+                generator: torch.Generator | None = None, *,
+                single_pass: bool = False) -> torch.Tensor:
+        del generator, single_pass    # dropout is the identity here
         squeeze = x.ndim == 2
         if squeeze:
             x = x[:, None, None, :]

@@ -34,6 +34,9 @@ on the CPU:
     values are exact in fp32), bias unrounded.  That is the JAX function
     at `simulate_fast=True`, the model of the MXU's Precision.DEFAULT.
     When an island is given, the four SSD 1x1 heads run so too;
+  * single_pass=True runs the whole network so, the stem too: the JAX
+    function under `jax.default_matmul_precision("default")`, the
+    detector's precision "default" (models/single_pass.py);
   * simulate_fast="weights" or "acts" rounds only that operand of the
     island's convs (JAX's error-decomposition probes); False rounds
     neither, the fp32 function JAX computes for an island on its CPU;
@@ -67,6 +70,7 @@ from torch import nn
 
 from ..utils.device import resolve_device
 from .heads import _uniform
+from .single_pass import bf16_round, fp32_exact
 
 __all__ = ["BlazeFace", "BlazeFaceNet", "BLAZEFACE_FRONT", "BLAZEFACE_BACK",
            "turbo_fast_blocks", "TURBO_FAST_BLOCKS", "bf16_round",
@@ -146,11 +150,6 @@ def turbo_fast_blocks(spec: BlazeFace) -> tuple[int, ...]:
 TURBO_FAST_BLOCKS = turbo_fast_blocks(BLAZEFACE_FRONT)   # (10, ..., 15)
 
 
-def bf16_round(t: torch.Tensor) -> torch.Tensor:
-    """t rounded to bf16 (to nearest, ties to even), as float32."""
-    return t.to(torch.bfloat16).to(torch.float32)
-
-
 def _identity(t: torch.Tensor) -> torch.Tensor:
     return t
 
@@ -163,26 +162,6 @@ def _roundings(mode: bool | str):
         return _identity, _identity
     return (_identity if mode == "weights" else bf16_round,
             _identity if mode == "acts" else bf16_round)
-
-
-@contextlib.contextmanager
-def fp32_exact():
-    """TF32 off for cuDNN convs and matrix products inside the block, the
-    previous settings restored after it (no-ops on the CPU).  When both are
-    off already, as a CUDA `FaceDetector` leaves them, it sets nothing: a
-    setter call costs host time on the serving path."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    if saved == (False, False):
-        yield
-        return
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def _pad_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
@@ -238,14 +217,30 @@ class BlazeBlock(nn.Module):
                 K, bias = self.composed()
                 t = self._conv3(ra(x), rw(K)) + bias[:, None, None]
             elif fast:
-                t = (self._conv3(ra(x), rw(self.dw.weight), self.dw.groups)
-                     + self.dw.bias[:, None, None])
-                t = (F.conv2d(ra(t), rw(self.pw.weight))
-                     + self.pw.bias[:, None, None])
+                t = self.pointwise(self.depthwise(x, fast), fast)
             else:
                 t = self.pw(self.dw(_pad_same(x, 3, 2) if self.stride == 2
                                     else x))
         return self.finish(t, x)
+
+    def depthwise(self, x: torch.Tensor,
+                  fast: bool | str = True) -> torch.Tensor:
+        """The separable island's first product over NCHW x: the depthwise
+        3x3 of its rounded operands (as `forward`'s `fast`) in fp32, plus
+        the bias unrounded."""
+        ra, rw = _roundings(fast)
+        with fp32_exact():
+            return (self._conv3(ra(x), rw(self.dw.weight), self.dw.groups)
+                    + self.dw.bias[:, None, None])
+
+    def pointwise(self, t: torch.Tensor,
+                  fast: bool | str = True) -> torch.Tensor:
+        """The separable island's second product: the pointwise 1x1 of the
+        depthwise output t, its operands rounded as `depthwise`'s."""
+        ra, rw = _roundings(fast)
+        with fp32_exact():
+            return (F.conv2d(ra(t), rw(self.pw.weight))
+                    + self.pw.bias[:, None, None])
 
     def finish(self, t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """relu(t + skip): the skip is x, max-pooled 2x2/2 at stride 2 and
@@ -291,13 +286,24 @@ class BlazeFaceNet(nn.Module):
 
     def forward(self, x: torch.Tensor, *, dense: bool = False,
                 fast_blocks: tuple[int, ...] | None = None,
-                simulate_fast: bool | str = True
-                ) -> dict[str, torch.Tensor]:
+                simulate_fast: bool | str = True,
+                single_pass: bool = False) -> dict[str, torch.Tensor]:
         """x (B, S, S, 3) NHWC → the dict above.  `dense` composes every
         block into one 3x3 conv; `fast_blocks` are the blocks at single-pass
         bf16, and when there are any, the SSD heads run so too (the JAX
         `BlazeFace.apply` with `simulate_fast=True`; "weights" or "acts"
-        round that operand only, False neither).  The stem stays fp32."""
+        round that operand only, False neither).  The stem stays fp32.
+
+        `single_pass=True` is the whole network at single-pass bf16, the
+        JAX function under `jax.default_matmul_precision("default")`: the
+        stem too, every block and the SSD heads (models/single_pass.py);
+        it takes no `fast_blocks` and rounds both operands."""
+        if single_pass:
+            if fast_blocks is not None or simulate_fast is not True:
+                raise ValueError("single_pass rounds every conv of the "
+                                 "network: it takes no fast_blocks and no "
+                                 "simulate_fast other than True")
+            fast_blocks = range(len(self.blocks))
         fast = frozenset(fast_blocks or ())
         bad = sorted(i for i in fast if not 0 <= i < len(self.blocks))
         if bad:
@@ -307,8 +313,7 @@ class BlazeFaceNet(nn.Module):
                 or simulate_fast in ("weights", "acts")):
             raise ValueError(f"simulate_fast must be True, False, "
                              f"'weights' or 'acts', got {simulate_fast!r}")
-        B = x.shape[0]
-        y = self._stem(x)
+        y = self._stem(x, single_pass)
         feat88 = None
         for i, block in enumerate(self.blocks):
             y = block(y, dense=dense, fast=simulate_fast if i in fast
@@ -316,44 +321,65 @@ class BlazeFaceNet(nn.Module):
             if i == self.spec.tap88_block:
                 feat88 = y
         feat96 = y
-        ra, rw = _roundings(simulate_fast if fast else False)
+        scores, loc = self.ssd(feat88, feat96,
+                               simulate_fast if fast else False)
+        return {"feat88": _nhwc(feat88).contiguous(),
+                "feat96": _nhwc(feat96).contiguous(),
+                "scores": scores, "loc": loc}
 
-        def ssd(conv, feat):
-            if not fast or not simulate_fast:
+    def ssd(self, feat88: torch.Tensor, feat96: torch.Tensor,
+            fast: bool | str = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """(scores (B, 896), loc (B, 896, 16)) of the four SSD 1x1 heads on
+        the NCHW taps, flattened anchor-major; `fast` rounds their operands
+        as an island conv's (the bias unrounded)."""
+        ra, rw = _roundings(fast)
+
+        def head(conv, feat):
+            if not fast:
                 return _nhwc(conv(feat))
             with fp32_exact():
                 return _nhwc(F.conv2d(ra(feat), rw(conv.weight))
                              + conv.bias[:, None, None])
 
-        scores = torch.cat([ssd(self.cls_front, feat88).reshape(B, -1),
-                            ssd(self.cls_back, feat96).reshape(B, -1)], 1)
-        loc = torch.cat([ssd(self.loc_front, feat88).reshape(B, -1, 16),
-                         ssd(self.loc_back, feat96).reshape(B, -1, 16)], 1)
-        return {"feat88": _nhwc(feat88).contiguous(),
-                "feat96": _nhwc(feat96).contiguous(),
-                "scores": scores, "loc": loc}
+        B = feat88.shape[0]
+        scores = torch.cat([head(self.cls_front, feat88).reshape(B, -1),
+                            head(self.cls_back, feat96).reshape(B, -1)], 1)
+        loc = torch.cat([head(self.loc_front, feat88).reshape(B, -1, 16),
+                         head(self.loc_back, feat96).reshape(B, -1, 16)], 1)
+        return scores, loc
 
-    def tap(self, x: torch.Tensor,
-            tap_blocks: tuple[int, ...]) -> dict[str, torch.Tensor]:
+    def tap(self, x: torch.Tensor, tap_blocks: tuple[int, ...],
+            single_pass: bool = False) -> dict[str, torch.Tensor]:
         """x (B, S, S, 3) NHWC → {'block{i}_out': the map after block i
-        (NHWC; -1 is the stem's)} for each i in `tap_blocks`, in fp32.  The
-        stem and the blocks up to the last tap run, nothing past them (no
-        later block, no SSD head)."""
+        (NHWC; -1 is the stem's)} for each i in `tap_blocks`, in fp32, or
+        with `single_pass` each conv at single-pass bf16, as `forward`.
+        The stem and the blocks up to the last tap run, nothing past them
+        (no later block, no SSD head)."""
         bad = sorted(i for i in tap_blocks
                      if not -1 <= i < len(self.blocks))
         if bad:
             raise ValueError(f"tap_blocks {bad} are not blocks of this spec "
                              f"(-1 the stem, 0..{len(self.blocks) - 1})")
-        y = self._stem(x)
+        y = self._stem(x, single_pass)
         taps = {-1: y}
         last = max(tap_blocks, default=-1)
         for i, block in enumerate(self.blocks[:last + 1]):
-            y = taps[i] = block(y)
+            y = taps[i] = block(y, fast=single_pass)
         return {f"block{i}_out": _nhwc(taps[i]).contiguous()
                 for i in tap_blocks}
 
-    def _stem(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.stem(_pad_same(x.permute(0, 3, 1, 2), 5, 2)))
+    def _stem(self, x: torch.Tensor, single_pass: bool = False
+              ) -> torch.Tensor:
+        """The 5x5/2 stem and its ReLU over NHWC x, NCHW out; with
+        `single_pass`, of bf16(x) and bf16(kernel) in fp32, the bias
+        unrounded."""
+        x = _pad_same(x.permute(0, 3, 1, 2), 5, 2)
+        if not single_pass:
+            return torch.relu(self.stem(x))
+        with fp32_exact():
+            return torch.relu(F.conv2d(bf16_round(x),
+                                       bf16_round(self.stem.weight), stride=2)
+                              + self.stem.bias[:, None, None])
 
 
 def blazeface_from_h5(path) -> tuple[BlazeFace, dict]:

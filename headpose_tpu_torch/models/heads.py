@@ -44,6 +44,7 @@ from torch import nn
 
 from ..core.activations import get_activation
 from ..utils.device import local_part, resolve_device
+from .single_pass import einsum, linear
 
 __all__ = ["MLPHead", "ResidualMLPHead", "SkipMLPHead", "SEMLPHead",
            "SETransformerHead", "EnsembleHead", "HEAD_REGISTRY", "MLPHeadNet",
@@ -335,12 +336,15 @@ class MLPHeadNet(nn.Module):
         self._acts = [get_activation(act) for _, act in spec.layers]
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, *,
+                single_pass: bool = False) -> torch.Tensor:
         """`generator` turns train-mode dropout on: after every layer, the
-        linear output layer included, as JAX's `MLPHead.apply`."""
+        linear output layer included, as JAX's `MLPHead.apply`.
+        `single_pass` runs every product at single-pass bf16 (every head
+        family takes it; models/single_pass.py)."""
         for layer, act in zip(self.layers, self._acts):
-            x = _spatial_dropout(act(layer(x)), self.spec.dropout_rate,
-                                 generator)
+            x = _spatial_dropout(act(linear(layer, x, single_pass)),
+                                 self.spec.dropout_rate, generator)
         return x
 
     def l2_penalty(self, rate: float):
@@ -368,7 +372,8 @@ class ResidualMLPHeadNet(nn.Module):
         self._act = get_activation(spec.activation)
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, *,
+                single_pass: bool = False) -> torch.Tensor:
         """Train-mode dropout (a generator) after the projection, each
         block's two layers and the bottleneck, as JAX's."""
         act, rate = self._act, self.spec.dropout_rate
@@ -376,12 +381,15 @@ class ResidualMLPHeadNet(nn.Module):
         def drop(v):
             return _spatial_dropout(v, rate, generator)
 
-        x = drop(act(self.proj(x)))
+        def dense(layer, v):
+            return linear(layer, v, single_pass)
+
+        x = drop(act(dense(self.proj, x)))
         for blk in self.blocks:
-            y = drop(act(blk["fc1"](x)))
-            y = drop(act(blk["fc2"](y)))
+            y = drop(act(dense(blk["fc1"], x)))
+            y = drop(act(dense(blk["fc2"], y)))
             x = torch.relu(x + y)
-        return self.out(drop(act(self.bottleneck(x))))
+        return dense(self.out, drop(act(dense(self.bottleneck, x))))
 
     def l2_penalty(self, rate: float):
         """Kernels only, as the reference regularizes this family."""
@@ -405,7 +413,8 @@ class SkipMLPHeadNet(nn.Module):
         self._act = get_activation(spec.activation)
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, *,
+                single_pass: bool = False) -> torch.Tensor:
         """Train-mode dropout (a generator) after enc1, enc2 and the skip
         add, as JAX's."""
         act, rate = self._act, self.spec.dropout_rate
@@ -413,9 +422,12 @@ class SkipMLPHeadNet(nn.Module):
         def drop(v):
             return _spatial_dropout(v, rate, generator)
 
-        x1 = drop(act(self.enc1(x)))
-        x2 = drop(act(self.enc2(x1)))
-        return self.out(drop(act(self.dec(x2)) + x1))
+        def dense(layer, v):
+            return linear(layer, v, single_pass)
+
+        x1 = drop(act(dense(self.enc1, x)))
+        x2 = drop(act(dense(self.enc2, x1)))
+        return dense(self.out, drop(act(dense(self.dec, x2)) + x1))
 
     def l2_penalty(self, rate: float):
         """Kernels only, as the reference regularizes this family."""
@@ -436,10 +448,12 @@ class _SqueezeExcite(nn.Module):
         self.fc1 = nn.Linear(channels, mid, device=device)
         self.fc2 = nn.Linear(mid, channels, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                single_pass: bool = False) -> torch.Tensor:
         axes = tuple(range(1, x.ndim - 1))
         s = x.mean(dim=axes) if axes else x
-        s = torch.sigmoid(self.fc2(torch.relu(self.fc1(s))))
+        s = torch.relu(linear(self.fc1, s, single_pass))
+        s = torch.sigmoid(linear(self.fc2, s, single_pass))
         return x * s.reshape(s.shape[:1] + (1,) * len(axes) + s.shape[-1:])
 
 
@@ -454,9 +468,11 @@ class SEMLPHeadNet(nn.Module):
         self.out = nn.Linear(spec.hidden, spec.out_features, device=device)
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, *,
+                single_pass: bool = False) -> torch.Tensor:
         """No dropout in this family: train mode is inference."""
-        return self.out(torch.relu(self.fc(self.se(x))))
+        y = torch.relu(linear(self.fc, self.se(x, single_pass), single_pass))
+        return linear(self.out, y, single_pass)
 
     def l2_penalty(self, rate: float):
         return 0.0
@@ -514,36 +530,48 @@ class SETransformerHeadNet(nn.Module):
         return 0.0
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        """No dropout in this family: train mode is inference."""
+                generator: torch.Generator | None = None, *,
+                single_pass: bool = False) -> torch.Tensor:
+        """No dropout in this family: train mode is inference.
+        `single_pass` rounds the operands of every product, attention's
+        Q·Kᵀ and P·V included; the softmax and the layer norms stay fp32."""
         squeeze = x.ndim == 2
         if squeeze:
             x = x[:, None, None, :]
         B, H, W, C = x.shape
-        t = self.se(x).reshape(B, H * W, C)
+        t = self.se(x, single_pass).reshape(B, H * W, C)
         if _is_dtensor(self.query.w):
-            o = self._sharded_attention(t)
+            o = self._sharded_attention(t, single_pass)
         else:
             o = self._attention(t, self.query.w, self.query.b, self.key.w,
                                 self.key.b, self.value.w, self.value.b,
-                                self.attn_out.w)
+                                self.attn_out.w, single_pass)
         t = self.ln1(t + (o + self.attn_out.b))
-        t = self.ln2(t + self.ff2(torch.relu(self.ff1(t))))
-        y = self.out(torch.relu(self.fc(t.reshape(B, H, W, C))))
+
+        def dense(layer, v):
+            return linear(layer, v, single_pass)
+
+        t = self.ln2(t + dense(self.ff2, torch.relu(dense(self.ff1, t))))
+        y = dense(self.out, torch.relu(dense(self.fc,
+                                             t.reshape(B, H, W, C))))
         return y[:, 0, 0, :] if squeeze else y
 
-    def _attention(self, t, wq, bq, wk, bk, wv, bv, wo):
+    def _attention(self, t, wq, bq, wk, bk, wv, bv, wo,
+                   single_pass: bool = False):
         """Multi-head attention of tokens t (B, T, C) up to the output
         projection's bias, over the heads of the weights given."""
-        q = torch.einsum("btc,chd->bthd", t, wq) + bq
-        k = torch.einsum("bsc,chd->bshd", t, wk) + bk
-        v = torch.einsum("bsc,chd->bshd", t, wv) + bv
-        scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(
-            self.spec.key_dim)
-        o = torch.einsum("bhts,bshd->bthd", torch.softmax(scores, dim=-1), v)
-        return torch.einsum("bthd,hdc->btc", o, wo)
+        def product(equation, a, b):
+            return einsum(equation, a, b, single_pass)
 
-    def _sharded_attention(self, t):
+        q = product("btc,chd->bthd", t, wq) + bq
+        k = product("bsc,chd->bshd", t, wk) + bk
+        v = product("bsc,chd->bshd", t, wv) + bv
+        scores = product("bthd,bshd->bhts", q, k) / math.sqrt(
+            self.spec.key_dim)
+        o = product("bhts,bshd->bthd", torch.softmax(scores, dim=-1), v)
+        return product("bthd,hdc->btc", o, wo)
+
+    def _sharded_attention(self, t, single_pass: bool = False):
         """`_attention` under tensor parallelism (parallel.shard_head_params):
         heads are independent, so each rank attends over its own heads on
         its local tensors, and its output projection is that rank's part
@@ -568,7 +596,8 @@ class SETransformerHeadNet(nn.Module):
             t.to_local(grad_placements=grad),
             *(local(w) for w in (
                 self.query.w, self.query.b, self.key.w, self.key.b,
-                self.value.w, self.value.b, self.attn_out.w)))
+                self.value.w, self.value.b, self.attn_out.w)),
+            single_pass)
         o = DTensor.from_local(o, mesh, grad, run_check=False)
         return o.redistribute(mesh, t.placements)    # the sum over heads
 
@@ -633,23 +662,27 @@ class EnsembleHeadNet(nn.Module):
         return self._stacks[1]
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, *,
+                single_pass: bool = False) -> torch.Tensor:
+        """`single_pass` goes to every member; the combination (the
+        weights' products with the members' poses, the sums) is
+        elementwise and stays fp32."""
         if generator is not None:
             acc = None
             for i, member in enumerate(self.members):
-                y = member(x, generator)
+                y = member(x, generator, single_pass=single_pass)
                 if self._weights is not None:
                     y = y * self._weights[i]
                 acc = y if acc is None else acc + y
         else:
-            acc = self._grouped(x)
+            acc = self._grouped(x, single_pass)
         if self._weights is None:
             return acc / len(self.members)
         if self._bias is not None:
             acc = acc + self._bias
         return acc
 
-    def _grouped(self, x: torch.Tensor) -> torch.Tensor:
+    def _grouped(self, x: torch.Tensor, single_pass: bool) -> torch.Tensor:
         grad = torch.is_grad_enabled() and any(
             p.requires_grad for p in self.parameters())
         stacks = ([self._stack(idx) if len(idx) > 1 else None
@@ -659,13 +692,14 @@ class EnsembleHeadNet(nn.Module):
             first = self.members[idx[0]]
             w = self._weights[idx] if self._weights is not None else None
             if stack is None:
-                y = first(x)
+                y = first(x, single_pass=single_pass)
                 if w is not None:
                     y = y * w[0]
             else:
                 def member(params, buffers, rows, module=first):
                     return torch.func.functional_call(
-                        module, (params, buffers), (rows,))
+                        module, (params, buffers), (rows,),
+                        {"single_pass": single_pass})
 
                 ys = torch.func.vmap(member, in_dims=(0, 0, None))(
                     *stack, x)                                # (k, ..., 3)

@@ -52,19 +52,24 @@ class UnifiedPoseNet(nn.Module):
     def forward(self, x: torch.Tensor, heads: bool = True, *,
                 dense: bool = False,
                 fast_blocks: tuple[int, ...] | None = None,
-                simulate_fast: bool | str = True
-                ) -> dict[str, torch.Tensor]:
+                simulate_fast: bool | str = True,
+                single_pass: bool = False) -> dict[str, torch.Tensor]:
         """`heads=False` leaves out the pose maps: the detector's survivors
         profile runs the heads after NMS on the survivors' vectors.  `dense`,
         `fast_blocks` and `simulate_fast` go to the backbone
-        (`BlazeFaceNet.forward`); the pose heads run in fp32 in every
-        case."""
+        (`BlazeFaceNet.forward`), and the pose heads run in fp32 with
+        them.  `single_pass` goes to the backbone and to both heads: every
+        conv and product of the network at single-pass bf16, the JAX
+        function under `jax.default_matmul_precision("default")`."""
         out = self.backbone(x, dense=dense, fast_blocks=fast_blocks,
-                            simulate_fast=simulate_fast)
+                            simulate_fast=simulate_fast,
+                            single_pass=single_pass)
         if heads and self.head88 is not None:
-            out["pose_front"] = self.head88(out["feat88"])
+            out["pose_front"] = self.head88(out["feat88"],
+                                            single_pass=single_pass)
         if heads and self.head96 is not None:
-            out["pose_back"] = self.head96(out["feat96"])
+            out["pose_back"] = self.head96(out["feat96"],
+                                           single_pass=single_pass)
         return out
 
     def reference_outputs(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:

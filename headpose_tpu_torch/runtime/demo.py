@@ -192,8 +192,6 @@ def run_demo(model_path: str | None = None, source: int | str = 0,
 
 
 def main(argv=None) -> None:
-    from .fused import PRECISIONS
-
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", default=None,
                    help="H5, native model dir, or pretrained name (e.g. "
@@ -216,7 +214,9 @@ def main(argv=None) -> None:
                         "association")
     p.add_argument("--frames", type=int, default=None)
     p.add_argument("--headless", action="store_true")
-    p.add_argument("--precision", default="highest", choices=PRECISIONS)
+    p.add_argument("--precision", default="highest",
+                   choices=["highest", "high", "fast", "turbo", "max"],
+                   help="serving mode (FaceDetector's precision)")
     p.add_argument("--head_eval", default="auto",
                    choices=["auto", "map", "survivors"],
                    help="pose heads over every map cell ('map', the "

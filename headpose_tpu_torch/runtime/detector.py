@@ -21,6 +21,8 @@ Use:
                                         # segments; detect runs the kernels
     turbo = flagship_detector(precision="turbo")  # and a single-pass bf16
                                         # island of the trailing blocks
+    one = flagship_detector(precision="default")  # every conv and product
+                                        # at single-pass bf16
     det = FaceDetector.from_h5("joined.h5")         # a reference unified H5,
                                         # imported into the native model
     det = FaceDetector.from_h5_compat("joined.h5")  # the same file through
@@ -48,7 +50,7 @@ from ..parallel.distributed import all_gather_rows
 from ..parallel.mesh import axis_index, axis_size, mesh_device
 from ..tools.convert import load_native, params_from_jax
 from ..utils.device import resolve_device
-from .fused import PRECISIONS, fused_network, head_forward, island_of
+from .fused import SERVED_PRECISIONS, fused_network, head_forward, island_of
 from .results import BatchResults, Results
 
 __all__ = ["FaceDetector"]
@@ -88,7 +90,7 @@ class FaceDetector:
                    'map' otherwise (the flagship, 'unified-best-distilled').
     The resolved profile is `self.head_eval`.
 
-    `precision` is one of `runtime.fused.PRECISIONS`:
+    `precision` is one of `runtime.fused.SERVED_PRECISIONS`:
       'highest'  exact fp32: `detect` runs the cuDNN network, `detect_fused`
                  the fp32 fused kernels.
       'fast'     the JAX detector's certified fast mode at its precision
@@ -98,6 +100,36 @@ class FaceDetector:
                  (`ops.kernels.backbone2.apply_fused`); everything else is
                  fp32.  On the CPU it runs the plain split-bf16 version, so
                  the CPU shows the mode's own rounding.
+      'high'     JAX's pass-through string for the TPU's 3-pass split-bf16
+                 (`jax.default_matmul_precision("high")`): the 'fast'
+                 network, slab for slab (JAX's 'fast' differs from its
+                 'high' only by the dense composition, exact algebra, which
+                 the port's 'fast' never did).  Within the 0.1-degree
+                 budget: on the card (NVIDIA H100 80GB HBM3, 700.00 W) set
+                 agreement 1.0 and pose p99 6.7e-4 / max 1.28e-3 degrees
+                 on the parity corpus, 'fast''s figures, and the stress
+                 corpus's contract (JAX recorded 0.0024 degrees for 'high'
+                 on the TPU, docs/BENCH.md).
+      'default'  JAX's pass-through string for one bf16 pass: every conv
+                 and product JAX evaluates inside its
+                 `default_matmul_precision` block takes bf16-rounded
+                 operands (to nearest even), exact products and fp32 sums,
+                 the bias unrounded (`models.single_pass`): the bicubic
+                 resize GEMMs when frames are resized, the stem, each
+                 block's depthwise and pointwise convs, the four SSD heads
+                 and every pose-head product (the survivors' rows too).
+                 `detect` runs it through cuDNN and cuBLAS with TF32 off
+                 on the rounded operands, and the postprocess (kernel #1)
+                 in fp32; no kernel computes the single-pass separable
+                 network, so `detect_fused` raises.  OUTSIDE the parity
+                 budget: on the card (NVIDIA H100 80GB HBM3, 700.00 W)
+                 110 of 112 images keep their detection sets, pose p99
+                 0.85 / max 1.50 degrees on the parity corpus, and the
+                 stress corpus's contract fails (docs/certification_torch.
+                 json); on the CPU 109 of 112, p99 1.05 / max 20.3
+                 degrees (two detections past 2 degrees: 4.5 and 20.3),
+                 near JAX's own note of "~20 degrees" on pose maps at the
+                 TPU's single pass.
       'turbo'    'fast' with an island of blocks at single-pass bf16 (the
                  TPU's Precision.DEFAULT: bf16 operands, exact products,
                  fp32 sums), dense-composed (one 3x3 conv per block, through
@@ -155,9 +187,10 @@ class FaceDetector:
 
     `model` may also be a graph-compiled unified model (`from_h5_compat`;
     `params` None keeps the module's own weights, a JAX-layout dict loads
-    into it): it serves `detect` at precision 'highest' under the 'map'
-    profile; the other precisions, head_eval='survivors' and
-    `detect_fused` need a native backbone spec and raise.
+    into it): it serves `detect` at precision 'highest', 'high' (fp32,
+    bitwise 'highest') and 'default' (every product of the graph rounded)
+    under the 'map' profile; 'fast', 'turbo', 'max', head_eval='survivors'
+    and `detect_fused` need a native backbone spec and raise.
     """
 
     def __init__(self, model: UnifiedPoseModel, params: Any,
@@ -181,12 +214,8 @@ class FaceDetector:
         self.mesh = mesh
         self.data_axis = data_axis
         self.device = resolve_device(device)
-        if precision not in PRECISIONS:
-            raise ValueError(f"precision={precision!r} is not served by the "
-                             f"port; the served modes are {PRECISIONS}")
         graph = isinstance(model, GraphUnifiedModel)
-        if graph and precision != "highest":
-            raise ValueError(_NEEDS_SPEC.format(precision=precision))
+        _check_precision(precision, graph)
         if postprocess not in ("xla", "pallas", "auto"):
             raise ValueError(f"postprocess must be 'xla', 'pallas' or "
                              f"'auto', got {postprocess!r}")
@@ -267,7 +296,8 @@ class FaceDetector:
         """Any reference-format unified H5 (or a ModelDef parsed already)
         through the graph compiler (`core.graph`), on the detector's device:
         it serves graphs the native import cannot (heads that are not
-        1x1-conv chains, a flat graph), at precision 'highest'."""
+        1x1-conv chains, a flat graph), at precision 'highest', 'high' or
+        'default'."""
         from ..core.graph import load_graph_model
 
         device = resolve_device(kwargs.pop("device", None))
@@ -294,11 +324,10 @@ class FaceDetector:
     def detect(self, images) -> BatchResults:
         """images: (B, H, W, 3) or (H, W, 3), uint8/float 0-255, BGR by
         default; a numpy array or a tensor.  Returns the slabs on the
-        detector's device without synchronising.  At precision 'fast',
-        'turbo' and 'max' it is `detect_fused`."""
-        if self.precision in ("fast", "turbo", "max"):
-            return self.detect_fused(images)
-        return self._detect(images, fused=False)
+        detector's device without synchronising.  At precision 'high',
+        'fast', 'turbo' and 'max' a native model's detect is
+        `detect_fused`."""
+        return self._detect(images, fused=None)
 
     def detect_fused(self, images) -> BatchResults:
         """`detect` with the network computed through the fused backbone
@@ -306,17 +335,22 @@ class FaceDetector:
         detector's precision) instead of the cuDNN modules; the same
         preprocess and postprocess.  Under the survivors profile the heads
         run through their kernels on the survivors' rows.  A
-        graph-compiled model has no native spec for the kernels: it
-        raises."""
+        graph-compiled model has no native spec for the kernels, and no
+        kernel computes precision 'default': both raise."""
+        _check_precision(self.precision,
+                         isinstance(self.model, GraphUnifiedModel))
         if isinstance(self.model, GraphUnifiedModel):
-            if self.precision != "highest":
-                raise ValueError(_NEEDS_SPEC.format(
-                    precision=self.precision))
             raise ValueError(
                 "detect_fused runs the fused kernels of a native backbone "
                 "spec; this model was graph-compiled (from_h5_compat) and "
                 "exposes none.  Use detect, or load through "
                 "from_h5/from_native.")
+        if self.precision == "default":
+            raise ValueError(
+                "detect_fused has no kernel for precision 'default' (every "
+                "conv and product at single-pass bf16, the separable "
+                "network): use detect, which runs it through cuDNN and "
+                "cuBLAS on the rounded operands")
         return self._detect(images, fused=True)
 
     def _detect(self, images, fused: bool) -> BatchResults:
@@ -377,27 +411,33 @@ class FaceDetector:
         """The finished (B, F, 21) slab of frames x (B, H, W, 3) on the
         detector's device: preprocess, the network, the postprocess and,
         under the survivors profile, the survivors' gather and heads.
-        `fused` None is `detect`'s choice (the fused network at 'fast',
-        'turbo' and 'max'), True `detect_fused`'s.
+        `fused` None is `detect`'s choice (a native model's fused network
+        at 'high', 'fast', 'turbo' and 'max'), True `detect_fused`'s.  At
+        'default' the modules run with `single_pass`, the resize too.
 
         A plain tensor function: `detect` calls it under inference mode,
         and tools/aot.py traces it with `torch.export` (after one call
         has made the weight packs, which the trace takes as constants).
         Every kernel it reaches launches through an op of
         ops/kernels/library.py."""
+        precision = self.precision
+        graph = isinstance(self.model, GraphUnifiedModel)
+        _check_precision(precision, graph)
         if fused is None:
-            fused = self.precision != "highest"
+            fused = precision in ("high", "fast", "turbo", "max") and not graph
+        single_pass = precision == "default"
         if fused:
             island = (island_of(self.model.backbone, "turbo",
                                 self.turbo_island)
-                      if self.precision == "turbo" else None)
+                      if precision == "turbo" else None)
             network = functools.partial(fused_network, self.net,
-                                        precision=self.precision,
-                                        island=island)
+                                        precision=precision, island=island)
             heads = head_forward
         else:
-            network, heads = self.net, _module_forward
-        x = preprocess(x, self.input_size, self.channel_order)
+            network = functools.partial(self.net, single_pass=single_pass)
+            heads = functools.partial(_module_forward,
+                                      single_pass=single_pass)
+        x = preprocess(x, self.input_size, self.channel_order, single_pass)
         survivors = self.head_eval == "survivors"
         out = network(x, heads=not survivors)
         if survivors:
@@ -449,7 +489,7 @@ class FaceDetector:
         self.detect(np.zeros(shape, np.uint8))
 
 
-_NEEDS_SPEC = (
+_NEEDS_SPEC = (          # JAX's message, word for word
     "precision={precision!r} needs a native backbone spec (dense composition "
     "+ bf16 precision islands); this model was graph-compiled "
     "(from_h5_compat) and exposes none. Use precision='highest', or load "
@@ -458,6 +498,17 @@ _XLA_ON_CARD = (
     "postprocess='xla' (the plain chain of ops.detection) runs on the CPU "
     "only; on a CUDA device use 'auto' or 'pallas': kernel #1 gives the same "
     "slab bit for bit")
+
+
+def _check_precision(precision: str, graph: bool) -> None:
+    """Raise unless a detector serves `precision` (a graph-compiled one:
+    not 'fast', 'turbo' or 'max'); checked at construction and on every
+    call, since `precision` may change between calls."""
+    if precision not in SERVED_PRECISIONS:
+        raise ValueError(f"precision={precision!r} is not served by the "
+                         f"port; the served strings are {SERVED_PRECISIONS}")
+    if graph and precision in ("fast", "turbo", "max"):
+        raise ValueError(_NEEDS_SPEC.format(precision=precision))
 
 
 class GraphUnifiedModel(nn.Module):
@@ -477,10 +528,16 @@ class GraphUnifiedModel(nn.Module):
                              "takes (B, H, W, 3) frames of a fixed size")
         self.input_size = int(shape[1])
 
-    def forward(self, x: torch.Tensor, heads: bool = True
-                ) -> dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, heads: bool = True, *,
+                single_pass: bool = False) -> dict[str, torch.Tensor]:
+        """`single_pass` (the detector's 'default') rounds every product of
+        the graph.  JAX's adapter runs the graph under the GraphModel's own
+        `jax.default_matmul_precision` ('highest' as from_h5_compat loads
+        it), which overrides the detector's string; the port applies the
+        detector's string to the whole network."""
         del heads                      # the graph always computes the maps
-        cls_f, cls_b, loc_f, loc_b, pose_f, pose_b = self.graph(x)
+        cls_f, cls_b, loc_f, loc_b, pose_f, pose_b = self.graph(
+            x, single_pass=single_pass)
         B = x.shape[0]
         return {"scores": torch.cat([cls_f.reshape(B, -1),
                                      cls_b.reshape(B, -1)], 1),
@@ -502,5 +559,6 @@ def host_tensor(images) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def _module_forward(head: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
-    return head(x)
+def _module_forward(head: torch.nn.Module, x: torch.Tensor,
+                    single_pass: bool = False) -> torch.Tensor:
+    return head(x, single_pass=single_pass)

@@ -39,8 +39,10 @@ kernel entry points compose:
 
 On a CUDA device the kernels launch (or the call raises); on the CPU their
 plain versions run.  `FaceDetector.detect_fused` serves it end to end, and
-`FaceDetector.detect` too when the detector's precision is "fast", "turbo"
-or "max"; under the
+`FaceDetector.detect` too when the detector's precision is "high", "fast",
+"turbo" or "max" ("high", JAX's pass-through string for the TPU's 3-pass
+split-bf16, runs the "fast" network: `fused_network` takes it as "fast");
+under the
 survivors head profile the detector calls it with `heads=False` and runs
 `head_forward` on the survivors' rows.
 """
@@ -60,11 +62,18 @@ from ..ops.kernels.packing import packed
 from ..ops.kernels.se_attention import se_transformer_forward
 
 __all__ = ["fused_network", "head_forward", "head_route", "island_of",
-           "PRECISIONS"]
+           "PRECISIONS", "SERVED_PRECISIONS"]
 
-# fp32; split-bf16 segment pointwise; and that with a single-pass bf16
-# island of the trailing blocks, or of every block
+# the detector modes, the choices of the serving and export CLIs (JAX's
+# http.py and aot.py offer these four): fp32; split-bf16 segment pointwise;
+# and that with a single-pass bf16 island of the trailing blocks, or of
+# every block
 PRECISIONS = ("highest", "fast", "turbo", "max")
+# every string FaceDetector serves: the modes, and the two strings JAX's
+# detector passes through to jax.default_matmul_precision, "high" (the
+# TPU's 3 bf16 passes: the "fast" network) and "default" (one pass: every
+# conv and product of bf16-rounded operands, models/single_pass.py)
+SERVED_PRECISIONS = ("highest", "high", "fast", "turbo", "max", "default")
 
 
 def island_of(spec: BlazeFace, precision: str,
@@ -154,12 +163,14 @@ def fused_network(net: UnifiedPoseNet, x: torch.Tensor,
                   island=None) -> dict[str, torch.Tensor]:
     """x (B, S, S, 3) float32 NHWC in [-1, 1] → the dict of
     `UnifiedPoseNet.forward`, through the fused kernels; `precision` (one
-    of `PRECISIONS`) chooses the backbone; `island` overrides the "turbo"
-    island (`island_of`); `heads=False` leaves out the pose maps.  The pose
-    heads run in fp32 in every mode."""
+    of `PRECISIONS`, or "high", which is "fast") chooses the backbone;
+    `island` overrides the "turbo" island (`island_of`); `heads=False`
+    leaves out the pose maps.  The pose heads run in fp32 in every mode."""
+    if precision == "high":
+        precision = "fast"
     if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}, got "
-                         f"{precision!r}")
+        raise ValueError(f"fused_network computes the precisions "
+                         f"{PRECISIONS} and 'high', got {precision!r}")
     if island is not None and precision != "turbo":
         raise ValueError(f"an island is the \"turbo\" mode's option, not "
                          f"{precision!r}'s")

@@ -24,7 +24,9 @@ Notes
   runtime flag.
 - A program traced on a CUDA device holds the port's kernels as op nodes
   (kernel #1 in every program; #3, #4, the island kernels and #5 as the
-  precision and heads launch them); a program traced on the CPU holds the
+  precision and heads launch them: at "high" those of "fast", at
+  "default" #1 alone, the network's bf16 roundings being plain casts in
+  the program); a program traced on the CPU holds the
   postprocess op, whose CPU implementation is the plain chain, and plain
   tensor ops for the rest.  The kernels build with nvcc on first use, as
   everywhere in the port.
@@ -96,7 +98,8 @@ def _op_nodes(program) -> list[str]:
 
 
 def export_detector(det, path: str, batch_sizes: Sequence[int] = (1, 128),
-                    image_shape: tuple[int, int] | None = None) -> dict:
+                    image_shape: tuple[int, int] | None = None,
+                    platforms: Sequence[str] | None = None) -> dict:
     """Serialize `det`'s serving pipeline for the given batch widths.
 
     det: a runtime.FaceDetector (any loader).  Its full serving config —
@@ -109,6 +112,11 @@ def export_detector(det, path: str, batch_sizes: Sequence[int] = (1, 128),
     image_shape: (H, W) of the raw frames the programs accept; defaults to
         the model's native input resolution (128 front / 256 back), which
         skips nothing — other sizes just add the bicubic resize in-program.
+    platforms: the device types the programs run on (JAX's lowering
+        targets): None for the detector's, or ("cuda",) or ("cpu",), which
+        must be the detector's device type.  A program runs on the one
+        device type it was traced on, so "tpu", another type than the
+        detector's and a mix raise ValueError.
 
     The detector runs once on zero frames first, on its device: that makes
     the weight packs (and on the card builds the kernels), which the trace
@@ -122,8 +130,14 @@ def export_detector(det, path: str, batch_sizes: Sequence[int] = (1, 128),
     batch_sizes = sorted(set(int(b) for b in batch_sizes))
     if not batch_sizes or batch_sizes[0] < 1:
         raise ValueError(f"batch_sizes must be positive ints, got {batch_sizes}")
-    h, w = image_shape if image_shape is not None else (det.input_size,) * 2
     device = det.device
+    if platforms is not None and tuple(platforms) != (device.type,):
+        raise ValueError(
+            f"platforms={tuple(platforms)}: a program of the port runs on "
+            f"the one device type it is traced on, the detector's "
+            f"({device.type!r},); the port has no TPU target. Build the "
+            "detector on the device the programs should run on.")
+    h, w = image_shape if image_shape is not None else (det.input_size,) * 2
     backend = "pallas" if device.type == "cuda" else "xla"
 
     os.makedirs(path, exist_ok=True)
@@ -320,7 +334,8 @@ def main(argv: Sequence[str] | None = None) -> None:
     """CLI: export a model's serving pipeline to an AOT artifact directory.
 
     python -m headpose_tpu_torch.tools.aot --model unified-best-distilled
-        --out aot/ [--batch 1,128] [--precision fast] [--device cpu] ...
+        --out aot/ [--batch 1,128] [--platforms cuda] [--precision fast]
+        [--postprocess auto] [--device cpu] ...
     """
     import argparse
 
@@ -337,6 +352,10 @@ def main(argv: Sequence[str] | None = None) -> None:
                    help="comma-separated batch widths to export")
     p.add_argument("--device", default=None,
                    help="the device the programs run on (default: the card)")
+    p.add_argument("--platforms", default=None,
+                   help="comma-separated device types the programs run on "
+                        "(default: the device's; 'cuda' or 'cpu', the "
+                        "device's type)")
     p.add_argument("--image-size", type=int, default=None,
                    help="square raw-frame size the programs accept "
                         "(default: the model's native input resolution)")
@@ -345,9 +364,14 @@ def main(argv: Sequence[str] | None = None) -> None:
     p.add_argument("--iou-threshold", type=float, default=0.3)
     p.add_argument("--head-eval", default="auto",
                    choices=["auto", "map", "survivors"])
+    p.add_argument("--postprocess", default="auto",
+                   choices=["auto", "xla", "pallas"],
+                   help="FaceDetector's postprocess ('xla', the plain "
+                        "chain, runs on the CPU only)")
     args = p.parse_args(argv)
 
     kw = dict(precision=args.precision, head_eval=args.head_eval,
+              postprocess=args.postprocess,
               score_threshold=args.score_threshold,
               iou_threshold=args.iou_threshold, device=args.device)
     model_path = resolve_model_path(args.model)
@@ -361,9 +385,11 @@ def main(argv: Sequence[str] | None = None) -> None:
         det = FaceDetector.from_h5(model_path, **kw)
 
     shape = (args.image_size,) * 2 if args.image_size else None
+    platforms = (tuple(args.platforms.split(","))
+                 if args.platforms else None)
     meta = export_detector(
         det, args.out, batch_sizes=[int(b) for b in args.batch.split(",")],
-        image_shape=shape)
+        image_shape=shape, platforms=platforms)
     sizes = {k: os.path.getsize(os.path.join(args.out, v["file"]))
              for k, v in meta["programs"].items()}
     print(json.dumps({"out": args.out, "batch_sizes": meta["batch_sizes"],

@@ -2,7 +2,8 @@
 
 The port's counterpart of scripts/certify_modes.py and the per-mode part of
 scripts/certify_stress.py.  It runs a detector (the flagship by default) in
-each mode ("highest", "fast", "turbo", "max") over
+each precision string it serves ("highest", "high", "fast", "turbo", "max",
+"default") over
 
   * tests/golden/parity_corpus.npz (112 images, 451 reference detections
     captured from the reference pipeline at threshold 0.4): detection-set
@@ -42,7 +43,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 PARITY = os.path.join(REPO, "tests", "golden", "parity_corpus.npz")
 STRESS = os.path.join(REPO, "tests", "golden", "stress_corpus.npz")
-MODES = ("highest", "fast", "turbo", "max")
+MODES = ("highest", "high", "fast", "turbo", "max", "default")
 AXES = ("threshold", "nms", "saturation", "overflow")
 IOU_MATCH = 0.5
 

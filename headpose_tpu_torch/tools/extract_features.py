@@ -7,9 +7,10 @@ cell the pose lookup reads) becomes a training row for each channel width:
 
     extract_dataset(images, poses, out_96="BIWI_custom_96.npz")
 
-Per batch: preprocess → the network at "highest" (the cuDNN modules, fp32,
-TF32 off, as `FaceDetector.detect` runs it) → the best face → the cell
-gather from the 16x16x88 and 8x8x96 maps.  The best face is what JAX's
+Per batch: preprocess → the network at the extractor's precision (the
+cuDNN modules, fp32 with TF32 off at "highest" and "high", every product
+of bf16-rounded operands at "default", as `FaceDetector.detect` runs them)
+→ the best face → the cell gather from the 16x16x88 and 8x8x96 maps.  The best face is what JAX's
 `nms_static(max_out=1)` picks: the argmax of sigmoid(logit) over the
 anchors above the threshold, the lowest index on a tie.  The argmax is over
 the probabilities, not the logits: fp32 sigmoid saturates to 1.0 above
@@ -23,7 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..models.blazeface import fp32_exact
+from ..models.single_pass import fp32_exact, single_pass_of
 from ..models.unified import UnifiedPoseNet
 from ..ops.detection import _f32, anchor_cells, score_threshold_to_logit
 from ..ops.image import preprocess
@@ -75,16 +76,22 @@ class FeatureExtractor:
     model's backbone (the flagship's by default).  `device=None` means the
     card and raises without one; pass `device="cpu"` for the CPU.
 
-    JAX's extractor also takes `iou_threshold` and `precision`: the first
-    pick of NMS does not depend on the IoU threshold, and the port
-    extracts at "highest" only (the fp32 network)."""
+    The options follow JAX's positional order.  `iou_threshold` is kept,
+    as JAX keeps it, and changes nothing: the best face is NMS's first
+    pick, which no IoU threshold can suppress.  `precision` is one of
+    `models.single_pass.MATMUL_PRECISIONS` (JAX passes it to
+    `jax.default_matmul_precision`): "highest" and "high" extract from the
+    fp32 network, "default" from the single-pass bf16 one.  The
+    thresholds and `precision` are read on every call."""
 
     def __init__(self, model=None, params=None,
-                 score_threshold: float = 0.4, channel_order: str = "bgr",
+                 score_threshold: float = 0.4, iou_threshold: float = 0.3,
+                 channel_order: str = "bgr", precision: str = "highest", *,
                  device: str | torch.device | None = None):
         if channel_order not in ("bgr", "rgb"):
             raise ValueError(f"channel_order must be 'bgr' or 'rgb', "
                              f"got {channel_order!r}")
+        single_pass_of(precision)                     # raises if not served
         if model is None:
             from ..pretrained import load_flagship
 
@@ -95,7 +102,9 @@ class FeatureExtractor:
         self.net = UnifiedPoseNet(model, device=self.device).eval()
         self.net.load_state_dict(params_from_jax(model, params))
         self.score_threshold = float(score_threshold)
+        self.iou_threshold = float(iou_threshold)
         self.channel_order = channel_order
+        self.precision = precision
 
     def extract(self, images) -> ExtractionResult:
         """images (B, H, W, 3) or (H, W, 3), uint8/float 0-255 →
@@ -103,11 +112,12 @@ class FeatureExtractor:
         x = host_tensor(images)
         if x.ndim == 3:
             x = x[None]
+        single_pass = single_pass_of(self.precision)
         with fp32_exact(), torch.inference_mode():
             x = preprocess(x.to(self.device),
                            self.net.spec.backbone.input_size,
-                           self.channel_order)
-            out = self.net(x, heads=False)
+                           self.channel_order, single_pass)
+            out = self.net(x, heads=False, single_pass=single_pass)
             best, score, found = best_face(
                 out["scores"],
                 _f32(score_threshold_to_logit(self.score_threshold)))

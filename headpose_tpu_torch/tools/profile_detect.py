@@ -1,14 +1,16 @@
 """Where the time of FaceDetector.detect (or detect_fused) goes on the card.
 
 Usage:  python -m headpose_tpu_torch.tools.profile_detect [--batch 128]
-            [--fused] [--precision highest|fast|turbo|max] [--model NAME]
+            [--fused] [--precision highest|high|fast|turbo|max|default]
+            [--model NAME]
 
 Runs a shipped model's detect (the flagship unless --model names another,
 e.g. unified-best, served at its head_eval="auto" profile; with --fused,
 detect_fused: the network through the fused backbone and pose-head kernels;
 with --precision fast, the detector's "fast" mode, whose detect runs the
-split-bf16 segment backbone through the same kernels; "turbo" and "max" add
-the single-pass bf16 island kernel) on parity-corpus
+split-bf16 segment backbone through the same kernels ("high" too);
+"turbo" and "max" add the single-pass bf16 island kernel; "default" runs
+the cuDNN and cuBLAS network on bf16-rounded operands) on parity-corpus
 frames under
 torch.profiler and prints one JSON object: the wall time of the profiled
 window, the device's busy time (the union of its kernel intervals) and idle
@@ -29,7 +31,7 @@ import time
 import numpy as np
 import torch
 
-from ..runtime.fused import PRECISIONS
+from ..runtime.fused import SERVED_PRECISIONS
 
 
 def _busy_us(events) -> float:
@@ -55,7 +57,7 @@ def main() -> None:
     parser.add_argument("--fused", action="store_true",
                         help="profile detect_fused instead of detect")
     parser.add_argument("--precision", default="highest",
-                        choices=PRECISIONS,
+                        choices=SERVED_PRECISIONS,
                         help="the detector's precision")
     parser.add_argument("--model", default=None,
                         help="a shipped model's name (default: the flagship)")

@@ -31,9 +31,17 @@ The device loop, the port's form of JAX's scanned blocks:
     draw at a time) come from CPU `torch.Generator`s seeded from
     `cfg.seed`, whatever the device, so a run on the card and one on the
     CPU see the same batches;
-  * `precision="highest"` is the one precision served: fp32 with TF32 off
-    for the whole step, the backward included (PyTorch's default lets
-    cuDNN convs use TF32).
+  * `precision` is the student's, as JAX's trainers pass it to
+    `jax.default_matmul_precision` (the teacher's targets are always
+    exact): "highest" and "high" are fp32 with TF32 off for the whole
+    step, the backward included (PyTorch's default lets cuDNN convs use
+    TF32; the TPU's "high" is three bf16 passes, an emulation of fp32);
+    "default" is the TPU's single bf16 pass: the forward's resize GEMMs,
+    stem, blocks and SSD heads (and distill_prefix's teacher taps) take
+    bf16-rounded operands (models/single_pass.py), and the backward runs
+    through autograd of the roundings, which rounds each rounded operand's
+    cotangent to bf16 as JAX's transpose of `astype` does, its products in
+    fp32 (JAX's `simulate_fast` convention).
 
 Entry points run on the card (`device=None`) unless the caller passes
 `device="cpu"`.  Params go in and come out in JAX layout (nested dicts and
@@ -49,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.blazeface import BlazeFace, BlazeFaceNet, fp32_exact
+from ..models.single_pass import single_pass_of
 from ..ops.image import preprocess
 from ..tools.convert import params_from_jax, params_to_jax
 from ..utils.device import resolve_device
@@ -80,7 +89,7 @@ class DetectorDistillConfig:
     loc_weight: float = 1.0
     steps_per_sync: int = 250        # steps per host read of the metrics
     seed: int = 0
-    precision: str = "highest"       # "highest" only (ROADMAP.md §1, item 4)
+    precision: str = "highest"       # models.single_pass.MATMUL_PRECISIONS
     # logits are compared through a smooth bounded squash s·tanh(x/s), so
     # saturated background anchors cannot dominate the MSE
     logit_squash: float = 8.0
@@ -111,16 +120,6 @@ class DetectorFitConfig:
 
 
 # ----------------------------------------------------------------- helpers
-def _check_precision(precision: str) -> None:
-    if precision != "highest":
-        raise NotImplementedError(
-            f"precision={precision!r} is not served by the port: only "
-            "'highest' (exact fp32, TF32 off in the forward and the "
-            "backward) is; 'high' and 'default' wait for their "
-            "certification on the card (ROADMAP.md §1, item 4: the "
-            "remaining precision modes)")
-
-
 def _generator(seed: int, stream: int) -> torch.Generator:
     """A CPU generator for one random stream of a run (0 the init, 1 the
     batch indices), a function of the seed only."""
@@ -328,7 +327,7 @@ def _fit_detector(spec, images_u8, boxes, mask, cfg, *, keypoints=None,
                   kp_weight=0.0, channel_order="bgr", init_params=None,
                   on_sync=None, device=None, indices=None, stop=None):
     """fit_detector, with `_train`'s `indices` and `stop`."""
-    _check_precision(cfg.precision)
+    single_pass = single_pass_of(cfg.precision)
     device = resolve_device(device)
     imgs = _on(images_u8, device)
     labels, loc_tgt = ssd_targets(
@@ -341,9 +340,10 @@ def _fit_detector(spec, images_u8, boxes, mask, cfg, *, keypoints=None,
     opt = Adam(net.parameters(), _schedule(cfg))
 
     def step(idx):
-        x = preprocess(imgs[idx], spec.input_size, channel_order)
-        loss, m = ssd_loss(spec, net(x), labels[idx], loc_tgt[idx], cfg,
-                           kp_weight)
+        x = preprocess(imgs[idx], spec.input_size, channel_order,
+                       single_pass)
+        loss, m = ssd_loss(spec, net(x, single_pass=single_pass),
+                           labels[idx], loc_tgt[idx], cfg, kp_weight)
         _update(opt, loss)
         return torch.stack([m[k].detach() for k in FIT_KEYS])
 
@@ -480,7 +480,7 @@ def _distill_detector(student_spec, teacher_spec, teacher_params, images_u8,
                       cfg, *, channel_order="bgr", init_params=None,
                       on_sync=None, device=None, indices=None, stop=None):
     """distill_detector, with `_train`'s `indices` and `stop`."""
-    _check_precision(cfg.precision)
+    single_pass = single_pass_of(cfg.precision)
     device = resolve_device(device)
     loc_scale = student_spec.input_size / teacher_spec.input_size
     imgs = _on(images_u8, device)
@@ -506,8 +506,10 @@ def _distill_detector(student_spec, teacher_spec, teacher_params, images_u8,
     opt = Adam(net.parameters(), _schedule(cfg), clip_norm=cfg.clip_norm)
 
     def step(idx):
-        x = preprocess(imgs[idx], student_spec.input_size, channel_order)
-        loss, m = _distill_loss(net(x), {k: v[idx] for k, v in tgt.items()},
+        x = preprocess(imgs[idx], student_spec.input_size, channel_order,
+                       single_pass)
+        loss, m = _distill_loss(net(x, single_pass=single_pass),
+                                {k: v[idx] for k, v in tgt.items()},
                                 norms, loc_scale, cfg)
         _update(opt, loss)
         return torch.stack([m[k].detach() for k in DISTILL_KEYS])
@@ -518,17 +520,20 @@ def _distill_detector(student_spec, teacher_spec, teacher_params, images_u8,
 
 
 def _prefix_loss(net: BlazeFaceNet, student_tap: int, teacher: BlazeFaceNet,
-                 teacher_tap: int, batch: torch.Tensor,
-                 channel_order: str) -> torch.Tensor:
+                 teacher_tap: int, batch: torch.Tensor, channel_order: str,
+                 single_pass: bool = False) -> torch.Tensor:
     """The stage-wise objective on a batch of uint8 frames: the student's
     tap map against the teacher's (computed without autograd), MSE over
-    the teacher map's second moment."""
+    the teacher map's second moment; `single_pass` runs both taps so, as
+    JAX computes both inside one `default_matmul_precision` block."""
     with torch.no_grad():
         tgt = teacher.tap(preprocess(batch, teacher.spec.input_size,
-                                     channel_order),
-                          (teacher_tap,))[f"block{teacher_tap}_out"]
-    out = net.tap(preprocess(batch, net.spec.input_size, channel_order),
-                  (student_tap,))[f"block{student_tap}_out"]
+                                     channel_order, single_pass),
+                          (teacher_tap,),
+                          single_pass)[f"block{teacher_tap}_out"]
+    out = net.tap(preprocess(batch, net.spec.input_size, channel_order,
+                             single_pass),
+                  (student_tap,), single_pass)[f"block{student_tap}_out"]
     return ((out - tgt) ** 2).mean() / ((tgt ** 2).mean() + 1e-6)
 
 
@@ -564,7 +569,7 @@ def _distill_prefix(student_spec, student_tap, teacher_spec, teacher_tap,
                     train_stem=True, channel_order="bgr", init_params=None,
                     on_sync=None, device=None, indices=None, stop=None):
     """distill_prefix, with `_train`'s `indices` and `stop`."""
-    _check_precision(cfg.precision)
+    single_pass = single_pass_of(cfg.precision)
     device = resolve_device(device)
     imgs = _on(images_u8, device)
     params = (init_params if init_params is not None
@@ -584,7 +589,7 @@ def _distill_prefix(student_spec, student_tap, teacher_spec, teacher_tap,
 
     def step(idx):
         loss = _prefix_loss(net, student_tap, teacher, teacher_tap,
-                            imgs[idx], channel_order)
+                            imgs[idx], channel_order, single_pass)
         _update(opt, loss)
         return loss.detach()[None]
 

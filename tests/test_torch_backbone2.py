@@ -596,10 +596,12 @@ def test_fused_network_fast_uses_apply_fused(fast):
         fused_network(fast.net, x, precision="bf16")
 
 
-@pytest.mark.parametrize("precision", ["default", "bf16", "high"])
+@pytest.mark.parametrize("precision", ["tensorfloat32", "bf16", "bfloat16"])
 def test_unserved_precisions_raise(precision):
-    """Precisions outside PRECISIONS raise: JAX's pass-through strings
-    ("default", "high": jax.default_matmul_precision's own) and any other;
-    the message names the served modes."""
-    with pytest.raises(ValueError, match="'highest', 'fast'"):
+    """Precisions outside SERVED_PRECISIONS raise: JAX's enum spellings
+    ("bfloat16", "tensorfloat32": jax.default_matmul_precision's aliases,
+    which no module of the JAX package passes) and any other; the message
+    names the six served strings."""
+    with pytest.raises(ValueError, match="'highest', 'high', 'fast', "
+                                         "'turbo', 'max', 'default'"):
         flagship_detector(device="cpu", precision=precision)

@@ -169,7 +169,7 @@ def test_trim_is_the_slab(det, corpus):
         np.testing.assert_array_equal(r.poses, batch.poses[b].numpy()[m])
 
 
-@pytest.mark.parametrize("kw", [dict(precision="default"),
+@pytest.mark.parametrize("kw", [dict(precision="bfloat16"),
                                 dict(head_eval="bogus"),
                                 dict(channel_order="bgra"),
                                 dict(device="mps"),

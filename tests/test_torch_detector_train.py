@@ -614,17 +614,21 @@ def test_on_sync_fires_at_block_ends_and_history_has_every_step():
 
 
 def test_other_precisions_raise():
+    """Strings outside the three JAX's trainers pass (JAX's enum spellings
+    "bfloat16" and "tensorfloat32") raise, naming the served strings."""
     spec = TINY_STUDENT
     imgs, boxes, mask, _ = squares(4, 32, 0)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    served = "'highest', 'high', 'default'"
+    with pytest.raises(NotImplementedError, match=served):
         tdet.fit_detector(spec, imgs, boxes, mask,
-                          tdet.DetectorFitConfig(precision="high"),
+                          tdet.DetectorFitConfig(precision="bfloat16"),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tdet.distill_detector(TINY_STUDENT, TINY_TEACHER,
-                              init(TINY_TEACHER, 0), imgs[:, :16, :16],
-                              tdet.DetectorDistillConfig(precision="default"),
-                              device="cpu")
+    with pytest.raises(NotImplementedError, match=served):
+        tdet.distill_detector(
+            TINY_STUDENT, TINY_TEACHER, init(TINY_TEACHER, 0),
+            imgs[:, :16, :16],
+            tdet.DetectorDistillConfig(precision="tensorfloat32"),
+            device="cpu")
 
 
 def test_surface_and_defaults_match_jax():

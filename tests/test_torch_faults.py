@@ -1,8 +1,10 @@
-"""The four faults of the port found against the JAX package, each held to
-the JAX function on the same input: the package surface, the contract of
+"""The faults of the port found against the JAX package, each held to the
+JAX function on the same input: the package surface, the contract of
 `ops.detection.anchor_cells` (and the single-image detection blocks beside
-it), the positional options of `FaceDetector`, and `like=` of the
-checkpoint restore."""
+it), the positional options of `FaceDetector`, `like=` of the checkpoint
+restore, the positional options of `FeatureExtractor` (F1), and
+`export_detector(platforms=)` with the aot CLI's `--platforms` and
+`--postprocess` (F2)."""
 import collections
 import importlib
 import os
@@ -226,3 +228,84 @@ def _flat(tree):
         return ([l for p in parts for l in p[0]],
                 (type(tree).__name__, tuple(p[1] for p in parts)))
     return [np.asarray(tree)], "leaf"
+
+
+def test_feature_extractor_takes_jax_positional_order():
+    """F1: FeatureExtractor(None, None, 0.4, 0.3) is JAX's flagship
+    extractor: the same rows on 4 corpus frames and the resized production
+    frame (tests/test_torch_extract.py's tolerances); the whole positional
+    order is JAX's, and iou_threshold= and precision= are taken."""
+    from headpose_tpu.tools.extract_features import (
+        FeatureExtractor as JaxExtractor)
+    from headpose_tpu_torch.tools.extract_features import FeatureExtractor
+
+    ext = FeatureExtractor(None, None, 0.4, 0.3, device="cpu")
+    jext = JaxExtractor(None, None, 0.4, 0.3)
+    corpus = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"][:4]
+    production = np.load(os.path.join(GOLDEN, "e2e_production.npz"))["img"]
+    for imgs in (corpus, production[None]):
+        got, want = ext.extract(imgs), jext.extract(imgs)
+        np.testing.assert_array_equal(got.found, want.found)
+        assert got.found.all()
+        for k in ("features88", "features96"):
+            np.testing.assert_allclose(getattr(got, k), getattr(want, k),
+                                       rtol=0, atol=2e-5, err_msg=k)
+        np.testing.assert_allclose(got.scores, want.scores, rtol=0,
+                                   atol=2e-6)
+    args = (0.5, 0.35, "rgb", "high")
+    mine = FeatureExtractor(None, None, *args, device="cpu")
+    theirs = JaxExtractor(None, None, *args)
+    for attr in ("score_threshold", "iou_threshold", "channel_order",
+                 "precision"):
+        assert getattr(mine, attr) == getattr(theirs, attr), attr
+    kw = FeatureExtractor(iou_threshold=0.5, precision="high", device="cpu")
+    assert (kw.iou_threshold, kw.precision) == (0.5, "high")
+    with pytest.raises(TypeError):              # device is keyword-only
+        FeatureExtractor(None, None, 0.4, 0.3, "bgr", "highest", "cpu")
+    with pytest.raises(NotImplementedError, match="not served"):
+        FeatureExtractor(precision="fast", device="cpu")
+
+
+def test_export_detector_takes_platforms(flagship, tmp_path):
+    """F2: export_detector(det, d, batch_sizes=(2, 4), platforms=("cpu",)),
+    as JAX's tests/test_aot.py:36-37 calls it, exports for the CPU; the
+    platforms must be the detector's device type: "tpu", "cuda" for a CPU
+    detector and a mix raise."""
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+    from headpose_tpu_torch.tools.aot import export_detector, load_exported
+
+    model, params = flagship
+    det = FaceDetector(model, params, score_threshold=0.5, device="cpu")
+    meta = export_detector(det, str(tmp_path / "a"), batch_sizes=(2, 4),
+                           platforms=("cpu",))
+    assert meta["platforms"] == ["cpu"] and meta["batch_sizes"] == [2, 4]
+    imgs = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"][:2]
+    assert torch.equal(load_exported(str(tmp_path / "a")).detect(imgs).slab,
+                       det.detect(imgs).slab)
+    for platforms in (("tpu",), ("cuda",), ("cpu", "cuda")):
+        with pytest.raises(ValueError, match="platforms"):
+            export_detector(det, str(tmp_path / "b"), batch_sizes=(2,),
+                            platforms=platforms)
+
+
+def test_aot_cli_takes_platforms_and_postprocess(tmp_path, capsys):
+    """F2: the aot CLI parses --platforms and --postprocess (JAX's
+    options), passing the latter to FaceDetector(postprocess=); its
+    --precision choices stay JAX's four modes."""
+    import json
+
+    from headpose_tpu_torch.tools.aot import load_exported, main
+
+    out = str(tmp_path / "cli")
+    main(["--out", out, "--batch", "2", "--device", "cpu", "--platforms",
+          "cpu", "--postprocess", "pallas"])
+    printed = json.loads(capsys.readouterr().out)
+    assert printed["platforms"] == ["cpu"]
+    assert load_exported(out).batch_sizes == [2]
+    with pytest.raises(ValueError, match="platforms"):
+        main(["--out", str(tmp_path / "tpu"), "--batch", "2", "--device",
+              "cpu", "--platforms", "tpu"])
+    for bad in (["--postprocess", "triton"], ["--precision", "high"],
+                ["--precision", "default"]):
+        with pytest.raises(SystemExit):
+            main(["--out", str(tmp_path / "x"), "--device", "cpu", *bad])

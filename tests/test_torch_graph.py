@@ -247,12 +247,14 @@ def test_flagship_fixture_matches_jax():
 
 
 def test_precision_and_unknown_layers_raise():
-    """Only matmul_precision='highest' is served; 'high' and 'default'
-    raise, naming the roadmap item."""
+    """matmul_precision outside the three strings JAX's modules pass
+    ('highest', 'high', 'default') raises: JAX's enum spellings
+    'bfloat16' and 'tensorfloat32' too, naming the served strings."""
     md = load_graph_model(os.path.join(FIXTURES, "head96.h5"),
                           device="cpu").definition
-    for p in ("high", "default"):
-        with pytest.raises(NotImplementedError, match="precision"):
+    for p in ("bfloat16", "tensorfloat32"):
+        with pytest.raises(NotImplementedError,
+                           match="'highest', 'high', 'default'"):
             GraphModel(md, matmul_precision=p, device="cpu")
 
 

@@ -337,15 +337,19 @@ def test_build_detector(tmp_path):
 
 def test_without_a_card_it_raises_and_never_serves_on_the_cpu(monkeypatch):
     """No device given means the card: without one _build_detector and the
-    CLI raise instead of serving on the CPU; the CLI's precisions are the
-    port's."""
+    CLI raise instead of serving on the CPU; the CLI's precisions are JAX's
+    four modes ("high" and "default", which _build_detector serves, are no
+    choice of it), and _build_detector refuses what FaceDetector does."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for model in (None, "unified-best-distilled"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             thttp._build_detector(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         thttp.main(["--port", "0"])
-    for precision in ("default", "bf16"):
+    for precision in ("high", "default"):
+        with pytest.raises(SystemExit):
+            thttp.main(["--port", "0", "--precision", precision])
+    for precision in ("bfloat16", "bf16"):
         with pytest.raises(SystemExit):
             thttp.main(["--port", "0", "--precision", precision])
         with pytest.raises(ValueError, match="not served"):

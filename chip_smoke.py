@@ -216,13 +216,25 @@ is one JSON object, except the nvidia-smi line:
            versions of h5py and tensorflow; where tensorflow imports, the
            flagship's .tflite through EdgeDetector against detect;
   parallel the multi-device paths (headpose_tpu_torch.parallel.dryrun, its
-           ranks spawned as processes): (a) one NCCL rank, mesh 1x1, the
-           flagship at "highest" and "fast" (and the survivors profile,
-           detect_fused, best_detector()'s model and the back model) on
-           the 128 main-path frames, each slab bitwise the unmeshed
-           detector's and each launch window equal to its, fit(mesh=) on
-           the train phase's rows within rtol 1e-5 of fit (bitwise or
-           not, printed); (b) two gloo ranks on cuda:0, mesh 2x1, the same
+           ranks spawned as processes; `parallel_plan` of the device
+           count): (a) one NCCL rank on every card, rank r on cuda:r (the
+           ranks' devices distinct, none host-staged).  On one card, mesh
+           1x1, the flagship at "highest" and "fast" (and the survivors
+           profile, detect_fused, best_detector()'s model and the back
+           model) on the 128 main-path frames, each slab bitwise the
+           unmeshed detector's and each launch window equal to its,
+           fit(mesh=) on the train phase's rows within rtol 1e-5 of fit
+           (bitwise or not, printed).  On N >= 2 cards every part at 128
+           rows a rank (batch 128 N): the same six paths on an (N, 1)
+           mesh against the unsharded detector of the whole batch on each
+           rank (valid identical, poses and boxes within 1e-5, each
+           window's launches the unsharded path's), the DynamicBatcher on
+           rank 0 over the mesh detector, dp fit, block mode, resume and
+           fit on the rows, the TP step on (N/2, 2) and (1, N); readings:
+           the sharded, unsharded and own-rows walls of each path, the
+           slab's all-gather (CUDA events), the warm TP steps, fit's
+           epochs, the batcher's frames per dispatch, and `nvidia-smi
+           topo -m`; (b) two gloo ranks on cuda:0, mesh 2x1, the same
            batch at 64 rows a rank against the unsharded detect (valid
            identical, poses and boxes within 1e-5), every rank's launch
            windows the unmeshed path's, the DynamicBatcher over the mesh
@@ -311,11 +323,16 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi_cards() -> list:
+    """Each card's name and power limit, as nvidia-smi gives them."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
+    return out.strip().splitlines()
+
+
+def nvidia_smi() -> str:
+    return nvidia_smi_cards()[0]
 
 
 # ------------------------------------------------------------ fuzz inputs
@@ -4252,49 +4269,102 @@ def phase_edge(flagship, corpus, card):
 # the parallel phase: the dryrun's ranks as processes
 PARALLEL_TIMEOUT_S = 300      # each spawn of ranks
 PARALLEL_KERNELS = ("postprocess_nms", "apply_fused", "mlp_head_forward")
+PARALLEL_ROWS_PER_CARD = 128  # the main path's batch, on every card
+
+
+def parallel_plan(n_cards: int) -> dict:
+    """The parallel phase's spawns of dryrun ranks on a machine of
+    `n_cards` cards, by run name: `parallel.dryrun.launch`'s keywords (the
+    device, frames, rows and timeout aside).  One NCCL rank on every card:
+    on one card the parts detect and fit at 128 rows; on N >= 2 every part
+    at 128 rows a rank, the TP step on the dryrun's `train_meshes(N)`
+    ((N/2, 2) and (1, N) where N is even and >= 4).  Then two gloo ranks sharing cuda:0, every
+    part at 64 rows a rank, the TP step on (1, 2)."""
+    from headpose_tpu_torch.parallel.dryrun import PARTS
+
+    if n_cards < 1:
+        raise ValueError(f"the parallel phase needs a card, got {n_cards}")
+    nccl = dict(nproc=n_cards, backend="nccl",
+                batch=PARALLEL_ROWS_PER_CARD * n_cards)
+    if n_cards == 1:
+        nccl["parts"] = ("detect", "fit")
+    else:
+        nccl["parts"] = PARTS
+    return {f"nccl_{n_cards}x1": nccl,
+            "gloo_2_ranks": dict(nproc=2, backend="gloo", same_device=True,
+                                 model_parallel=2, parts=PARTS,
+                                 batch=PARALLEL_ROWS_PER_CARD)}
+
+
+def _topology() -> dict:
+    """`nvidia-smi topo -m` as it answers (exit code and text), and which
+    cards can reach which other's memory directly (peer access)."""
+    try:
+        p = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                           text=True, timeout=60)
+        topo = {"exit": p.returncode, "text": (p.stdout + p.stderr).strip()}
+    except (OSError, subprocess.SubprocessError) as e:
+        topo = {"exit": None, "text": f"not run: {e}"}
+    n = torch.cuda.device_count()
+    topo["peer_access"] = [[i == j or torch.cuda.can_device_access_peer(i, j)
+                            for j in range(n)] for i in range(n)]
+    return topo
 
 
 def phase_parallel(card, rows: str):
-    """The multi-device paths on the card (parallel/dryrun.py): (a) one
-    NCCL rank, mesh 1x1; (b) and (c) two gloo ranks sharing cuda:0.  Every
-    rank's checks must hold.  Returns the detect windows' launches of #1,
-    #3 and #4 by run, rank and path."""
+    """The multi-device paths on the card (parallel/dryrun.py) by
+    `parallel_plan(torch.cuda.device_count())`: one NCCL rank on every
+    card, then two gloo ranks sharing cuda:0.  Every rank's checks must
+    hold.  Returns the detect windows' launches of #1, #3 and #4 by run,
+    rank and path."""
     import shutil
     import tempfile
 
-    from headpose_tpu_torch.parallel.dryrun import (PARTS, failed_checks,
-                                                    launch)
+    from headpose_tpu_torch.parallel.dryrun import failed_checks, launch
 
     t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
     out = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
-    common = dict(device="cuda", frames="corpus", batch=128, rows=rows,
-                  timeout=PARALLEL_TIMEOUT_S)
-    runs = {"nccl_1x1": launch(1, os.path.join(out, "a"), backend="nccl",
-                               parts=("detect", "fit"), **common),
-            "gloo_2_ranks": launch(2, os.path.join(out, "b"),
-                                   backend="gloo", same_device=True,
-                                   model_parallel=2, parts=PARTS, **common)}
-    report = {"phase": "parallel", "card": card}
+    plan = parallel_plan(n_cards)
+    runs = {run: launch(out=os.path.join(out, run), device="cuda",
+                        frames="corpus", rows=rows,
+                        timeout=PARALLEL_TIMEOUT_S, **kw)
+            for run, kw in plan.items()}
+    report = {"phase": "parallel", "card": card, "cards": n_cards,
+              "topology": _topology(), "plan": plan}
     launches = {}
     for run, ranks in runs.items():
         missed = failed_checks(ranks)
         if missed:
             raise AssertionError(f"parallel {run}: {missed}")
+        # every planned rank reported (under NCCL each rank's
+        # device[current] check holds rank r to cuda:r)
+        assert len(ranks) == plan[run]["nproc"], (run, len(ranks))
         for r in ranks:
             det = r["detect"]
             paths = {k: v for k, v in det.items() if isinstance(v, dict)}
             report[f"{run}/rank{r['rank']}"] = {
-                "checks": len(r["checks"]), "host_staged": r["host_staged"],
-                "part_s": r["part_s"],
+                "checks": len(r["checks"]), "device": r["device"],
+                "cuda_device": r["cuda_device"],
+                "host_staged": r["host_staged"], "part_s": r["part_s"],
+                "all_gather_rows_ms": det.get("all_gather_rows_ms"),
+                "all_gather_rows_bytes": det.get("all_gather_rows_bytes"),
                 "detect": {k: {f: v[f] for f in (
                     "detections", "bitwise", "pose_max_abs_diff",
-                    "launches_window", "wall_s", "wall_unsharded_s")}
+                    "launches_window", "wall_s", "wall_unsharded_s",
+                    "wall_local_rows_s")}
                     for k, v in paths.items()},
                 "fit": {k: {f: v[f] for f in (
                     "max_rel", "bitwise", "epoch_ms", "epoch_ms_one_process",
-                    "rows", "epochs") if f in v}
+                    "rows", "epochs", "wall_s", "wall_one_process_s")
+                    if f in v}
                     for k, v in r["fit"].items()},
-                "train": r.get("train"), "batcher": r.get("batcher")}
+                "train": {shape: {fam: {f: t[fam][f] for f in (
+                    "max_grad_err", "max_param_err", "sharded_params",
+                    "warm_step_ms", "warm_step_ms_unsharded")}
+                    for fam in t if fam != "mesh"}
+                    for shape, t in r.get("train_meshes", {}).items()},
+                "batcher": r.get("batcher")}
             for k in PARALLEL_KERNELS:
                 n = {path: v["launches_window"].get(k, 0)
                      for path, v in paths.items()
@@ -4620,6 +4690,7 @@ def main() -> int:
     card = nvidia_smi()
     dev = torch.device("cuda")
     emit({"phase": "device", "nvidia_smi": card,
+          "nvidia_smi_cards": nvidia_smi_cards(),
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda,

@@ -18,21 +18,26 @@ parts, as JAX's three:
            over 'model' (parallel.shard_head_params) and the batch over
            'data', for the mlp (dropout 0.01), se_transformer and
            ensemble families of JAX's dryrun (and the mlp without dropout),
-           on a (N/m, m) mesh, m = --model-parallel (JAX's choice when
-           unset: 2 where N is even and >= 4, else 1); the loss and
-           every gradient against the unsharded step on the rank
-           (TP_TOL), and every updated parameter within TP_TOL plus
-           what Adam's first step makes of the gradient's gap;
+           on the (N/m, m) mesh of m = --model-parallel (unset: each
+           mesh of `train_meshes`, JAX's choice, 2 where N is even and
+           >= 4, else 1, and then N); the loss and every gradient against the unsharded
+           step on the rank (TP_TOL), and every updated parameter within
+           TP_TOL plus what Adam's first step makes of the gradient's
+           gap; a warm step's time (forward, backward and Adam on a
+           persistent optimizer, nothing gathered), sharded and
+           unsharded;
   detect   (2) FaceDetector(mesh=...) on an (N, 1) mesh against the
            unsharded detector on the same frames: the flagship at
            "highest" and "fast", under head_eval="survivors" and through
            detect_fused, 'unified-best-distilled' and
            'unified-back-distilled'; valid identical, poses and boxes
-           within 1e-5, each window's kernel launches equal, walls; the
+           within 1e-5, each window's kernel launches equal, walls
+           (sharded, unsharded, and the unsharded detector on the rank's
+           own rows alone); the slab's all-gather timed; the
            divisibility error; the batch from host_local_batch;
            tools.aot refusing the mesh detector;
   batcher  rank 0's DynamicBatcher over the mesh detector, the other ranks
-           following (runtime.server.follow);
+           following (runtime.server.follow); frames per dispatch;
   fit      (3) fit(mesh=) on the (N, 1) mesh: data-parallel against the
            same fit without a mesh (at batch 64, and at full batch),
            block mode (epochs_per_sync=3)
@@ -41,7 +46,10 @@ parts, as JAX's three:
            (ROWS_EPOCHS epochs).
 
 The ranks run on the card unless --device cpu; without a card the
-launcher raises before it spawns any.
+launcher raises before it spawns any.  Rank r runs on cuda:r (cuda:0 for
+every rank under --same-device); each reports the device it found current
+and the collectives it staged through host memory, and `failed_checks`
+refuses NCCL ranks that share a device.
 
 Frames: the golden production image rolled (JAX's dryrun), the parity
 corpus at --batch (--frames corpus), or an .npz with `frames`.
@@ -91,8 +99,9 @@ def launch(nproc: int, out: str, *, device: str = "cuda",
            rows: str | None = None, timeout: float = 900.0) -> list[dict]:
     """Spawn the N ranks and wait for them; returns their results (rank
     order).  The ranks run on the card unless device="cpu"; without one
-    this raises before spawning.  Raises RuntimeError when a rank fails or
-    the timeout passes (every rank is stopped first)."""
+    this raises before spawning.  `model_parallel`: the train part's
+    'model' axis size (None: each of `train_meshes`).  Raises RuntimeError when a rank fails or the timeout passes (every
+    rank is stopped first)."""
     if device != "cpu":
         from ..utils.device import resolve_device
 
@@ -160,9 +169,18 @@ def launch(nproc: int, out: str, *, device: str = "cuda",
 
 
 def failed_checks(results: list[dict]) -> list[str]:
-    """The names of the checks that missed, over every rank."""
-    return [f"rank {res['rank']}: {name}" for res in results
-            for name, ok in res["checks"].items() if not ok]
+    """The names of the checks that missed, over every rank, and a miss for
+    each CUDA device that more than one NCCL rank reports as its own (NCCL
+    takes one rank a device)."""
+    missed = [f"rank {res['rank']}: {name}" for res in results
+              for name, ok in res["checks"].items() if not ok]
+    owners: dict[int, list[int]] = {}
+    for res in results:
+        if res.get("backend") == "nccl" and res.get("cuda_device") is not None:
+            owners.setdefault(res["cuda_device"], []).append(res["rank"])
+    missed += [f"ranks {ranks}: one device cuda:{d}"
+               for d, ranks in sorted(owners.items()) if len(ranks) > 1]
+    return missed
 
 
 def dryrun_multichip(n_devices: int, **kwargs) -> list[dict]:
@@ -182,6 +200,7 @@ class _Rank:
     """One rank's state: its mesh helpers, device and report."""
 
     def __init__(self, args):
+        from ..utils.device import resolve_device
         from . import initialize_distributed
 
         self.args = args
@@ -198,10 +217,17 @@ class _Rank:
             from .distributed import route_gloo_cuda_collectives
 
             route_gloo_cuda_collectives()
+        cuda = self.device.type == "cuda"
         self.report = {"rank": args.rank, "nproc": args.nproc,
                        "device": str(self.device),
+                       "cuda_device": (torch.cuda.current_device() if cuda
+                                       else None),
                        "backend": torch.distributed.get_backend(),
                        "checks": {}}
+        if cuda:
+            # the rank's tensors, streams and kernel launches on its card
+            self.check("device[current]", self.report["cuda_device"] == local
+                       and resolve_device(None) == self.device)
         self.arrays: dict[str, np.ndarray] = {}
         self.meshes: dict = {}
 
@@ -237,6 +263,8 @@ def part_mesh(rank: _Rank) -> None:
     out = {"shape": list(rank.mesh(1).mesh.shape)}
     if n % 2 == 0:
         out["shape_model_parallel_2"] = list(rank.mesh(2).mesh.shape)
+    if n > 2:
+        out[f"shape_model_parallel_{n}"] = list(rank.mesh(n).mesh.shape)
     for name, kw in (("too_many", dict(n_devices=2 * n)),
                      ("indivisible", dict(n_devices=n, model_parallel=3))):
         try:
@@ -327,7 +355,30 @@ def train_step(net, batch, generator_device):
     """One Adam step of JAX's dryrun (`_loss_and_metrics(..., 1e-6,
     True)`, adam(2.8e-4, eps=1e-7)) on `net`, its parameters plain or
     DTensors → (loss, mae, the gradients by name) as plain tensors."""
-    from ..train.loop import HeadOptimizer, _loss_and_metrics
+    from torch.distributed.tensor import DTensor
+
+    opt, generator = step_state(net, generator_device)
+    loss, mae = backward(net, opt, batch, generator)
+    with torch.no_grad():
+        grads = {k: (p.grad.full_tensor() if isinstance(p.grad, DTensor)
+                     else p.grad.clone()) for k, p in net.named_parameters()}
+    opt.step()
+    return loss.detach(), mae.detach(), grads
+
+
+def step_state(net, generator_device):
+    """`train_step`'s optimizer over `net` and its dropout generator."""
+    from ..train.loop import HeadOptimizer
+
+    return (HeadOptimizer(list(net.parameters()), "adam", TP_LR),
+            torch.Generator(device=generator_device).manual_seed(TP_SEED))
+
+
+def backward(net, opt, batch, generator):
+    """The step's forward and backward on `net`, each gradient left in its
+    parameter's placements (a replicated weight's partial sums summed) →
+    (loss, mae); `opt.step()` completes the step."""
+    from ..train.loop import _loss_and_metrics
 
     from torch.distributed.tensor import DTensor, Replicate
 
@@ -338,34 +389,63 @@ def train_step(net, batch, generator_device):
         mesh = t.device_mesh
         return t.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
 
-    params = list(net.parameters())
-    opt = HeadOptimizer(params, "adam", TP_LR)
-    generator = torch.Generator(device=generator_device).manual_seed(TP_SEED)
     loss, mae = _loss_and_metrics(net, batch, generator, TP_REG)
     loss, mae = whole(loss), whole(mae)
     opt.zero_grad()
     loss.backward()
     with torch.no_grad():
-        for p in params:       # a replicated weight's gradient: summed
+        for p in net.parameters():  # a replicated weight's gradient: summed
             if isinstance(p.grad, DTensor) and (p.grad.placements
                                                 != p.placements):
                 p.grad = p.grad.redistribute(p.device_mesh, p.placements)
-        grads = {k: (p.grad.full_tensor() if isinstance(p.grad, DTensor)
-                     else p.grad.clone()) for k, p in net.named_parameters()}
-    opt.step()
-    return loss.detach(), mae.detach(), grads
+    return loss.detach(), mae.detach()
+
+
+def warm_step_s(rank: _Rank, net, batch) -> float:
+    """Median seconds of the step once warm (`_wall`): forward, backward
+    and Adam on one persistent optimizer, no gradient gathered whole.  It
+    moves `net`'s parameters."""
+    opt, generator = step_state(net, rank.device)
+
+    def step():
+        backward(net, opt, batch, generator)
+        opt.step()
+
+    step()                          # the optimizer's state made
+    return _wall(rank, step)
+
+
+def train_meshes(n: int) -> tuple[int, ...]:
+    """The train part's 'model' axis sizes when none is asked for: JAX's
+    dryrun's choice (2 where N is even and >= 4, else 1), then N (every
+    rank on 'model')."""
+    return tuple(dict.fromkeys((2 if n % 2 == 0 and n >= 4 else 1, n)))
 
 
 def part_train(rank: _Rank) -> None:
+    """The TP step on the mesh of --model-parallel, or on each of
+    `train_meshes` where it is unset: the first mesh's
+    report is `train` (checks `train[<family>]`, arrays `train/...`), each
+    other's under its shape "<data>x<model>" (checks `train[<family>]@1x4`,
+    arrays `train@1x4/...`); `train_meshes` holds them all."""
+    n = rank.args.nproc
+    meshes = {}
+    mps = rank.args.model_parallel
+    for i, mp in enumerate((mps,) if mps else train_meshes(n)):
+        shape = f"{n // mp}x{mp}"
+        meshes[shape] = _train_on(rank, mp, "" if i == 0 else f"@{shape}")
+        if i == 0:
+            rank.report["train"] = meshes[shape]
+    rank.report["train_meshes"] = meshes
+
+
+def _train_on(rank: _Rank, mp: int, suffix: str) -> dict:
     from ..models.heads import head_net
     from ..tools.convert import params_from_jax, params_to_jax, \
         flatten_params
     from .mesh import MODEL_AXIS, axis_size, shard_head_params, shard_rows
 
     n = rank.args.nproc
-    mp = rank.args.model_parallel
-    if mp is None:
-        mp = 2 if n % 2 == 0 and n >= 4 else 1
     mesh = rank.mesh(mp)
     out = {"mesh": [n // mp, mp]}
     for name, spec, params, data in tp_cases(n):
@@ -373,18 +453,18 @@ def part_train(rank: _Rank) -> None:
         net = shard_head_params(spec, params, mesh)
         sharded = sum(1 for p in net.parameters() if any(
             not pl.is_replicate() for pl in p.placements))
-        loss, mae, grads = train_step(net, shard_rows(
-            {k: torch.from_numpy(v) for k, v in data.items()}, mesh),
-            rank.device)
+        batch = shard_rows({k: torch.from_numpy(v) for k, v in data.items()},
+                           mesh)
+        loss, mae, grads = train_step(net, batch, rank.device)
         got = {k: p.detach().full_tensor() for k, p in
                net.named_parameters()}
         rank.sync()
         t_tp = time.perf_counter() - t0
         ref = head_net(spec, device=rank.device)
         ref.load_state_dict(params_from_jax(spec, params))
-        ref_loss, ref_mae, ref_grads = train_step(ref, {
-            k: torch.from_numpy(v).to(rank.device) for k, v in data.items()},
-            rank.device)
+        local = {k: torch.from_numpy(v).to(rank.device)
+                 for k, v in data.items()}
+        ref_loss, ref_mae, ref_grads = train_step(ref, local, rank.device)
         want = {k: p.detach() for k, p in ref.named_parameters()}
         errs = {k: float((got[k] - want[k]).abs().max()) for k in got}
         worst = max(errs, key=errs.get)
@@ -396,7 +476,7 @@ def part_train(rank: _Rank) -> None:
                             TP_TOL) for k in grads)
               and _allclose(float(loss), float(ref_loss), TP_TOL, TP_TOL)
               and all(h[0] for h in held.values()))
-        rank.check(f"train[{name}]", ok and (
+        rank.check(f"train[{name}]{suffix}", ok and (
             sharded > 0 or axis_size(mesh, MODEL_AXIS) == 1))
         out[name] = {"loss": float(loss), "mae": float(mae),
                      "loss_unsharded": float(ref_loss),
@@ -410,14 +490,22 @@ def part_train(rank: _Rank) -> None:
         flat = flatten_params(params_to_jax(spec, {
             k: v.cpu() for k, v in got.items()}))
         for k, v in flat.items():
-            rank.arrays[f"train/{name}/{k}"] = np.asarray(v)
-        rank.arrays[f"train/{name}/loss"] = np.float32(float(loss))
+            rank.arrays[f"train{suffix}/{name}/{k}"] = np.array(v)  # a copy
+        rank.arrays[f"train{suffix}/{name}/loss"] = np.float32(float(loss))
+        # warm steps, sharded and unsharded; they move the parameters,
+        # which `got` and `want` may share
+        step_s = warm_step_s(rank, net, batch)
+        step_s_ref = warm_step_s(rank, ref, local)
+        out[name]["warm_step_ms"] = step_s * 1e3
+        out[name]["warm_step_ms_unsharded"] = step_s_ref * 1e3
         print(f"dryrun[{name}]: mesh={out['mesh']} loss={float(loss):.6f} "
               f"(unsharded {float(ref_loss):.6f}) max gradient err "
               f"{grad_err:.3g}, max param err {errs[worst]:.3g} ({worst}; "
               f"past {TP_TOL:g} within Adam's slack: "
-              f"{out[name]['params_past_tol']})", flush=True)
-    rank.report["train"] = out
+              f"{out[name]['params_past_tol']}), warm step "
+              f"{step_s * 1e3:.3f} ms (unsharded {step_s_ref * 1e3:.3f})",
+              flush=True)
+    return out
 
 
 # ------------------------------------------------------------- (2) detect
@@ -463,18 +551,42 @@ def _wall(rank: _Rank, fn, reps: int = 3) -> float:
     return float(np.median(walls))
 
 
+def _collective_ms(rank: _Rank, fn, reps: int = 10) -> float:
+    """Median milliseconds of fn(), each call started after a barrier of
+    every rank: CUDA events on the card, the host clock on the CPU."""
+    times = []
+    for _ in range(reps):
+        torch.distributed.barrier()
+        if rank.device.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
 def part_detect(rank: _Rank) -> None:
     import warnings
 
     from ..pretrained import load_pretrained
     from ..runtime.detector import FaceDetector
     from . import host_local_batch
+    from .distributed import all_gather_rows
 
     n = rank.args.nproc
     mesh = rank.mesh(1)
     frames = dryrun_frames(rank.args.frames, rank.args.batch, n)
     rank.arrays["detect/frames"] = frames
     dev = rank.device
+    rows = frames.shape[0] // n         # this rank's rows
+    mine = slice(rank.args.rank * rows, (rank.args.rank + 1) * rows)
     flagship = load_pretrained("unified-stoqa9pt-hrchr82r")
     best = load_pretrained("unified-best-distilled")
     with warnings.catch_warnings():        # a synthetic bring-up model
@@ -489,6 +601,7 @@ def part_detect(rank: _Rank) -> None:
                 ("back", back, {}, "detect"))
     out = {"frames": list(frames.shape), "mesh": [n, 1]}
     staged = torch.from_numpy(frames).to(dev)
+    staged_mine = staged[mine]
     for name, (model, params), kw, method in variants:
         det = FaceDetector(model, params, mesh=mesh, **kw)
         plain = FaceDetector(model, params, device=dev, **kw)
@@ -528,17 +641,24 @@ def part_detect(rank: _Rank) -> None:
                                    if v},
             "wall_s": _wall(rank, lambda: run(staged).slab),
             "wall_unsharded_s": _wall(rank, lambda: run_plain(staged).slab)}
+        run_plain(staged_mine)              # the rank's rows alone: warm
+        out[name]["wall_local_rows_s"] = _wall(
+            rank, lambda: run_plain(staged_mine).slab)
         for f in g:
             rank.arrays[f"detect/{name}/{f}"] = g[f]
         print(f"dryrun[detect:{name}]: {int(m.sum())} detections over "
               f"{n} ranks, sharded == unsharded: {ok} (bitwise {bitwise})",
               flush=True)
         if name == "flagship":
+            # the slab's gather over 'data' alone, on this rank's slab
+            slab = got.slab[mine].contiguous()
+            group = mesh.get_group("data")
+            out["all_gather_rows_ms"] = _collective_ms(
+                rank, lambda: all_gather_rows(slab, group))
+            out["all_gather_rows_bytes"] = slab.numel() * slab.element_size()
             # the batch as this rank's rows (host_local_batch), the
             # granularity and JAX's divisibility error, on every rank
-            rows = frames.shape[0] // n
-            local = frames[rank.args.rank * rows:(rank.args.rank + 1) * rows]
-            via = det.detect(host_local_batch(mesh, local))
+            via = det.detect(host_local_batch(mesh, frames[mine]))
             rank.check("detect[host_local_batch]", torch.equal(
                 via.slab.cpu(), got.slab.cpu()))
             out["batch_granularity"] = det.batch_granularity
@@ -584,7 +704,7 @@ def part_batcher(rank: _Rank) -> None:
         widths = b.widths
         futs = [b.submit(f) for f in frames]
         got = [fut.result(timeout=300) for fut in futs]
-        served = b.frames_served
+        served, dispatches = b.frames_served, b.dispatches
     ok = served == 3 and all(
         len(g.poses) == len(w.poses)
         and _allclose(g.poses, w.poses, **SERVE_POSE_TOL)
@@ -597,9 +717,11 @@ def part_batcher(rank: _Rank) -> None:
     rank.check("batcher[widths]", list(widths) == expect)
     rank.check("batcher[answers]", ok)
     rank.report["batcher"] = {"widths": list(widths), "frames_served": served,
+                              "dispatches": dispatches,
+                              "frames_per_dispatch": served / max(1, dispatches),
                               "detections": [len(g.poses) for g in got]}
-    print(f"dryrun[batcher]: widths {widths}, 3 frames answered as plain "
-          f"detect: {ok}", flush=True)
+    print(f"dryrun[batcher]: widths {widths}, 3 frames in {dispatches} "
+          f"dispatches answered as plain detect: {ok}", flush=True)
 
 
 # ----------------------------------------------------------------- (3) fit
@@ -639,13 +761,16 @@ def part_fit(rank: _Rank) -> None:
         t0 = time.perf_counter()
         r_mesh = fit(cfg.replace(run_name=f"{name}_mesh"), ds, mesh=mesh)
         t_mesh = time.perf_counter() - t0
+        t0 = time.perf_counter()
         r_one = fit(cfg.replace(run_name=f"{name}_one"), ds, device=dev)
+        t_one = time.perf_counter() - t0
         a, b = _history(r_mesh), _history(r_one)
         rank.check(f"fit[{name}]", _allclose(a, b, DP_FIT_RTOL, 0.0))
         out[name] = {"history": a.tolist(),
                      "history_one_process": b.tolist(),
                      "max_rel": float(np.abs(a / b - 1).max()),
-                     "bitwise": bool(np.array_equal(a, b)), "wall_s": t_mesh}
+                     "bitwise": bool(np.array_equal(a, b)), "wall_s": t_mesh,
+                     "wall_one_process_s": t_one}
         rank.arrays[f"fit/{name}"] = a
 
     cfg = config_96(in_features=16, num_filters=8, total_epochs=5,
@@ -716,6 +841,9 @@ def _worker(args) -> int:
     from .distributed import HOST_STAGED
 
     rank.report["host_staged"] = sorted(HOST_STAGED)
+    if rank.report["backend"] == "nccl":
+        # NCCL takes CUDA tensors: nothing goes through host memory
+        rank.check("nccl[not_host_staged]", not HOST_STAGED)
     torch.distributed.barrier()
     if args.rank == 0:
         np.savez(os.path.join(args.out, "rank0.npz"), **rank.arrays)
@@ -736,7 +864,9 @@ def main(argv=None) -> int:
                     help="default: nccl on cuda, gloo on cpu")
     ap.add_argument("--same-device", action="store_true",
                     help="every rank on cuda:0 (needs --backend gloo)")
-    ap.add_argument("--model-parallel", type=int, default=None)
+    ap.add_argument("--model-parallel", type=int, default=None,
+                    help="the train part's 'model' axis size (default: "
+                         "each of JAX's choice and N)")
     ap.add_argument("--parts", default=",".join(PARTS))
     ap.add_argument("--frames", default="production",
                     help="production, corpus, or an .npz with `frames`")

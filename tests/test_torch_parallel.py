@@ -60,7 +60,8 @@ def checks(results, prefix):
 
 # ------------------------------------------------------------------- mesh
 def test_create_mesh_shapes_and_refusals(ranks):
-    """(4, 1) and (2, 2) meshes, and both refusals with JAX's messages."""
+    """(4, 1), (2, 2) and (1, 4) meshes, and both refusals with JAX's
+    messages."""
     results, _ = ranks
     devs = jax.devices()[:N]
     want = {}
@@ -71,10 +72,12 @@ def test_create_mesh_shapes_and_refusals(ranks):
         want[name] = str(e.value)
     assert jax_create_mesh(N, devices=devs).devices.shape == (4, 1)
     assert jax_create_mesh(N, 2, devices=devs).devices.shape == (2, 2)
+    assert jax_create_mesh(N, 4, devices=devs).devices.shape == (1, 4)
     for r in results:
         mesh = r["mesh"]
         assert mesh["shape"] == [4, 1]
         assert mesh["shape_model_parallel_2"] == [2, 2]
+        assert mesh["shape_model_parallel_4"] == [1, 4]
         assert mesh["error_too_many"] == want["too_many"]
         assert mesh["error_indivisible"] == want["indivisible"]
 
@@ -103,18 +106,25 @@ def _families():
                 H.SkipMLPHead(in_features=88)))]
 
 
-@pytest.mark.parametrize("i", range(7))
-def test_head_param_specs_match_jax(i):
-    """Leaf by leaf, JAX's PartitionSpec at tp 2 carried onto the port's
-    layout (a dense kernel (out, in): its sharded dim flips)."""
+@pytest.mark.parametrize("i,tp", [pytest.param(i, 2, id=str(i))
+                                  for i in range(7)]
+                         + [pytest.param(i, 4, id=f"{i}@tp4")
+                            for i in range(7)])
+def test_head_param_specs_match_jax(i, tp):
+    """Leaf by leaf, JAX's PartitionSpec at tp 2 (a (2, 2) mesh) and tp 4
+    (the (1, 4) mesh) carried onto the port's layout (a dense kernel (out,
+    in): its sharded dim flips); a width that tp does not divide stays
+    replicated in both (at tp 4 the SE-MLP head on 88 features has none
+    that 4 divides: JAX replicates it whole, and so does the port)."""
     from torch.distributed.tensor import Replicate, Shard
 
     from headpose_tpu_torch.parallel import head_param_specs
 
     spec = _families()[i]
     params = spec.init(torch.Generator().manual_seed(0))
-    mine = head_param_specs(spec, params, 2)
-    theirs = jax_head_param_specs(jax_spec(spec), params, 2)
+    mine = head_param_specs(spec, params, tp)
+    theirs = jax_head_param_specs(jax_spec(spec), params, tp)
+    jax_shards = False
     for _, path, layout in _pairs(spec):
         got, want = mine, theirs
         for p in path:
@@ -122,11 +132,13 @@ def test_head_param_specs_match_jax(i):
         if "model" in tuple(want):
             d = tuple(want).index("model")
             expect = (Replicate(), Shard(1 - d if layout == DENSE else d))
+            jax_shards = True
         else:
             expect = (Replicate(), Replicate())
         assert tuple(got) == expect, (path, want)
+    assert jax_shards or (tp, i) == (4, 4)
     assert any(not pl.is_replicate() for leaf in flatten_leaves(mine)
-               for pl in leaf)
+               for pl in leaf) == jax_shards
 
 
 def flatten_leaves(tree):
@@ -137,36 +149,52 @@ def flatten_leaves(tree):
     return [tree]
 
 
-@pytest.mark.parametrize("family", ["mlp", "se_transformer", "ensemble",
-                                    "mlp_no_dropout"])
-def test_tp_step_matches_unsharded(ranks, family):
-    """The 2x2 TP+DP step on every rank against the unsharded step
-    (dropout masks included): the loss and every gradient element (the
-    dryrun's own check) and every updated parameter element within
-    1e-5."""
+def mesh_cases(families):
+    """(family, mesh) cases: the (2, 2) mesh, JAX's dryrun's choice for 4
+    devices, under the family's name; the (1, 4) mesh as `<family>@1x4`."""
+    return ([pytest.param(f, "2x2", id=f) for f in families]
+            + [pytest.param(f, "1x4", id=f"{f}@1x4") for f in families])
+
+
+@pytest.mark.parametrize("family,shape", mesh_cases(
+    ["mlp", "se_transformer", "ensemble", "mlp_no_dropout"]))
+def test_tp_step_matches_unsharded(ranks, family, shape):
+    """The TP+DP step on every rank, on the (2, 2) and the (1, 4) mesh,
+    against the unsharded step (dropout masks included): the loss and every
+    gradient element (the dryrun's own check) and every updated parameter
+    element within 1e-5.  JAX shards each of these families on both
+    meshes (it refuses none: a width that 4 does not divide stays
+    replicated)."""
     results, _ = ranks
-    assert all(checks(results, f"train[{family}]").values())
+    suffix = "" if shape == "2x2" else f"@{shape}"
+    assert all(ok for (_, name), ok in checks(
+        results, f"train[{family}]").items() if name.endswith(f"]{suffix}"))
     for r in results:
-        got = r["train"][family]
-        assert r["train"]["mesh"] == [2, 2]
+        train = r["train_meshes"][shape]
+        got = train[family]
+        assert train["mesh"] == [int(d) for d in shape.split("x")]
         assert got["sharded_params"] > 0
         assert got["max_param_err"] <= 1e-5
         np.testing.assert_allclose(got["loss"], got["loss_unsharded"], **TOL)
+    assert results[0]["train"]["mesh"] == [2, 2]     # the first mesh's
 
 
-@pytest.mark.parametrize("family", ["se_transformer", "ensemble",
-                                    "mlp_no_dropout"])
-def test_tp_step_matches_jax(ranks, family):
-    """The same step in JAX on create_mesh(4, model_parallel=2) (JAX's
-    dryrun step; its dropout masks are JAX's own, so the mlp with dropout
-    is held to the port's unsharded step only): loss and params 1e-5."""
+@pytest.mark.parametrize("family,shape", mesh_cases(
+    ["se_transformer", "ensemble", "mlp_no_dropout"]))
+def test_tp_step_matches_jax(ranks, family, shape):
+    """The same step in JAX on create_mesh(4, model_parallel=2) and
+    create_mesh(4, model_parallel=4) (JAX's dryrun step; its dropout masks
+    are JAX's own, so the mlp with dropout is held to the port's unsharded
+    step only): loss and params 1e-5."""
     from headpose_tpu.train.loop import _loss_and_metrics
 
     _, arrays = ranks
     name, spec, params, data = next(c for c in dryrun.tp_cases(N)
                                     if c[0] == family)
     jspec = jax_spec(spec)
-    mesh = jax_create_mesh(N, model_parallel=2, devices=jax.devices()[:N])
+    mp = int(shape.split("x")[1])
+    prefix = "train" if shape == "2x2" else f"train@{shape}"
+    mesh = jax_create_mesh(N, model_parallel=mp, devices=jax.devices()[:N])
     optimizer = optax.adam(dryrun.TP_LR, eps=1e-7)
     p = jax.tree.map(jnp.asarray, params)
     opt_state = optimizer.init(p)
@@ -184,10 +212,10 @@ def test_tp_step_matches_jax(ranks, family):
         return optax.apply_updates(p, updates), loss
 
     new, loss = step(p, opt_state, batch)
-    np.testing.assert_allclose(arrays[f"train/{name}/loss"], float(loss),
+    np.testing.assert_allclose(arrays[f"{prefix}/{name}/loss"], float(loss),
                                **TOL)
     for key, want in flatten_params(jax.tree.map(np.asarray, new)).items():
-        np.testing.assert_allclose(arrays[f"train/{name}/{key}"], want,
+        np.testing.assert_allclose(arrays[f"{prefix}/{name}/{key}"], want,
                                    **TOL, err_msg=key)
 
 

@@ -17,7 +17,9 @@ timeline (detect_stream, IoU tracking, process_frames) and
 precision="turbo" and "max" (the split-bf16 segments cut around a
 single-pass bf16 island whose blocks run through the island kernel,
 csrc/dense_bf16.cu), the AOT artifacts of tools/aot.py replayed with no
-model code, and the edge pipeline's native postprocess; it exits non-zero
+model code, the edge pipeline's native postprocess, and the matmul probe
+(tools/probe_matmul.py: the tiled bf16 GEMM of csrc/tiled_matmul.cu against
+cuBLAS) with the speed-of-light accounting that reads it; it exits non-zero
 on any failure (no phase catches its own failure).  It imports torch, numpy
 and the port: never jax, nor the headpose_tpu package.  Every line it prints
 is one JSON object, except the nvidia-smi line:
@@ -26,8 +28,8 @@ is one JSON object, except the nvidia-smi line:
   build    every kernel library built from csrc/ with nvcc, one nvcc per
            source, all started together; ptxas's registers and smem; the
            tensor-core (HMMA) instructions in the SASS of the split-bf16,
-           SE-Transformer and island libraries (the last two must have
-           some);
+           SE-Transformer, island and tiled-GEMM libraries (the last three
+           must have some);
   head_routes  how runtime.fused.head_forward runs each served model's
            heads ("kernel" or "module", from the head's spec);
   kernels  per kernel: holds it against its plain PyTorch version on the
@@ -57,6 +59,15 @@ is one JSON object, except the nvidia-smi line:
            apply_fused's launches; se_transformer_forward's by kernel;
            mlp_head_forward's per head, for the flagship's heads and for
            best_detector()'s);
+  kernel_matmul  tiled_matmul, the GEMM of the matmul probe (csrc/
+           tiled_matmul.cu, the port of scripts/probe_mosaic_matmul.py's
+           Pallas kernel): tools/probe_matmul.probe at 2048^3 and 4096^3 on
+           the JAX probe's seed-0 bf16 operands, in one launch window (every
+           tile's launches counted: 2 + iters each); each of the five tiles
+           against its plain version at the same tile and against the plain
+           float32 product within 1e-5 of the largest |plain|; ms and
+           TFLOP/s a tile beside the bound (2 n^3 / 989 TFLOP/s) and one
+           cuBLAS call (torch.mm with a float32 result);
   parity   flagship_detector().detect on the 112 parity-corpus images
            against the reference detections (set agreement 1.0, pose p99
            and max < 0.1 deg) and on e2e_production.npz; every launch count
@@ -99,6 +110,11 @@ is one JSON object, except the nvidia-smi line:
            "highest" one (one detection set, poses within 0.1 deg), each
            against the port's CPU detector on 16 frames; the B=128
            network stage and the "fast" detect wall times;
+  flops_accounting  tools/flops_accounting.account: the flagship's
+           dense-composed FLOPs a frame, the turbo phase's B=128 network
+           medians of "fast" and "max" as GFLOP a dispatch and effective
+           TFLOP/s, beside the kernel_matmul phase's cuBLAS and fastest-tile
+           rates;
   timing   detect wall time at B=1 and B=128 (host clock around a
            synchronised call) and the per-stage split at B=128;
   serve    the serving path: PoseClient → PoseServer(max_batch=128) →
@@ -284,7 +300,8 @@ is one JSON object, except the nvidia-smi line:
   the serve phase's beside them, the detector_train phase's windows
   of #1, #3, #4 and dense_chain, the aot phase's replay windows, the
   parallel phase's windows of #1, #3 and #4, and the matmul_precision
-  phase's windows), the nvidia-smi line, and last
+  phase's windows; tiled_matmul's from the kernel_matmul phase's probe
+  window), the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 """
 import dataclasses
@@ -532,12 +549,13 @@ def phase_build() -> dict:
     """Every kernel library, one nvcc per source, all started together."""
     from headpose_tpu_torch.ops.kernels import (backbone, backbone2,
                                                 dense_bf16, head_mlp,
-                                                postprocess, se_attention)
+                                                postprocess, se_attention,
+                                                tiled_matmul)
 
     mods = {"postprocess_nms": postprocess, "backbone_forward": backbone,
             "mlp_head_forward": head_mlp, "apply_fused": backbone2,
             "se_transformer_forward": se_attention,
-            "dense_block": dense_bf16}
+            "dense_block": dense_bf16, "tiled_matmul": tiled_matmul}
 
     def build(mod):
         t0 = time.perf_counter()
@@ -552,9 +570,10 @@ def phase_build() -> dict:
                               if "registers" in ln or "smem" in ln]}
              for name, mod in mods.items()}
     # the tensor-core kernels' mma instructions in their SASS
-    for name in ("apply_fused", "se_transformer_forward", "dense_block"):
+    for name in ("apply_fused", "se_transformer_forward", "dense_block",
+                 "tiled_matmul"):
         built[name]["sass_hmma"] = sass_count(mods[name].LIBRARY, "HMMA")
-    for name in ("se_transformer_forward", "dense_block"):
+    for name in ("se_transformer_forward", "dense_block", "tiled_matmul"):
         if built[name]["sass_hmma"] == 0:
             raise AssertionError(f"{name}'s library has no tensor-core "
                                  "instruction (HMMA) in its SASS")
@@ -1830,6 +1849,95 @@ def phase_kernel_dense(dev, flagship, back, frames128, frames256, built):
     return block_entry, chain_entry
 
 
+MATMUL_SIZES = (2048, 4096)   # the matmul probe's default and next size
+MATMUL_TOL_FRAC = 1e-5        # kernel against plain, of the largest |plain|
+
+
+def phase_kernel_matmul(built, card):
+    """tiled_matmul, the GEMM of the matmul probe: its main path is the
+    probe itself (tools/probe_matmul.probe) at MATMUL_SIZES, in one launch
+    window.  Every tile against its plain version at the same tile, and
+    against the plain float32 product, within MATMUL_TOL_FRAC of the
+    largest |plain| (the products are exact, only the sum order differs);
+    each tile's ms and TFLOP/s beside the bound and one cuBLAS call.
+    Returns the kernels line's entry (at 2048^3 the fastest tile) and the
+    GEMM rates for the flops accounting: cuBLAS's and the fastest tile's at
+    each size."""
+    from headpose_tpu_torch.ops.kernels import tiled_matmul as ktm
+    from headpose_tpu_torch.tools import probe_matmul
+
+    t0 = time.perf_counter()
+    reports = {}
+    reset_launches()                     # the probe's window opens
+    for n in MATMUL_SIZES:
+        reports[n] = probe_matmul.probe(n, device="cuda")
+    window = read_launches()             # ... and closes
+    expected = sum(len(ktm.TILES) * (2 + r["iters"])
+                   for r in reports.values())
+    seconds = time.perf_counter() - t0
+    emit({"phase": "kernel_matmul", "card": card,
+          "reports": {str(n): r for n, r in reports.items()},
+          "launches_window": {k: v for k, v in window.items() if v},
+          "expected_launches": expected, "seconds": seconds})
+    bad = [(n, name, row["rel_err_vs_plain"], row["rel_err"])
+           for n, r in reports.items() for name, row in r["tiles"].items()
+           if not (row["rel_err_vs_plain"] <= MATMUL_TOL_FRAC
+                   and row["rel_err"] <= MATMUL_TOL_FRAC)]
+    if bad:
+        raise AssertionError(f"tiled_matmul disagrees with its plain version "
+                             f"beyond {MATMUL_TOL_FRAC} of max|plain|: {bad}")
+    if {k: v for k, v in window.items() if v} != {"tiled_matmul": expected}:
+        raise AssertionError(f"the probe's window launched {window}, not "
+                             f"tiled_matmul {expected} times")
+    rates = {}
+    for n, r in reports.items():
+        fastest = min(r["tiles"], key=lambda k: r["tiles"][k]["ms"])
+        rates[f"cublas {n}^3"] = r["library"]["tflops"]
+        rates[f"tiled_matmul {fastest} {n}^3"] = r["tiles"][fastest]["tflops"]
+    r = reports[MATMUL_SIZES[0]]
+    head = min(r["tiles"], key=lambda k: r["tiles"][k]["ms"])
+    row = r["tiles"][head]
+    lib = built["tiled_matmul"]
+    entry = {
+        "name": "tiled_matmul", "route": "cuda",
+        "source": "headpose_tpu_torch/csrc/tiled_matmul.cu",
+        "replaces": "scripts/probe_mosaic_matmul.py:67",
+        "launches": window["tiled_matmul"],
+        "max_abs_err": max(t["max_abs_err_vs_plain"]
+                           for rr in reports.values()
+                           for t in rr["tiles"].values()),
+        "tolerance": f"{MATMUL_TOL_FRAC} of max|plain|",
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": r["bound"]["ms"], "bound_by": r["bound"]["bound_by"],
+        "library_ms": r["library"]["ms"], "library": r["library"]["call"],
+        "timed": f"tile {head} {tuple(row['tile'])} at "
+                 f"{MATMUL_SIZES[0]}^3, the fastest of the five",
+        "tiles": {str(n): {name: {k: t[k] for k in (
+            "ms", "tflops", "plain_ms", "rel_err_vs_plain")}
+            for name, t in rr["tiles"].items()}
+            for n, rr in reports.items()},
+        "library_tflops": {str(n): rr["library"]["tflops"]
+                           for n, rr in reports.items()},
+        "bound_ms_by_size": {str(n): rr["bound"]["ms"]
+                             for n, rr in reports.items()},
+        "build_s": lib["build_s"], "ptxas": lib["ptxas"],
+        "sass_hmma": lib["sass_hmma"]}
+    return entry, rates
+
+
+def phase_flops_accounting(network_ms, rates, card):
+    """tools/flops_accounting.account of the flagship's B=128 network
+    stage at "fast" and "max" (the turbo phase's medians of this run)
+    against the GEMM rates the matmul probe measured in this run."""
+    from headpose_tpu_torch.models import BLAZEFACE_FRONT
+    from headpose_tpu_torch.tools.flops_accounting import account
+
+    doc = account(BLAZEFACE_FRONT, {m: network_ms[m] for m in ("fast", "max")},
+                  rates)
+    emit({"phase": "flops_accounting", "card": card, **doc})
+    return doc
+
+
 def detect_walls(detect, imgs128) -> dict:
     """detect wall time at B=1 and B=128 (host clock around a synchronised
     call; median of 50 and 20 warm calls)."""
@@ -2587,7 +2695,7 @@ def phase_turbo(flagship, best, back_model, corpus, stress, frames128,
         raise AssertionError(f"turbo missed kernel #3: {windows['turbo']}")
     if not report["empty_island_bitwise_fast"]:
         raise AssertionError("turbo_island=() differs from fast")
-    return windows
+    return windows, report["b128_network_ms_median"]
 
 
 def head_routes() -> dict:
@@ -4728,6 +4836,7 @@ def main() -> int:
                phase_kernel_se(dev, flagship, frames128, built),
                *phase_kernel_dense(dev, flagship, back, frames128,
                                    frames256, built)]
+    matmul_entry, matmul_rates = phase_kernel_matmul(built, card)
     detect_launches = phase_parity(flagship, corpus, production)
     phase_stress(flagship, stress)
     phase_best(flagship, best, corpus)
@@ -4738,8 +4847,9 @@ def main() -> int:
     se_launches, se_report = phase_se(corpus)
     phase_unified_best(flagship, corpus)
     back_launches = phase_back(back_model, corpus, frames256)
-    turbo_launches = phase_turbo(flagship, best, back_model, corpus, stress,
-                                 frames128, card)
+    turbo_launches, turbo_network_ms = phase_turbo(
+        flagship, best, back_model, corpus, stress, frames128, card)
+    phase_flops_accounting(turbo_network_ms, matmul_rates, card)
     phase_timing(flagship, corpus, card)
     serve_launches = phase_serve(flagship, corpus, card)
     phase_stream(flagship, corpus, card)
@@ -4801,6 +4911,7 @@ def main() -> int:
         entry["launches_matmul_precision_window"] = {
             name: n[entry["name"]] for name, n in precision_launches.items()
             if n[entry["name"]]}
+    entries.append(matmul_entry)      # its window: the probe's own
     emit({"phase": "total", "script_s": time.perf_counter() - t_script})
     emit({"kernels": entries})
     print(card, flush=True)

@@ -19,6 +19,9 @@ _EXPORTS = {
     "postprocess_kernel": ".postprocess",
     "se_transformer_forward": ".se_attention",
 }
+# The matmul probe's wrapper shares its module's name, and importing a
+# submodule sets the package's attribute of that name to the module, so it
+# is not a lazy export: `from .tiled_matmul import tiled_matmul`.
 
 __all__ = sorted(_EXPORTS) + ["kernel_wrappers"]
 
@@ -34,6 +37,7 @@ def kernel_wrappers() -> dict:
     from .head_mlp import mlp_head_forward
     from .postprocess import postprocess_kernel
     from .se_attention import se_transformer_forward
+    from .tiled_matmul import tiled_matmul
 
     return {"postprocess_nms": postprocess_kernel,
             "backbone_forward": backbone_forward,
@@ -41,7 +45,7 @@ def kernel_wrappers() -> dict:
             "apply_fused": apply_fused,
             "se_transformer_forward": se_transformer_forward,
             "dense_block": dense_block, "dense_chain": dense_chain,
-            "run_segment": run_segment}
+            "run_segment": run_segment, "tiled_matmul": tiled_matmul}
 
 
 def __getattr__(name: str):

@@ -20,6 +20,10 @@ no model code on the import path:
   mlp_head           csrc/head_mlp.cu, kernel #4
   se_transformer     csrc/se_attention.cu, kernel #5
 
+`LIBRARIES` also holds csrc/tiled_matmul.cu, the GEMM of the matmul probe
+(tools/probe_matmul.py): ops/kernels/tiled_matmul.py launches it directly,
+since no exported program runs it.
+
 An op takes tensors, ints, floats and lists of ints only: the packs and the
 plans as the wrappers in this package (postprocess.py, backbone2.py,
 dense_bf16.py, head_mlp.py, se_attention.py) compute them on the host.  The
@@ -99,6 +103,9 @@ LIBRARIES = {lib.name: lib for lib in (
                 _declare(headpose_se_transformer=[_P] * 5 + [_I] * 2
                          + [_P] * 3),
                 NVCC_FLAGS_FMA),
+    CudaLibrary("tiled_matmul", [os.path.join(CSRC, "tiled_matmul.cu")],
+                _declare(headpose_tiled_matmul=[_P] * 3 + [_I] * 6 + [_P]),
+                NVCC_FLAGS),
 )}
 
 # launches counted by the ops' CUDA implementations; "apply_fused" counts

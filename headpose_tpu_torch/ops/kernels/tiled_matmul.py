@@ -1,0 +1,110 @@
+"""The tiled bf16 GEMM on the card: wrapper of csrc/tiled_matmul.cu.
+
+`tiled_matmul(a, b, tile)` is the counterpart of the TPU kernel
+scripts/probe_mosaic_matmul.py::make_pallas_matmul: a (M, K) bf16 @ b (K, N)
+bf16 -> (M, N) float32, the sum float32, over output tiles of tile =
+(bm, bn, bk) with K walked in steps of bk.  A tensor on the CPU goes
+through `tiled_matmul_plain`; a tensor on a CUDA device goes through the
+hand-written kernel, or the call raises.  Nothing else selects between the
+two.  The kernel takes the five tiles of `TILES`; the plain version any
+tile that divides the shapes.  Where the JAX grid (M/bm, N/bn, K/bk) would
+silently drop a ragged edge, both raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...models.single_pass import fp32_exact
+from . import library as lib
+
+__all__ = ["TILES", "tiled_matmul", "tiled_matmul_plain",
+           "tiled_matmul_cuda", "LIBRARY"]
+
+LIBRARY = lib.LIBRARIES["tiled_matmul"]
+SOURCE = LIBRARY.sources[0]
+
+# The kernel's template instances: the JAX probe's five block shapes
+# (scripts/probe_mosaic_matmul.py:137-138) at bm/4, bn/4 and bk/16, the
+# large one halved again (csrc/tiled_matmul.cu says why).
+TILES = {"square": (128, 128, 32), "wide_n": (128, 256, 32),
+         "narrow_m": (64, 256, 32), "large": (256, 128, 32),
+         "deep_k": (128, 128, 128)}
+
+
+def _check(a: torch.Tensor, b: torch.Tensor, tile) -> tuple[int, int, int]:
+    """(M, N, K) of a valid call; raises on anything else."""
+    bm, bn, bk = (int(v) for v in tile)
+    if min(bm, bn, bk) < 1:
+        raise ValueError(f"tile must be three positive ints, got {tile}")
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"a and b must be 2-D, got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise ValueError(f"a and b must be bfloat16, got {a.dtype} and "
+                         f"{b.dtype}")
+    if a.device != b.device:
+        raise ValueError(f"a is on {a.device}, b on {b.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("a and b must be contiguous")
+    (m, k), (k2, n) = a.shape, b.shape
+    if k != k2:
+        raise ValueError(f"a is (M, {k}) but b is ({k2}, N)")
+    if m % bm or n % bn or k % bk:
+        raise ValueError(f"(M, N, K) = ({m}, {n}, {k}) must be multiples of "
+                         f"the tile ({bm}, {bn}, {bk}): the JAX grid would "
+                         "silently drop the remainder")
+    return m, n, k
+
+
+@torch.no_grad()
+def tiled_matmul_plain(a: torch.Tensor, b: torch.Tensor,
+                       tile) -> torch.Tensor:
+    """What the TPU kernel computes, in plain torch: K walked in steps of
+    bk, each step's product taken in float32 from the bf16 values (every
+    product exact) and added into a float32 accumulator, as `acc_ref`
+    does (TF32 off for the products on a CUDA device)."""
+    m, n, k = _check(a, b, tile)
+    bk = int(tile[2])
+    acc = torch.zeros((m, n), dtype=torch.float32, device=a.device)
+    with fp32_exact():
+        for k0 in range(0, k, bk):
+            acc += a[:, k0:k0 + bk].float() @ b[k0:k0 + bk].float()
+    return acc
+
+
+@torch.no_grad()
+def tiled_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
+                      tile) -> torch.Tensor:
+    """The kernel: what `tiled_matmul_plain` computes, on a CUDA device, in
+    one launch on the current stream without synchronising.  Raises on
+    anything the kernel does not take, and when the launch fails."""
+    m, n, k = _check(a, b, tile)
+    if a.device.type != "cuda":
+        raise ValueError(f"a and b must be on a CUDA device, got {a.device}")
+    tile = tuple(int(v) for v in tile)
+    if tile not in TILES.values():
+        raise ValueError(f"the kernel takes the tiles {sorted(TILES.values())}"
+                         f", got {tile}")
+    lib._aligned("tiled_matmul", a, b)
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = lib.library("tiled_matmul").headpose_tiled_matmul(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, *tile,
+            torch.cuda.current_stream().cuda_stream)
+    lib._check(err, "tiled_matmul kernel")
+    tiled_matmul.launches += 1
+    return c
+
+
+def tiled_matmul(a: torch.Tensor, b: torch.Tensor, tile) -> torch.Tensor:
+    """a (M, K) bf16 @ b (K, N) bf16 -> (M, N) float32 over output tiles of
+    tile = (bm, bn, bk): the CUDA kernel for tensors on a CUDA device, the
+    plain version for tensors on the CPU.
+
+    `tiled_matmul.launches` counts the kernel's launches."""
+    if a.device.type == "cpu":
+        return tiled_matmul_plain(a, b, tile)
+    return tiled_matmul_cuda(a, b, tile)
+
+
+tiled_matmul.launches = 0

@@ -13,6 +13,8 @@ launches, and the empty island against "fast"; the
 SE-Transformer head kernel (se_transformer_forward) against its plain
 version (rtol 1e-4 / atol 1e-5),
 and the SE-Transformer model's detect_fused in both head profiles;
+the tiled bf16 GEMM of the matmul probe (tiled_matmul) at each of its five
+tiles against its plain version (1e-5 of the largest |plain|);
 runtime.streaming.detect_stream against detect, the tracking and
 smoothing of runtime.tracking and runtime.smoothing on CUDA tensors against
 the same on CPU tensors, and head training (train.fit) and the feature
@@ -44,6 +46,7 @@ from headpose_tpu_torch.ops.kernels import backbone2 as kb2
 from headpose_tpu_torch.ops.kernels import head_mlp as khead
 from headpose_tpu_torch.ops.kernels import postprocess as kern
 from headpose_tpu_torch.ops.kernels import se_attention as kse
+from headpose_tpu_torch.ops.kernels import tiled_matmul as ktm
 
 pytestmark = pytest.mark.gpu
 
@@ -1347,3 +1350,22 @@ def test_two_gloo_ranks_on_one_card_detect_within_1e5(cuda, tmp_path):
         for name, v in rank["detect"].items():
             if isinstance(v, dict):            # DETECT_TOL, valid equal
                 assert rank["checks"][f"detect[{name}]"], name
+
+
+@pytest.mark.parametrize("tile", sorted(ktm.TILES))
+def test_tiled_matmul_kernel_matches_plain(cuda, tile):
+    """Each tile's kernel at 512^3 on seed-0 bf16 normals against the plain
+    version at the same tile, within 1e-5 of the largest |plain|: the
+    products are exact in float32, only the sum order differs.  One launch
+    a call; a tile the kernel has no instance of is refused."""
+    rng = np.random.default_rng(0)
+    a, b = (torch.from_numpy(rng.normal(size=(512, 512))).to(torch.bfloat16)
+            .to(cuda) for _ in range(2))
+    before = ktm.tiled_matmul.launches
+    got = ktm.tiled_matmul(a, b, ktm.TILES[tile])
+    want = ktm.tiled_matmul_plain(a, b, ktm.TILES[tile])
+    torch.cuda.synchronize()
+    assert ktm.tiled_matmul.launches == before + 1
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    with pytest.raises(ValueError, match="tiles"):
+        ktm.tiled_matmul_cuda(a, b, (64, 64, 32))

@@ -1,0 +1,229 @@
+"""The matmul probe's port against the JAX probe on the CPU.
+
+scripts/probe_mosaic_matmul.py::make_pallas_matmul (the Pallas tiled-
+accumulator GEMM, in interpret mode at 512^3, as the script's own
+`interpret` argument runs it) against ops/kernels/tiled_matmul.py::
+tiled_matmul_plain at the same (bm, bn, bk), on the same seed-0 bf16
+operands, within 1e-6 of max |want| (both sum exact float32 products in
+float32, K step by K step); the wrapper's refusals; tools/probe_matmul.py
+at --device cpu; tools/flops_accounting.py against
+scripts/flops_accounting.py's table.  The kernel itself runs on the card
+only (tests/test_torch_gpu.py::test_tiled_matmul_kernel_matches_plain,
+chip_smoke.py).
+"""
+import importlib.util
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from headpose_tpu_torch.models import BLAZEFACE_FRONT
+from headpose_tpu_torch.ops.kernels import kernel_wrappers
+from headpose_tpu_torch.ops.kernels import tiled_matmul as ktm
+from headpose_tpu_torch.tools import flops_accounting, probe_matmul
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N = 512
+TOL_FRAC = 1e-6
+
+
+def _script(name):
+    path = os.path.join(REPO, "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_jax_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def jax_probe():
+    """The JAX probe at 512^3 (its interpret size) with its operands and
+    XLA's float32 product of them."""
+    mod = _script("probe_mosaic_matmul")
+    mod.set_size(N, 2)
+    rng = np.random.default_rng(0)                  # the script's :122-126
+    a = jnp.asarray(rng.normal(size=(N, N)), jnp.bfloat16)
+    b = jnp.asarray(rng.normal(size=(N, N)), jnp.bfloat16)
+    want = np.asarray(jnp.dot(a, b, preferred_element_type=jnp.float32))
+    return mod, a, b, want
+
+
+def _torch(x):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+
+def test_operands_are_the_jax_probes(jax_probe):
+    _, a, b, _ = jax_probe
+    ta, tb = probe_matmul.operands(N, "cpu")
+    assert torch.equal(ta, _torch(a)) and torch.equal(tb, _torch(b))
+
+
+@pytest.mark.parametrize("block", [(256, 256, 128), (128, 512, 256),
+                                   (512, 512, 512)])
+def test_plain_matches_the_pallas_kernel_in_interpret_mode(jax_probe, block):
+    mod, a, b, want = jax_probe
+    got_jax = np.asarray(jax.jit(mod.make_pallas_matmul(*block,
+                                                        interpret=True))(a, b))
+    got = ktm.tiled_matmul_plain(_torch(a), _torch(b), block).numpy()
+    scale = float(np.abs(want).max())
+    assert float(np.abs(got - got_jax).max()) <= TOL_FRAC * scale
+    assert float(np.abs(got - want).max()) <= TOL_FRAC * scale
+
+
+@pytest.mark.parametrize("tile", sorted(ktm.TILES))
+def test_wrapper_on_the_cpu_is_the_plain_version(tile):
+    a, b = probe_matmul.operands(N, "cpu")
+    before = ktm.tiled_matmul.launches
+    got = ktm.tiled_matmul(a, b, ktm.TILES[tile])
+    assert torch.equal(got, ktm.tiled_matmul_plain(a, b, ktm.TILES[tile]))
+    assert got.dtype == torch.float32 and got.shape == (N, N)
+    assert ktm.tiled_matmul.launches == before     # no kernel on the CPU
+
+
+def _bad(case):
+    a, b = probe_matmul.operands(256, "cpu")
+    if case == "float32_operand":
+        return a.float(), b, "bfloat16"
+    if case == "m_not_a_multiple":
+        return a[:200], b, "multiples"
+    if case == "k_not_a_multiple":
+        return a[:, :240].contiguous(), b[:240], "multiples"
+    if case == "not_contiguous":
+        return a.t(), b, "contiguous"
+    if case == "one_dimensional":
+        return a[0], b, "2-D"
+    return a, b[:128], "b is"                          # inner sizes differ
+
+
+@pytest.mark.parametrize("case", ["float32_operand", "m_not_a_multiple",
+                                  "k_not_a_multiple", "not_contiguous",
+                                  "one_dimensional", "inner_mismatch"])
+def test_wrapper_raises_on_what_it_does_not_take(case):
+    a, b, match = _bad(case)
+    with pytest.raises(ValueError, match=match):
+        ktm.tiled_matmul(a, b, (64, 128, 32))
+
+
+def test_cuda_path_refuses_cpu_tensors():
+    a, b = probe_matmul.operands(256, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        ktm.tiled_matmul_cuda(a, b, ktm.TILES["square"])
+
+
+def test_tiles_and_kernel_table():
+    assert ktm.TILES == {"square": (128, 128, 32), "wide_n": (128, 256, 32),
+                         "narrow_m": (64, 256, 32), "large": (256, 128, 32),
+                         "deep_k": (128, 128, 128)}
+    # the JAX probe's block shapes, each role at bm/4, bn/4, bk/16 (the
+    # large one's N halved again)
+    for name, (bm, bn, bk) in ktm.TILES.items():
+        tm, tn, tk = probe_matmul.TPU_TILES[name]
+        assert (tm // bm, tk // bk) == (4, 16)
+        assert tn // bn == (8 if name == "large" else 4)
+    assert kernel_wrappers()["tiled_matmul"] is ktm.tiled_matmul
+    assert 2048 % max(t[0] for t in ktm.TILES.values()) == 0
+
+
+def test_probe_cli_on_the_cpu(tmp_path, capsys):
+    official = os.path.join(REPO, "docs", "mosaic_matmul_probe.json")
+    stamp = os.stat(official).st_mtime_ns
+    out = tmp_path / "probe.json"
+    assert probe_matmul.main(["--device", "cpu", "--out", str(out)]) == 0
+    report = json.loads(capsys.readouterr().out)
+    assert report == json.loads(out.read_text())
+    assert report["shape"] == [N, N, N] and report["iters"] == 2
+    assert report["device"] == {"type": "cpu"}
+    assert set(report["tiles"]) == set(ktm.TILES)
+    for row in report["tiles"].values():
+        assert row["rel_err"] <= TOL_FRAC
+        assert row["rel_err_vs_plain"] == 0.0           # the plain version
+        assert row["cpu_ms"] > 0 and "ms" not in row    # no device metric
+    assert report["library"]["call"].startswith("torch.mm")
+    assert os.stat(official).st_mtime_ns == stamp
+
+
+def test_probe_iterations_and_bound():
+    assert [probe_matmul.iterations(n) for n in (2048, 4096, 8192)] == [
+        30, 4, 4]
+    b = probe_matmul.bound(2048)
+    assert b["bytes"] == 2048 * 2048 * 8 and b["bound_by"] == "operations"
+    assert abs(b["ms"] - 2 * 2048 ** 3 / 989e12 * 1e3) < 1e-12
+    assert round(probe_matmul.bound(4096)["ms"], 3) == 0.139
+    assert round(probe_matmul.bound(8192)["ms"], 3) == 1.112
+
+
+def test_probe_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        probe_matmul.main([])
+
+
+def test_probe_on_the_card_refuses_a_size_the_tiles_do_not_divide(
+        monkeypatch):
+    monkeypatch.setattr(probe_matmul, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    with pytest.raises(SystemExit, match="multiple of 2048"):
+        probe_matmul.main(["3000"])
+
+
+@pytest.fixture(scope="module")
+def jax_accounting(tmp_path_factory):
+    mod = _script("flops_accounting")
+    mod.OUT = str(tmp_path_factory.mktemp("sol") / "sol_accounting.json")
+    mod.main()
+    with open(mod.OUT) as f:
+        return json.load(f)
+
+
+def test_per_frame_flops_is_the_jax_scripts_table(jax_accounting):
+    assert flops_accounting.per_frame_flops(BLAZEFACE_FRONT) == \
+        jax_accounting["per_frame_flops"]
+
+
+def test_account_is_the_jax_arithmetic_without_a_postprocess(
+        jax_accounting):
+    """The JAX script's rows with its own forward ms given as the network
+    ms: the same GFLOP a dispatch and TFLOP/s (it rounds to 0.1)."""
+    rows = {r["mode"].split()[0]: r for r in jax_accounting["modes"]}
+    doc = flops_accounting.account(
+        BLAZEFACE_FRONT, {m: r["forward_ms"] for m, r in rows.items()},
+        {"2048^3": 500.0})
+    assert round(doc["total_1pass_mflops_per_frame"], 1) == \
+        jax_accounting["total_1pass_mflops_per_frame"]
+    for got in doc["modes"]:
+        want = rows[got["mode"]]
+        assert round(got["gflops_per_dispatch"], 1) == \
+            want["gflops_per_dispatch"]
+        assert round(got["effective_tflops"], 1) == want["effective_tflops"]
+        assert got["share_of_gemm_rate"]["2048^3"] == pytest.approx(
+            got["effective_tflops"] / 500.0)
+    assert [m["passes"] for m in doc["modes"]] == [3, 1]
+
+
+def test_account_refuses_an_unknown_mode():
+    with pytest.raises(ValueError, match="mode"):
+        flops_accounting.account(BLAZEFACE_FRONT, {"turbo": 1.0}, {})
+
+
+def test_accounting_cli_reads_probe_reports(tmp_path, capsys):
+    report = tmp_path / "probe.json"
+    report.write_text(json.dumps({"shape": [4096] * 3,
+                                  "library": {"tflops": 640.0}}))
+    assert flops_accounting.main(["--network-ms", "fast=1.0", "max=0.5",
+                                  "--probe", str(report)]) == 0
+    doc = json.loads(capsys.readouterr().out)
+    assert doc["gemm_rates_tflops"] == {"cublas 4096^3": 640.0}
+    fast, mx = doc["modes"]
+    assert fast["gflops_per_dispatch"] == pytest.approx(
+        3 * 128 * doc["total_1pass_mflops_per_frame"] / 1e3)
+    assert mx["effective_tflops"] == pytest.approx(
+        mx["gflops_per_dispatch"] / 0.5)
+    cpu = tmp_path / "cpu.json"
+    cpu.write_text(json.dumps({"shape": [512] * 3,
+                               "library": {"cpu_tflops": 0.1}}))
+    with pytest.raises(SystemExit, match="not a report from the card"):
+        flops_accounting.main(["--probe", str(cpu)])

@@ -147,7 +147,9 @@ def test_ast_scan_finds_no_jax_or_headpose_tpu_import():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
     for new in ("tools/aot.py", "tools/h5export.py", "tools/tflite.py",
-                "runtime/edge.py", "ops/kernels/library.py"):
+                "runtime/edge.py", "ops/kernels/library.py",
+                "ops/kernels/tiled_matmul.py", "tools/probe_matmul.py",
+                "tools/flops_accounting.py"):
         assert os.path.join(PORT, new) in files, new
     for path in files:
         for mod in _imports(path):
@@ -282,6 +284,13 @@ edge = NativePostprocess(det.anchors.numpy())(
 assert len(edge[0]) == len(res) and (edge[0].poses == res.poses).all()
 assert resize_bicubic_np(img.astype(np.float32), (128, 128)).shape == (
     128, 128, 3)
+from headpose_tpu_torch.models import BLAZEFACE_FRONT
+from headpose_tpu_torch.tools import flops_accounting, probe_matmul
+
+report = probe_matmul.probe(256, 1, device="cpu")
+assert max(r["rel_err"] for r in report["tiles"].values()) < 1e-6
+assert flops_accounting.account(BLAZEFACE_FRONT, {{"max": 1.0}},
+                                {{}})["modes"][0]["passes"] == 1
 leaked = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "headpose_tpu", "h5py")]
 assert not leaked, leaked
@@ -307,7 +316,7 @@ def test_entry_points_without_a_card_raise(monkeypatch):
     from headpose_tpu_torch.data import Dataset
     from headpose_tpu_torch.pretrained import best_detector, flagship_detector
     from headpose_tpu_torch.runtime.http import _build_detector
-    from headpose_tpu_torch.tools import backfill, train_cli
+    from headpose_tpu_torch.tools import backfill, probe_matmul, train_cli
     from headpose_tpu_torch.tools.evaluate import evaluate_head_pose_model
     from headpose_tpu_torch.tools.extract_features import (FeatureExtractor,
                                                            extract_dataset)
@@ -345,6 +354,8 @@ def test_entry_points_without_a_card_raise(monkeypatch):
                     lambda: calibrate.synthesize_images(
                         torch.Generator(), 2),
                     lambda: calibrate.calibrate_fast_params(
-                        *load_pretrained(FLAGSHIP), steps=1)):
+                        *load_pretrained(FLAGSHIP), steps=1),
+                    lambda: probe_matmul.main([]),
+                    lambda: probe_matmul.probe(512)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             factory()

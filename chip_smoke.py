@@ -27,9 +27,11 @@ is one JSON object, except the nvidia-smi line:
   device   the card (name, power limit), torch and CUDA versions;
   build    every kernel library built from csrc/ with nvcc, one nvcc per
            source, all started together; ptxas's registers and smem; the
-           tensor-core (HMMA) instructions in the SASS of the split-bf16,
-           SE-Transformer, island and tiled-GEMM libraries (the last three
-           must have some);
+           warp-level tensor-core (HMMA) instructions in the SASS of the
+           split-bf16, SE-Transformer, island and tiled-GEMM libraries (the
+           SE-Transformer and island ones must have some) and the
+           warpgroup ones (HGMMA, wgmma) of the tiled-GEMM library, which
+           must have some and no HMMA;
   head_routes  how runtime.fused.head_forward runs each served model's
            heads ("kernel" or "module", from the head's spec);
   kernels  per kernel: holds it against its plain PyTorch version on the
@@ -62,12 +64,15 @@ is one JSON object, except the nvidia-smi line:
   kernel_matmul  tiled_matmul, the GEMM of the matmul probe (csrc/
            tiled_matmul.cu, the port of scripts/probe_mosaic_matmul.py's
            Pallas kernel): tools/probe_matmul.probe at 2048^3 and 4096^3 on
-           the JAX probe's seed-0 bf16 operands, in one launch window (every
-           tile's launches counted: 2 + iters each); each of the five tiles
-           against its plain version at the same tile and against the plain
-           float32 product within 1e-5 of the largest |plain|; ms and
+           the JAX probe's seed-0 bf16 operands, and every tile once at
+           (M, N, K) = (768, 1280, 384), in one launch window (every
+           tile's launches counted: 2 + iters each in the probe, 1 at the
+           non-square shape); each of the five tiles against its plain
+           version at the same tile (and in the probe against the plain
+           float32 product) within 1e-5 of the largest |plain|; ms and
            TFLOP/s a tile beside the bound (2 n^3 / 989 TFLOP/s) and one
-           cuBLAS call (torch.mm with a float32 result);
+           cuBLAS call (torch.mm with a float32 result), and each tile's
+           ratio to that call's TFLOP/s;
   parity   flagship_detector().detect on the 112 parity-corpus images
            against the reference detections (set agreement 1.0, pose p99
            and max < 0.1 deg) and on e2e_production.npz; every launch count
@@ -569,14 +574,23 @@ def phase_build() -> dict:
                               mod.LIBRARY.build_log.splitlines()
                               if "registers" in ln or "smem" in ln]}
              for name, mod in mods.items()}
-    # the tensor-core kernels' mma instructions in their SASS
+    # the tensor-core kernels' mma instructions in their SASS: warp-level
+    # HMMA (mma.sync), and tiled_matmul's warpgroup HGMMA (wgmma), which
+    # must have replaced every HMMA there
     for name in ("apply_fused", "se_transformer_forward", "dense_block",
                  "tiled_matmul"):
         built[name]["sass_hmma"] = sass_count(mods[name].LIBRARY, "HMMA")
-    for name in ("se_transformer_forward", "dense_block", "tiled_matmul"):
+    built["tiled_matmul"]["sass_hgmma"] = sass_count(
+        mods["tiled_matmul"].LIBRARY, "HGMMA")
+    for name in ("se_transformer_forward", "dense_block"):
         if built[name]["sass_hmma"] == 0:
             raise AssertionError(f"{name}'s library has no tensor-core "
                                  "instruction (HMMA) in its SASS")
+    tm = built["tiled_matmul"]
+    if tm["sass_hgmma"] == 0 or tm["sass_hmma"] != 0:
+        raise AssertionError(f"tiled_matmul's SASS has {tm['sass_hgmma']} "
+                             f"HGMMA and {tm['sass_hmma']} HMMA: wgmma only "
+                             "was expected")
     emit({"phase": "build", **built})
     return built
 
@@ -1851,18 +1865,43 @@ def phase_kernel_dense(dev, flagship, back, frames128, frames256, built):
 
 MATMUL_SIZES = (2048, 4096)   # the matmul probe's default and next size
 MATMUL_TOL_FRAC = 1e-5        # kernel against plain, of the largest |plain|
+# (M, N, K): fewer tiles than SMs at every tile, M, N and K all different
+MATMUL_NON_SQUARE = (768, 1280, 384)
+
+
+def matmul_non_square(ktm) -> dict:
+    """Every tile at MATMUL_NON_SQUARE on seed-0 bf16 normals against its
+    plain version, the output landing in a freed block filled with NaN (a
+    tile the persistent schedule skipped would show): rel_err_vs_plain
+    (max|got - plain| / max|plain|, NaN counting as infinite) a tile.  One
+    launch a tile."""
+    m, n, k = MATMUL_NON_SQUARE
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.normal(size=(m, k))).to(torch.bfloat16).cuda()
+    b = torch.from_numpy(rng.normal(size=(k, n))).to(torch.bfloat16).cuda()
+    rows = {}
+    for name, tile in ktm.TILES.items():
+        want = ktm.tiled_matmul_plain(a, b, tile)
+        torch.full((m, n), float("nan"), device="cuda")   # freed, reused
+        got = ktm.tiled_matmul(a, b, tile)
+        gap = torch.nan_to_num((got - want).abs(), nan=float("inf"))
+        rows[name] = {"rel_err_vs_plain": float(gap.max())
+                      / float(want.abs().max()),
+                      "max_abs_err_vs_plain": float(gap.max())}
+    return rows
 
 
 def phase_kernel_matmul(built, card):
     """tiled_matmul, the GEMM of the matmul probe: its main path is the
-    probe itself (tools/probe_matmul.probe) at MATMUL_SIZES, in one launch
-    window.  Every tile against its plain version at the same tile, and
-    against the plain float32 product, within MATMUL_TOL_FRAC of the
-    largest |plain| (the products are exact, only the sum order differs);
-    each tile's ms and TFLOP/s beside the bound and one cuBLAS call.
-    Returns the kernels line's entry (at 2048^3 the fastest tile) and the
-    GEMM rates for the flops accounting: cuBLAS's and the fastest tile's at
-    each size."""
+    probe itself (tools/probe_matmul.probe) at MATMUL_SIZES, and every tile
+    at MATMUL_NON_SQUARE against its plain version, in one launch window.
+    Every tile against its plain version at the same tile, and at
+    MATMUL_SIZES against the plain float32 product, within MATMUL_TOL_FRAC
+    of the largest |plain| (the products are exact, only the sum order
+    differs); each tile's ms and TFLOP/s beside the bound and one cuBLAS
+    call, and its ratio to that call's TFLOP/s.  Returns the kernels line's
+    entry (at 2048^3 the fastest tile) and the GEMM rates for the flops
+    accounting: cuBLAS's and the fastest tile's at each size."""
     from headpose_tpu_torch.ops.kernels import tiled_matmul as ktm
     from headpose_tpu_torch.tools import probe_matmul
 
@@ -1871,18 +1910,28 @@ def phase_kernel_matmul(built, card):
     reset_launches()                     # the probe's window opens
     for n in MATMUL_SIZES:
         reports[n] = probe_matmul.probe(n, device="cuda")
+    non_square = matmul_non_square(ktm)
     window = read_launches()             # ... and closes
     expected = sum(len(ktm.TILES) * (2 + r["iters"])
-                   for r in reports.values())
+                   for r in reports.values()) + len(ktm.TILES)
     seconds = time.perf_counter() - t0
+    vs_cublas = {str(n): {name: t["tflops"] / r["library"]["tflops"]
+                          for name, t in r["tiles"].items()}
+                 for n, r in reports.items()}
     emit({"phase": "kernel_matmul", "card": card,
           "reports": {str(n): r for n, r in reports.items()},
+          "non_square": {"shape": list(MATMUL_NON_SQUARE),
+                         "tiles": non_square},
+          "tflops_vs_cublas": vs_cublas,
           "launches_window": {k: v for k, v in window.items() if v},
           "expected_launches": expected, "seconds": seconds})
     bad = [(n, name, row["rel_err_vs_plain"], row["rel_err"])
            for n, r in reports.items() for name, row in r["tiles"].items()
            if not (row["rel_err_vs_plain"] <= MATMUL_TOL_FRAC
                    and row["rel_err"] <= MATMUL_TOL_FRAC)]
+    bad += [(MATMUL_NON_SQUARE, name, row["rel_err_vs_plain"])
+            for name, row in non_square.items()
+            if not row["rel_err_vs_plain"] <= MATMUL_TOL_FRAC]
     if bad:
         raise AssertionError(f"tiled_matmul disagrees with its plain version "
                              f"beyond {MATMUL_TOL_FRAC} of max|plain|: {bad}")
@@ -1903,9 +1952,11 @@ def phase_kernel_matmul(built, card):
         "source": "headpose_tpu_torch/csrc/tiled_matmul.cu",
         "replaces": "scripts/probe_mosaic_matmul.py:67",
         "launches": window["tiled_matmul"],
-        "max_abs_err": max(t["max_abs_err_vs_plain"]
-                           for rr in reports.values()
-                           for t in rr["tiles"].values()),
+        "max_abs_err": max([t["max_abs_err_vs_plain"]
+                            for rr in reports.values()
+                            for t in rr["tiles"].values()]
+                           + [t["max_abs_err_vs_plain"]
+                              for t in non_square.values()]),
         "tolerance": f"{MATMUL_TOL_FRAC} of max|plain|",
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": r["bound"]["ms"], "bound_by": r["bound"]["bound_by"],
@@ -1916,12 +1967,13 @@ def phase_kernel_matmul(built, card):
             "ms", "tflops", "plain_ms", "rel_err_vs_plain")}
             for name, t in rr["tiles"].items()}
             for n, rr in reports.items()},
+        "tflops_vs_cublas": vs_cublas,
         "library_tflops": {str(n): rr["library"]["tflops"]
                            for n, rr in reports.items()},
         "bound_ms_by_size": {str(n): rr["bound"]["ms"]
                              for n, rr in reports.items()},
         "build_s": lib["build_s"], "ptxas": lib["ptxas"],
-        "sass_hmma": lib["sass_hmma"]}
+        "sass_hgmma": lib["sass_hgmma"], "sass_hmma": lib["sass_hmma"]}
     return entry, rates
 
 

@@ -104,7 +104,7 @@ LIBRARIES = {lib.name: lib for lib in (
                          + [_P] * 3),
                 NVCC_FLAGS_FMA),
     CudaLibrary("tiled_matmul", [os.path.join(CSRC, "tiled_matmul.cu")],
-                _declare(headpose_tiled_matmul=[_P] * 3 + [_I] * 6 + [_P]),
+                _declare(headpose_tiled_matmul=[_P] * 3 + [_I] * 10 + [_P]),
                 NVCC_FLAGS),
 )}
 

@@ -9,8 +9,16 @@ hand-written kernel, or the call raises.  Nothing else selects between the
 two.  The kernel takes the five tiles of `TILES`; the plain version any
 tile that divides the shapes.  Where the JAX grid (M/bm, N/bn, K/bk) would
 silently drop a ragged edge, both raise.
+
+The kernel's launch plan is computed here (`plan`) and passed to it as
+ints: the stages of its TMA ring, the passes in which it stages C for its
+TMA stores, its persistent grid and the group width of its tile order
+(`tile_order`, the kernel's map from a CTA's t-th tile to a tile-row and
+tile-col).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -18,7 +26,8 @@ from ...models.single_pass import fp32_exact
 from . import library as lib
 
 __all__ = ["TILES", "tiled_matmul", "tiled_matmul_plain",
-           "tiled_matmul_cuda", "LIBRARY"]
+           "tiled_matmul_cuda", "LIBRARY", "stage_bytes", "staged_bytes",
+           "plan", "tile_order"]
 
 LIBRARY = lib.LIBRARIES["tiled_matmul"]
 SOURCE = LIBRARY.sources[0]
@@ -29,6 +38,71 @@ SOURCE = LIBRARY.sources[0]
 TILES = {"square": (128, 128, 32), "wide_n": (128, 256, 32),
          "narrow_m": (64, 256, 32), "large": (256, 128, 32),
          "deep_k": (128, 128, 128)}
+
+# csrc/tiled_matmul.cu's limits: the dynamic shared memory a CTA may use on
+# the H100, the slack that aligns the ring to 1024 bytes, and its stages
+SMEM_LIMIT = 232_448
+SMEM_ALIGN = 1024
+MAX_STAGES = 16
+MIN_STAGES = 6          # the ring depth a plan gives up staging room for
+                        # (probe_matmul --sweep: wide-N and large 5-7 %
+                        # faster at 6 stages in 2 passes than at 4 in 1)
+BARRIER_BYTES = 16      # a stage's full and empty mbarriers
+C_BOX_BYTES = 64 * 32 * 4   # one staged box of C: 64 rows x 32 floats
+GROUP_ROWS = 8          # tile-rows of the tile order's groups
+
+
+def stage_bytes(tile) -> int:
+    """Bytes of one stage of the kernel's ring: A's bm x bk and B's bk x bn
+    bf16 slices."""
+    bm, bn, bk = (int(v) for v in tile)
+    return 2 * bk * (bm + bn)
+
+
+def staged_bytes(tile, passes: int = 1) -> int:
+    """Bytes of the kernel's float32 C tile staged in shared memory for its
+    TMA stores, a pass's share of it when it is written in `passes`."""
+    bm, bn, _ = (int(v) for v in tile)
+    return 4 * bm * bn // passes
+
+
+def plan(m: int, n: int, k: int, tile, sms: int, passes: int | None = None,
+         group: int | None = None) -> dict:
+    """The kernel's launch plan for an (m, k) @ (k, n) product at `tile` on
+    a card of `sms` SMs: C staged in the fewest passes (1, 2 or 4) that
+    leave MIN_STAGES ring stages, or else the most stages; as many stages as
+    fit SMEM_LIMIT beside it (at most MAX_STAGES); one persistent CTA an SM
+    or a tile, whichever is fewer; GROUP_ROWS tile-rows a group (fewer when
+    the grid has fewer).  `passes` and `group` given are taken as they are
+    (tools/probe_matmul.py's plan sweep)."""
+    bm, bn, _ = (int(v) for v in tile)
+    per = stage_bytes(tile) + BARRIER_BYTES
+
+    def stages_at(p):
+        return min(MAX_STAGES,
+                   (SMEM_LIMIT - SMEM_ALIGN - staged_bytes(tile, p)) // per)
+
+    if passes is None:
+        fits = [p for p in (1, 2, 4) if stages_at(p) >= MIN_STAGES]
+        passes = fits[0] if fits else max((1, 2, 4), key=stages_at)
+    stages = stages_at(passes)
+    tiles_m, tiles_n = m // bm, n // bn
+    return {"stages": stages, "passes": passes,
+            "smem": SMEM_ALIGN + staged_bytes(tile, passes) + stages * per,
+            "tiles": tiles_m * tiles_n,
+            "grid": min(int(sms), tiles_m * tiles_n),
+            "group": min(GROUP_ROWS if group is None else group, tiles_m)}
+
+
+def tile_order(t: int, tiles_m: int, tiles_n: int,
+               group: int) -> tuple[int, int]:
+    """The kernel's tile t -> (tile-row, tile-col): `group` tile-rows at a
+    time, column by column within a group (csrc/tiled_matmul.cu states the
+    same formula)."""
+    per = group * tiles_n
+    g, r = divmod(t, per)
+    rows = min(group, tiles_m - g * group)
+    return g * group + r % rows, r // rows
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, tile) -> tuple[int, int, int]:
@@ -72,6 +146,25 @@ def tiled_matmul_plain(a: torch.Tensor, b: torch.Tensor,
     return acc
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, tile, p: dict) -> torch.Tensor:
+    """One launch of the kernel at `tile` with the launch plan `p` on
+    checked CUDA operands; raises when it fails."""
+    (m, k), n = a.shape, b.shape[1]
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = lib.library("tiled_matmul").headpose_tiled_matmul(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, *tile,
+            p["stages"], p["passes"], p["grid"], p["group"],
+            torch.cuda.current_stream().cuda_stream)
+    lib._check(err, "tiled_matmul kernel")
+    return c
+
+
 @torch.no_grad()
 def tiled_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
                       tile) -> torch.Tensor:
@@ -86,12 +179,7 @@ def tiled_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"the kernel takes the tiles {sorted(TILES.values())}"
                          f", got {tile}")
     lib._aligned("tiled_matmul", a, b)
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        err = lib.library("tiled_matmul").headpose_tiled_matmul(
-            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, *tile,
-            torch.cuda.current_stream().cuda_stream)
-    lib._check(err, "tiled_matmul kernel")
+    c = _launch(a, b, tile, plan(m, n, k, tile, _sms(a.device)))
     tiled_matmul.launches += 1
     return c
 

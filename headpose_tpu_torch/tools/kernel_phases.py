@@ -8,6 +8,8 @@ wrong results; only their device times are read.
     python -m headpose_tpu_torch.tools.kernel_phases backbone2 --batch 1
     python -m headpose_tpu_torch.tools.kernel_phases se
     python -m headpose_tpu_torch.tools.kernel_phases head --model best
+    python -m headpose_tpu_torch.tools.kernel_phases matmul --size 4096 \\
+        --tile wide_n
     git show 80a87fd:headpose_tpu_torch/csrc/backbone.cu > build/bb_v1.cu
     python -m headpose_tpu_torch.tools.kernel_phases backbone-v1 \\
         --source build/bb_v1.cu
@@ -21,11 +23,20 @@ for the same frames, `se` se_transformer_forward over `--batch` random
 16x16x88 maps with a seeded SETransformerHead(88), `head` the two MLP
 heads of a shipped model (`--model flagship` or `best`, the latter
 unified-best-distilled's) through mlp_head_forward over the rows of
-`--batch` maps (B*256 rows of 88, B*64 of 96, N(0, 1)).  In `backbone2` each
+`--batch` maps (B*256 rows of 88, B*64 of 96, N(0, 1)), `matmul` the
+probe's GEMM (csrc/tiled_matmul.cu) at one tile of its TILES (`--tile`,
+default wide_n) on tools/probe_matmul.py's seed-0 operands of `--size`
+(M = N = K, default 4096).  In `backbone2` each
 phase is disabled in both of csrc/backbone2.cu's kernels (block_kernel and
 chain_kernel), and the variant `one_launch_per_block` runs every block
 through block_kernel (no chain_kernel launch; its results stay right);
-in `head`, `four_ctas_per_sm` caps the kernel at 64 registers a thread.
+in `head`, `four_ctas_per_sm` caps the kernel at 64 registers a thread;
+in `matmul`, `no_epilogue` drops the staging and the TMA stores of C,
+`no_mma` the wgmma instructions (the TMA ring runs alone) and `no_loads`
+the TMA copies (the producer still arrives on each stage's full barrier,
+and the consumers multiply whatever the ring holds), and the variant
+`direct_store` writes C straight from the registers with the ring as deep
+as the budget allows.
 One JSON line per variant: the device ms of one call (the sum of its
 kernels, torch.profiler over 10 warm calls), each launch's ms in order,
 and the ms of one call between two CUDA events (median of 50 warm calls:
@@ -47,8 +58,9 @@ from ..ops.kernels import backbone as kbb
 from ..ops.kernels import backbone2 as kb2
 from ..ops.kernels import head_mlp as khead
 from ..ops.kernels import se_attention as kse
+from ..ops.kernels import tiled_matmul as ktm
 from ..ops.kernels import library as klib
-from ..utils.build import BUILD_DIR, NVCC_FLAGS_FMA, CudaLibrary
+from ..utils.build import BUILD_DIR, CudaLibrary
 
 # per source: variant -> [(text in the source, its replacement)]
 VARIANTS = {
@@ -93,6 +105,41 @@ VARIANTS = {
         "full": [],
         "no_attention": [("    attention<D, H>(xs, px, kv, ring, L, d, row0, rows, img0, n_img);", "")],
         "one_pass_dense": [("        mma_tf32(lo[j], al, bh);\n        mma_tf32(lo[j], ah, bl);\n", "")],
+    },
+    "matmul": {
+        "full": [],
+        "no_epilogue": [("for (int h = 0; h < 2; ++h) {",
+                         "for (int h = 0; h < 0; ++h) {"),
+                        ("for (int box = lo; box < lo + per; ++box)",
+                         "for (int box = lo; box < lo; ++box)")],
+        "no_mma": [("wgmma<T::kWN>(acc[i], da, db, s > 0 || kk > 0);", ";")],
+        "no_loads": [("mbar_expect(&full[stage], T::kStageBytes);",
+                      "mbar_arrive(&full[stage]);"),
+                     ("for (int j = 0; j < BK / 32; ++j)\n            tma_load",
+                      "for (int j = 0; j < 0; ++j)\n            tma_load"),
+                     ("for (int j = 0; j < BN / 64; ++j)\n            tma_load",
+                      "for (int j = 0; j < 0; ++j)\n            tma_load")],
+        # not a phase: C stored straight from the registers (float2 a
+        # thread, no staging, no TMA store) and the ring as deep as the
+        # whole budget allows, as the kernel's first wgmma version did (its
+        # results stay right)
+        "direct_store": [
+            ("const __grid_constant__ CUtensorMap map_c, int m,",
+             "const __grid_constant__ CUtensorMap map_c, float* c, int m,"),
+            ("map_a, map_b, map_c, m, n, k, stages, passes, group);",
+             "map_a, map_b, map_c, c, m, n, k, stages, passes, group);"),
+            ("unsigned char* ring = staged + T::kCBytes / passes;",
+             "unsigned char* ring = staged;"),
+            ("  const long smem = kSmemAlign + T::kCBytes / passes +",
+             "  stages = (kSmemLimit - kSmemAlign) / (T::kStageBytes + 16);\n"
+             "  if (stages > kMaxStages) stages = kMaxStages;\n"
+             "  const long smem = kSmemAlign +"),
+            ("cs + (box - lo) * T::kCBox + r * 128 + (q ^ (r % 8)) * 16 +\n"
+             "                  8 * (lane % 2)) =",
+             "c + static_cast<size_t>(tm * BM + row0 + 64 * i + r) * n +\n"
+             "                  tn * BN + col0 + 8 * j + 2 * (lane % 4)) ="),
+            ("for (int box = lo; box < lo + per; ++box)",
+             "for (int box = lo; box < lo; ++box)")],
     },
     "head": {
         "full": [],
@@ -156,8 +203,14 @@ def event_ms(fn, reps: int = 50) -> float:
     return float(np.median(times))
 
 
-def _workload(kernel: str, dev: torch.device, batch: int, model: str):
+def _workload(kernel: str, dev: torch.device, batch: int, model: str,
+              size: int = 4096, tile: str = "wide_n"):
     rng = np.random.default_rng(0)
+    if kernel == "matmul":
+        from ..tools.probe_matmul import operands
+
+        a, b = operands(size, dev)
+        return ktm, lambda: ktm.tiled_matmul_cuda(a, b, ktm.TILES[tile])
     if kernel == "head":
         from ..pretrained import best_detector, flagship_detector
 
@@ -201,11 +254,16 @@ def main(argv=None) -> int:
                     help="frames (maps for `se`) per call (default 128)")
     ap.add_argument("--model", choices=("flagship", "best"),
                     default="flagship", help="the heads of `head`")
+    ap.add_argument("--size", type=int, default=4096,
+                    help="M = N = K of `matmul` (default 4096)")
+    ap.add_argument("--tile", choices=sorted(ktm.TILES), default="wide_n",
+                    help="the tile of `matmul` (default wide_n)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_phases: no CUDA device is available")
     dev = torch.device("cuda")
-    mod, call = _workload(args.kernel, dev, args.batch, args.model)
+    mod, call = _workload(args.kernel, dev, args.batch, args.model,
+                          args.size, args.tile)
     src = open(args.source or mod.SOURCE).read()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -225,12 +283,13 @@ def main(argv=None) -> int:
             with open(path, "w") as f:
                 f.write(varied)
             klib.LIBRARIES[real.name] = CudaLibrary(
-                f"{args.kernel}-{name}", [path], real._configure,
-                NVCC_FLAGS_FMA)
+                f"{args.kernel}-{name}", [path], real._configure, real.flags)
             with torch.inference_mode():
                 ms, grids = device_ms(call)
                 wall = event_ms(call)
-            model = {"model": args.model} if args.kernel == "head" else {}
+            model = ({"model": args.model} if args.kernel == "head" else
+                     {"size": args.size, "tile": args.tile}
+                     if args.kernel == "matmul" else {})
             print(json.dumps({"kernel": args.kernel, "variant": name,
                               "batch": args.batch, **model, "device_ms": ms,
                               "event_ms": wall, "grid_ms": grids}),

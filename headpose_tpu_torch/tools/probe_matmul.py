@@ -28,7 +28,7 @@ card while the host enqueues the launches: the events time the card's
 back-to-back GEMMs, not the host's launch rate.
 
     python -m headpose_tpu_torch.tools.probe_matmul [N] [--device cpu] \\
-        [--out PATH]
+        [--out PATH] [--sweep]
 
 Without --device it runs on the card, and raises when there is none.
 `--device cpu` is the counterpart of the JAX probe's `interpret` mode: the
@@ -36,6 +36,12 @@ plain version at 512^3, two iterations, for plumbing; its times are the
 CPU's and are reported as `cpu_ms`.  It prints one JSON report, with the
 card's name and power limit as nvidia-smi gives them, and writes it only to
 --out.  chip_smoke.py runs `probe` at 2048^3 and 4096^3.
+
+`--sweep` (the card only) prints instead the kernel's launch plans tried at
+N^3 (`sweep`): every tile at each count of C's staging passes (1, 2, 4) and
+group width (4, 8, 16 tile-rows), ms and TFLOP/s each, beside the plan
+ops/kernels/tiled_matmul.py::plan picks; the operands, the timing and the
+error are the probe's.
 """
 from __future__ import annotations
 
@@ -48,12 +54,13 @@ import numpy as np
 import torch
 
 from ..models.single_pass import fp32_exact
+from ..ops.kernels import tiled_matmul as ktm
 from ..ops.kernels.tiled_matmul import TILES, tiled_matmul, tiled_matmul_plain
 from ..utils.device import resolve_device
 
 __all__ = ["SIZE", "CPU_SIZE", "TPU_TILES", "BF16_FLOPS", "BYTES_PER_S",
            "operands", "iterations", "bound", "rel_err", "library_call",
-           "probe", "main"]
+           "probe", "sweep", "main"]
 
 SIZE = 2048                 # the JAX probe's default M = N = K
 CPU_SIZE, CPU_ITERS = 512, 2
@@ -183,6 +190,40 @@ def probe(n: int = SIZE, iters: int | None = None, device=None) -> dict:
     return report
 
 
+@torch.no_grad()
+def sweep(n: int = SIZE) -> dict:
+    """The kernel's launch plans at n^3 on the card: for every tile, each
+    count of C's staging passes (1, 2, 4) and group width (4, 8, 16), the
+    plan's stages, ms a call (over max(20, iterations(n)) calls), TFLOP/s
+    and rel_err against the plain float32 product; `plan` is the plan the
+    wrapper picks."""
+    device = resolve_device(None)
+    iters = max(20, iterations(n))
+    a, b = operands(n, device)
+    with fp32_exact():
+        want = a.float() @ b.float()
+    sms = ktm._sms(device)
+    out = {"shape": [n, n, n], "iters": iters, "device": _card(device),
+           "tiles": {}}
+    for name, tile in TILES.items():
+        rows = []
+        for passes in (1, 2, 4):
+            for group in (4, 8, 16):
+                plan = ktm.plan(n, n, n, tile, sms, passes, group)
+                if plan["stages"] < 2:
+                    continue
+                err = rel_err(ktm._launch(a, b, tile, plan), want)
+                ms = _ms(lambda: ktm._launch(a, b, tile, plan), iters,
+                         device)
+                rows.append({"passes": passes, "group": plan["group"],
+                             "stages": plan["stages"], "ms": ms,
+                             "tflops": 2 * n ** 3 / (ms * 1e-3) / 1e12,
+                             "rel_err": err})
+        out["tiles"][name] = {"plan": ktm.plan(n, n, n, tile, sms),
+                              "tried": rows}
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("size", nargs="?", type=int, default=None,
@@ -193,6 +234,9 @@ def main(argv=None) -> int:
                              "card, which must be present)")
     parser.add_argument("--out", default=None,
                         help="also write the JSON report to this path")
+    parser.add_argument("--sweep", action="store_true",
+                        help="report the kernel's launch plans tried at "
+                             "N^3 instead (the card only)")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cpu":
@@ -202,7 +246,9 @@ def main(argv=None) -> int:
         if n % SIZE:
             raise SystemExit(f"size {n} must be a multiple of {SIZE}")
         iters = iterations(n)
-    report = probe(n, iters, device)
+    if args.sweep and device.type != "cuda":
+        raise SystemExit("--sweep times the kernel: the card only")
+    report = sweep(n) if args.sweep else probe(n, iters, device)
     text = json.dumps(report, indent=1)
     print(text, flush=True)
     if args.out:

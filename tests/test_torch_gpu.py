@@ -14,7 +14,8 @@ SE-Transformer head kernel (se_transformer_forward) against its plain
 version (rtol 1e-4 / atol 1e-5),
 and the SE-Transformer model's detect_fused in both head profiles;
 the tiled bf16 GEMM of the matmul probe (tiled_matmul) at each of its five
-tiles against its plain version (1e-5 of the largest |plain|);
+tiles against its plain version (1e-5 of the largest |plain|) on square
+and non-square shapes;
 runtime.streaming.detect_stream against detect, the tracking and
 smoothing of runtime.tracking and runtime.smoothing on CUDA tensors against
 the same on CPU tensors, and head training (train.fit) and the feature
@@ -1354,18 +1355,29 @@ def test_two_gloo_ranks_on_one_card_detect_within_1e5(cuda, tmp_path):
 
 @pytest.mark.parametrize("tile", sorted(ktm.TILES))
 def test_tiled_matmul_kernel_matches_plain(cuda, tile):
-    """Each tile's kernel at 512^3 on seed-0 bf16 normals against the plain
-    version at the same tile, within 1e-5 of the largest |plain|: the
-    products are exact in float32, only the sum order differs.  One launch
-    a call; a tile the kernel has no instance of is refused."""
+    """Each tile's kernel on seed-0 bf16 normals against the plain version
+    at the same tile, within 1e-5 of the largest |plain|: the products are
+    exact in float32, only the sum order differs.  Shapes: 512^3; (768,
+    1280, 384), fewer tiles than SMs and M, N, K all different; K = bk, the
+    ring's first stages alone; (2304, 2048, 1024), a tile count no multiple
+    of 132.  The output lands in a freed block filled with NaN, so a tile
+    the persistent schedule skips shows.  One launch a call; a tile the
+    kernel has no instance of is refused."""
+    bk = ktm.TILES[tile][2]
     rng = np.random.default_rng(0)
-    a, b = (torch.from_numpy(rng.normal(size=(512, 512))).to(torch.bfloat16)
-            .to(cuda) for _ in range(2))
-    before = ktm.tiled_matmul.launches
-    got = ktm.tiled_matmul(a, b, ktm.TILES[tile])
-    want = ktm.tiled_matmul_plain(a, b, ktm.TILES[tile])
-    torch.cuda.synchronize()
-    assert ktm.tiled_matmul.launches == before + 1
-    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    for m, n, k in ((512, 512, 512), (768, 1280, 384), (768, 1280, bk),
+                    (2304, 2048, 1024)):
+        a = torch.from_numpy(rng.normal(size=(m, k))).to(torch.bfloat16)
+        b = torch.from_numpy(rng.normal(size=(k, n))).to(torch.bfloat16)
+        a, b = a.to(cuda), b.to(cuda)
+        want = ktm.tiled_matmul_plain(a, b, ktm.TILES[tile])
+        torch.full((m, n), float("nan"), device=cuda)   # freed, then reused
+        before = ktm.tiled_matmul.launches
+        got = ktm.tiled_matmul(a, b, ktm.TILES[tile])
+        torch.cuda.synchronize()
+        assert ktm.tiled_matmul.launches == before + 1
+        assert bool(torch.isfinite(got).all()), (m, n, k)
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), (m, n, k, err)
     with pytest.raises(ValueError, match="tiles"):
         ktm.tiled_matmul_cuda(a, b, (64, 64, 32))

@@ -162,6 +162,11 @@ def test_probe_without_a_card_raises(monkeypatch):
         probe_matmul.main([])
 
 
+def test_plan_sweep_refuses_the_cpu():
+    with pytest.raises(SystemExit, match="card only"):
+        probe_matmul.main(["--device", "cpu", "--sweep"])
+
+
 def test_probe_on_the_card_refuses_a_size_the_tiles_do_not_divide(
         monkeypatch):
     monkeypatch.setattr(probe_matmul, "resolve_device",
@@ -227,3 +232,100 @@ def test_accounting_cli_reads_probe_reports(tmp_path, capsys):
                                "library": {"cpu_tflops": 0.1}}))
     with pytest.raises(SystemExit, match="not a report from the card"):
         flops_accounting.main(["--probe", str(cpu)])
+
+
+# ------------------------------------------- the kernel's launch plan (CPU)
+STAGE_KB = {"square": 16, "wide_n": 24, "narrow_m": 20, "large": 24,
+            "deep_k": 64}
+
+
+@pytest.mark.parametrize("tile", sorted(ktm.TILES))
+def test_launch_plan_fits_shared_memory(tile):
+    """A pass's share of the staged C tile and the ring's stages and their
+    barriers fit the 232,448 bytes a CTA may use, at least 3 stages (2 for
+    deep-K's 64 KB ones), as many as fit; C in the fewest passes that leave
+    MIN_STAGES, else in those that leave the most, each pass whole boxes of
+    a consumer's half (64 x 32 floats)."""
+    t = ktm.TILES[tile]
+    assert ktm.stage_bytes(t) == STAGE_KB[tile] * 1024
+    p = ktm.plan(4096, 4096, 4096, t, 132)
+    per = ktm.stage_bytes(t) + ktm.BARRIER_BYTES
+    assert ktm.staged_bytes(t) == 4 * t[0] * t[1]
+    assert p["smem"] == ktm.SMEM_ALIGN + ktm.staged_bytes(t, p["passes"]) + \
+        p["stages"] * per
+    assert p["smem"] <= ktm.SMEM_LIMIT == 232_448
+    assert p["stages"] >= (2 if tile == "deep_k" else 3)
+    assert p["stages"] <= ktm.MAX_STAGES
+    assert p["stages"] == ktm.MAX_STAGES or p["smem"] + per > ktm.SMEM_LIMIT
+    boxes = ktm.staged_bytes(t) // 2 // ktm.C_BOX_BYTES
+    assert boxes % p["passes"] == 0
+    fewer = [ktm.plan(4096, 4096, 4096, t, 132, passes=q)["stages"]
+             for q in (1, 2, 4) if q < p["passes"]]
+    assert all(s < min(ktm.MIN_STAGES, p["stages"]) for s in fewer)
+    assert (tile, p["passes"], p["stages"]) in {
+        ("square", 1, 10), ("wide_n", 2, 6), ("narrow_m", 1, 8),
+        ("large", 2, 6), ("deep_k", 2, 3)}
+
+
+@pytest.mark.parametrize("tile", sorted(ktm.TILES))
+def test_launch_plan_grid_is_one_cta_an_sm_or_a_tile(tile):
+    bm, bn, _ = ktm.TILES[tile]
+    p = ktm.plan(4096, 4096, 4096, ktm.TILES[tile], 132)
+    assert p["tiles"] == (4096 // bm) * (4096 // bn) > 132
+    assert p["grid"] == 132
+    p = ktm.plan(768, 1280, 384, ktm.TILES[tile], 132)
+    assert p["tiles"] == (768 // bm) * (1280 // bn) < 132
+    assert p["grid"] == p["tiles"]
+    assert p["group"] == min(ktm.GROUP_ROWS, 768 // bm)
+
+
+@pytest.mark.parametrize("tiles_m, tiles_n", [(16, 16), (32, 8), (8, 16),
+                                              (3, 5), (1, 1)])
+@pytest.mark.parametrize("group", [1, 3, 8])
+def test_tile_order_is_a_bijection(tiles_m, tiles_n, group):
+    """Every tile once, whether or not the group width divides the
+    tile-rows; within a group the tile-row varies fastest."""
+    group = min(group, tiles_m)
+    seen = [ktm.tile_order(t, tiles_m, tiles_n, group)
+            for t in range(tiles_m * tiles_n)]
+    assert sorted(seen) == [(i, j) for i in range(tiles_m)
+                            for j in range(tiles_n)]
+    rows = min(group, tiles_m)
+    assert seen[:rows] == [(i, 0) for i in range(rows)]
+
+
+def test_kernel_source_states_the_tile_order_and_uses_wgmma():
+    """csrc/tiled_matmul.cu states tile_order's formula and is built from
+    wgmma fed by TMA through mbarriers, with no mma.sync left."""
+    with open(ktm.SOURCE) as f:
+        src = f.read()
+    assert "tile-row = g * G + r % rows,   tile-col = r / rows" in src
+    assert "tm = g * group + r % rows;" in src and "tn = r / rows;" in src
+    for needed in ("wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
+                   "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16",
+                   "cp.async.bulk.tensor.2d.shared::cluster.global",
+                   "cp.async.bulk.tensor.2d.global.shared::cta",
+                   "mbarrier.try_wait.parity",
+                   "setmaxnreg.dec", "setmaxnreg.inc",
+                   "__launch_bounds__(kThreads, 1)", "cuTensorMapEncodeTiled"):
+        assert needed in src, needed
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    for gone in ("mma.sync", "ldmatrix", "cp.async.cg"):
+        assert gone not in code, gone
+
+
+def test_entry_point_takes_the_plan():
+    """headpose_tiled_matmul's ctypes signature: three pointers, M, N, K,
+    the tile and the plan (stages, passes, grid, group) as ints, the
+    stream."""
+    import ctypes
+
+    class Fake:
+        headpose_tiled_matmul = type("Fn", (), {})()
+
+    lib = Fake()
+    ktm.LIBRARY._configure(lib)
+    fn = lib.headpose_tiled_matmul
+    assert fn.argtypes == [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p]
+    assert fn.restype is ctypes.c_int

@@ -1,0 +1,103 @@
+"""What both runners share: the program's detector for a configuration,
+a seeded reservoir of checked batches, the launch-plan guard of the traced
+window, and the reference check."""
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import numpy as np
+
+from ..harness import check, trace
+from ..harness.cells import ROOT
+from ..kernels import all_gather, backbone2, head_mlp, postprocess
+
+MATCHERS = {"backbone2": backbone2.matches, "head_mlp": head_mlp.matches,
+            "postprocess": postprocess.matches,
+            "all_gather": all_gather.matches}
+RETAKES = 3
+
+
+class Phases:
+    """Seconds of the set-up's phases, each from the end of the one
+    before; the first, "imports", from the process's start `t0` on `clock`
+    (perf_counter, or time.time across processes)."""
+
+    def __init__(self, t0: float, clock=time.perf_counter):
+        self._clock = clock
+        self._last = t0
+        self.spans: dict = {}
+        self.mark("imports")
+
+    def mark(self, name: str) -> None:
+        now = self._clock()
+        self.spans[name] = now - self._last
+        self._last = now
+
+
+def detector(config: dict, device, **kw):
+    """The program's FaceDetector for `config`: its shipped model at its
+    precision and thresholds."""
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+
+    path = os.path.join(ROOT, os.path.dirname(config["weights"]))
+    return FaceDetector.from_native(
+        path, precision=config["precision"],
+        score_threshold=config["score_threshold"],
+        iou_threshold=config["iou_threshold"],
+        max_faces=config["max_faces"], device=device, **kw)
+
+
+class Reservoir:
+    """A uniform sample of `k` of the window's batches, drawn from the seed
+    as the batches complete: (ring slot, the program's answers)."""
+
+    def __init__(self, k: int, seed: int):
+        self.k = k
+        self.rng = np.random.default_rng([seed, 0x5EED])
+        self.kept: list = []
+        self.seen = 0
+
+    def offer(self, slot: int, results) -> None:
+        self.seen += 1
+        if len(self.kept) < self.k:
+            self.kept.append((slot, results))
+            return
+        j = int(self.rng.integers(0, self.seen))
+        if j < self.k:
+            self.kept[j] = (slot, results)
+
+
+def guarded_profile(run, plan: dict, batches: int,
+                    agree=lambda ok: ok) -> tuple:
+    """Profile `run()` (which drives `batches` batches) and count each
+    kernel of the launch plan; where a count differs from plan × batches
+    (the profiler drops launch records late in a process) take the window
+    again, up to RETAKES times.  `agree(ok)` makes the verdict common to
+    all ranks.  Returns (trace, retakes, counts)."""
+    want = {k: v * batches for k, v in plan.items()}
+    matchers = {k: MATCHERS[k] for k in plan}
+    for retakes in range(RETAKES + 1):
+        tr = trace.profile(run)
+        counts = trace.launches(tr, matchers)
+        if agree(counts == want):
+            return tr, retakes, counts
+        print(f"perfbench: traced launches {counts}, the plan {want}; "
+              "taking the window again", file=sys.stderr)
+    raise RuntimeError(f"the traced window's launches {counts} never met "
+                       f"the launch plan {want} in {RETAKES + 1} windows")
+
+
+def reference_check(cell, ring: list, sample: list, device) -> dict:
+    """The plain reference over the sampled batches' frames, compared with
+    the program's answers (harness.check)."""
+    from ..reference.detector import Reference
+
+    ref = Reference(cell.config, os.path.join(ROOT, cell.config["weights"]),
+                    device=device)
+    got, want = [], []
+    for slot, results in sample:
+        got.append(results)
+        want.append(ref.detect(ring[slot]))
+    return check.compare(got, want, cell.config, cell.limits["margins"])

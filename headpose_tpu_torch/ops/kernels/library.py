@@ -33,10 +33,11 @@ launches in `LAUNCHES`, so a replayed program counts as `detect` does.  Each
 op has a fake implementation (its output shapes) for tracing.  Only
 `postprocess` runs on the CPU; the others are registered for CUDA alone.
 
-This module imports torch, numpy, `utils.build` and `ops.detection`, and
-nothing else of the package: loading an exported program needs no model
-code.  Nothing is built at import time: each library is compiled with nvcc
-on its first launch (utils.build).
+This module imports torch, numpy, `utils.build`, `utils.profiling` and
+`ops.detection`, and nothing else of the package: loading an exported
+program needs no model code.  Nothing is built at import time: each library
+is compiled with nvcc on its first launch (utils.build).  Registering each
+op is timed as the section `kernels.register`.
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ import os
 import torch
 
 from ...utils.build import NVCC_FLAGS, NVCC_FLAGS_FMA, CudaLibrary
+from ...utils.profiling import section
 from ..detection import (MAX_LOGIT, SLAB, _decode_matrix, _f32,
                          finish_postprocess, nms_slab_plain,
                          prepare_postprocess, score_threshold_to_logit)
@@ -170,8 +172,12 @@ def _ints(values) -> ctypes.Array:
 
 
 def _op(name: str, device_types=None):
-    return torch.library.custom_op(f"{NAMESPACE}::{name}", mutates_args=(),
-                                   device_types=device_types)
+    def register(fn):
+        with section("kernels.register"):
+            return torch.library.custom_op(
+                f"{NAMESPACE}::{name}", fn, mutates_args=(),
+                device_types=device_types)
+    return register
 
 
 # ---------------------------------------------------------------- kernel #1

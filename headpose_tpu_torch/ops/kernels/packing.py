@@ -7,7 +7,8 @@ layout: the pack is cached beside the module, keyed by `leaves` and the
 element type, and rebuilt only when a parameter changes (another storage,
 or an in-place write such as `load_state_dict`).  A kernel whose launch
 takes a table built from the module and the offsets gets it built once,
-with the pack (`table`).
+with the pack (`table`).  A stamp is the span `pack.stamp`; a pack built
+(a cache miss) is the section `pack.build` (utils.profiling).
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ from typing import Any, Callable, Iterable
 
 import torch
 from torch import nn
+
+from ...utils.profiling import section, span
 
 __all__ = ["Packed", "packed", "stamp", "c_ints"]
 
@@ -41,8 +44,9 @@ def stamp(module: nn.Module) -> tuple:
     the stamp once and passes it to each `packed` call."""
     # inference tensors keep no version counter (and cannot be written to
     # outside inference mode)
-    return tuple((p.data_ptr(), 0 if p.is_inference() else p._version)
-                 for p in module.parameters())
+    with span("pack.stamp"):
+        return tuple((p.data_ptr(), 0 if p.is_inference() else p._version)
+                     for p in module.parameters())
 
 
 def packed(module: nn.Module,
@@ -61,7 +65,7 @@ def packed(module: nn.Module,
     hit = packs.get((leaves, dtype))
     if hit is not None and hit[0] == current:
         return hit[1]
-    with torch.no_grad():
+    with section("pack.build"), torch.no_grad():
         parts = [t.detach().to(dtype).contiguous() for t in leaves(module)]
         offsets, start = [], 0
         for t in parts:

@@ -50,6 +50,7 @@ from ..parallel.distributed import all_gather_rows
 from ..parallel.mesh import axis_index, axis_size, mesh_device
 from ..tools.convert import load_native, params_from_jax
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .fused import SERVED_PRECISIONS, fused_network, head_forward, island_of
 from .results import BatchResults, Results
 
@@ -354,16 +355,21 @@ class FaceDetector:
         return self._detect(images, fused=True)
 
     def _detect(self, images, fused: bool) -> BatchResults:
-        if self.mesh is not None:
-            return self._detect_sharded(images, fused)
-        x = host_tensor(images)
-        if x.ndim == 3:
-            x = x[None]
-        if x.ndim != 4 or x.shape[-1] != 3:
-            raise ValueError(f"images must be (B, H, W, 3) or (H, W, 3), "
-                             f"got {tuple(x.shape)}")
-        with torch.inference_mode():
-            return BatchResults(self._pipeline(x.to(self.device), fused))
+        """A batch's dispatch, the span `detect`: the checks and the upload
+        (`detect.checks`), then `_pipeline`'s stages."""
+        with span("detect"):
+            if self.mesh is not None:
+                return self._detect_sharded(images, fused)
+            with torch.inference_mode():
+                with span("detect.checks"):
+                    x = host_tensor(images)
+                    if x.ndim == 3:
+                        x = x[None]
+                    if x.ndim != 4 or x.shape[-1] != 3:
+                        raise ValueError(f"images must be (B, H, W, 3) or "
+                                         f"(H, W, 3), got {tuple(x.shape)}")
+                    x = x.to(self.device)
+                return BatchResults(self._pipeline(x, fused))
 
     def _detect_sharded(self, images, fused: bool) -> BatchResults:
         """`detect` over the mesh, a collective of every rank: this rank's
@@ -403,8 +409,9 @@ class FaceDetector:
             local = x[start:start + rows]
         with torch.inference_mode():
             slab = self._pipeline(local.to(self.device), fused)
-            return BatchResults(all_gather_rows(
-                slab, self.mesh.get_group(self.data_axis)))
+            with span("detect.all_gather"):
+                return BatchResults(all_gather_rows(
+                    slab, self.mesh.get_group(self.data_axis)))
 
     def _pipeline(self, x: torch.Tensor,
                   fused: bool | None = None) -> torch.Tensor:
@@ -437,9 +444,12 @@ class FaceDetector:
             network = functools.partial(self.net, single_pass=single_pass)
             heads = functools.partial(_module_forward,
                                       single_pass=single_pass)
-        x = preprocess(x, self.input_size, self.channel_order, single_pass)
+        with span("detect.preprocess"):
+            x = preprocess(x, self.input_size, self.channel_order,
+                           single_pass)
         survivors = self.head_eval == "survivors"
-        out = network(x, heads=not survivors)
+        with span("detect.network"):
+            out = network(x, heads=not survivors)
         if survivors:
             # the postprocess copies pose values exactly, so cell-index maps
             # bring back each survivor's cell in pose channel 0
@@ -447,10 +457,12 @@ class FaceDetector:
                                                     out["feat96"])
         else:
             pose_front, pose_back = out["pose_front"], out["pose_back"]
-        slab = self._postprocess(out["scores"], out["loc"], pose_front,
-                                 pose_back)
-        if survivors:
-            slab[..., C_POSE:C_LOGIT] = self._survivor_poses(out, slab, heads)
+        with span("detect.postprocess"):
+            slab = self._postprocess(out["scores"], out["loc"], pose_front,
+                                     pose_back)
+            if survivors:
+                slab[..., C_POSE:C_LOGIT] = self._survivor_poses(out, slab,
+                                                                 heads)
         return slab
 
     def _postprocess(self, scores, loc, pose_front, pose_back):

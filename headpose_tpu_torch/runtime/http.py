@@ -39,7 +39,9 @@ client side is enough):
   GET  /v1/stats      200 serving counters: frames served, device dispatches,
                       frames/dispatch (the coalescing ratio — the number that
                       says whether batching is earning its keep), request-
-                      latency p50/p99 over the last 1000 requests, uptime.
+                      latency p50/p99 over the last 1000 requests, the
+                      batcher's queue wait p50/p99 (submit to dispatch)
+                      over its last 1000 dispatched requests, uptime.
   GET  /metrics       the same counters in Prometheus text exposition
                       format (text/plain; version=0.0.4), so a standard
                       scraper monitors the endpoint with zero glue.
@@ -237,6 +239,13 @@ class _Handler(BaseHTTPRequestHandler):
                     "p99": round(_quantile(lats, 0.99) * 1e3, 1),
                     "window": len(lats),
                 }
+            waits = snap["queue_waits"]
+            if waits:
+                stats["queue_wait_ms"] = {
+                    "p50": round(_quantile(waits, 0.5) * 1e3, 1),
+                    "p99": round(_quantile(waits, 0.99) * 1e3, 1),
+                    "window": len(waits),
+                }
             self._reply(200, stats)
         elif self.path == "/metrics":
             self._reply_metrics()
@@ -386,6 +395,7 @@ class _Httpd(ThreadingHTTPServer):
                 "errors": self.errors,
                 "uptime_s": time.monotonic() - self.started,
                 "latencies": sorted(self.latencies),
+                "queue_waits": b.queue_waits(),
             }
 
 

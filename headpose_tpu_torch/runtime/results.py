@@ -3,8 +3,9 @@
 `BatchResults` holds the one fixed-size (B, F, 21) slab the detector's
 postprocess produces, on the detector's device; its fields are views of it.
 `trim()` turns it into the reference's ragged per-image `Results` (numpy)
-with ONE synchronising device→host copy of the slab; `from_ragged` is its
-inverse, on the CPU.
+with ONE synchronising device→host copy of the slab (the span
+`results.copy`) and a split per image (`results.split`); `from_ragged` is
+its inverse, on the CPU.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from ..ops.detection import (C_LOGIT, C_POSE, C_VALID, KEYPOINTS,
                              MAX_FACES, SLAB)
+from ..utils.profiling import span
 
 __all__ = ["Results", "BatchResults"]
 
@@ -99,12 +101,15 @@ class BatchResults:
     def trim(self) -> list[Results]:
         """Host-side conversion to the reference's ragged per-image contract:
         the slab is copied to the host once and split there."""
-        host = self.slab.cpu().numpy()
-        B, F = host.shape[:2]
-        keypoints = host[..., 4:C_POSE].reshape(B, F, KEYPOINTS, 2)
-        valid = host[..., C_VALID] > 0.5
-        return [Results(boxes=host[b, valid[b], :4],
-                        keypoints=keypoints[b][valid[b]],
-                        scores=host[b, valid[b], C_LOGIT],
-                        poses=host[b, valid[b], C_POSE:C_LOGIT])
-                for b in range(B)]
+        with span("results.trim"):
+            with span("results.copy"):
+                host = self.slab.cpu().numpy()
+            with span("results.split"):
+                B, F = host.shape[:2]
+                keypoints = host[..., 4:C_POSE].reshape(B, F, KEYPOINTS, 2)
+                valid = host[..., C_VALID] > 0.5
+                return [Results(boxes=host[b, valid[b], :4],
+                                keypoints=keypoints[b][valid[b]],
+                                scores=host[b, valid[b], C_LOGIT],
+                                poses=host[b, valid[b], C_POSE:C_LOGIT])
+                        for b in range(B)]

@@ -30,6 +30,7 @@ form of JAX's single-process mesh serving.
 """
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 import time
@@ -157,6 +158,10 @@ class DynamicBatcher:
         self.widths = tuple(widths)
         self.dispatches = 0          # batches sent to the device
         self.frames_served = 0       # real (unpadded) frames in them
+        # seconds from submit to dispatch of the last 1000 dispatched
+        # requests (`queue_waits()`)
+        self._waits: collections.deque = collections.deque(maxlen=1000)
+        self._waits_lock = threading.Lock()
         if frame_shape is not None:
             frame_shape = tuple(int(d) for d in frame_shape)
             if len(frame_shape) == 2:
@@ -209,6 +214,12 @@ class DynamicBatcher:
     def detect(self, frame, timeout: float | None = None) -> Results:
         """Synchronous convenience: submit + wait."""
         return self.submit(frame).result(timeout)
+
+    def queue_waits(self) -> list[float]:
+        """Seconds each of the last 1000 dispatched requests waited in the
+        queue, from its submit to its batch's dispatch, sorted."""
+        with self._waits_lock:
+            return sorted(self._waits)
 
     def close(self, timeout: float = 120.0) -> bool:
         """Flush queued work and stop the dispatcher thread (over a mesh
@@ -270,13 +281,16 @@ class DynamicBatcher:
             # claim the futures: a client-cancelled future must neither be
             # dispatched nor set_result (InvalidStateError would kill this
             # thread and hang every other client)
-            live = [(f, fut) for f, fut, _ in items
+            live = [(f, fut, t) for f, fut, t in items
                     if fut.set_running_or_notify_cancel()]
             if not live:
                 continue
-            frames = [f for f, _ in live]
-            futs = [fut for _, fut in live]
+            frames = [f for f, _, _ in live]
+            futs = [fut for _, fut, _ in live]
             n = len(frames)
+            now = time.monotonic()
+            with self._waits_lock:
+                self._waits.extend(now - t for _, _, t in live)
             try:  # EVERYTHING here resolves the waiters on failure — an
                 # uncaught exception would end the dispatcher and hang all
                 # pending and future requests

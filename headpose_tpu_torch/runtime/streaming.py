@@ -6,7 +6,9 @@ On a CUDA detector each batch is staged through pinned host memory and
 copied with `non_blocking=True` on a side stream; an event makes the compute
 stream wait for that copy before the batch's detect, so a host-fed stream
 (video decoder, RPC queue) keeps the card busy instead of serialising
-transfer → compute → transfer.  On the CPU it is a plain loop.
+transfer → compute → transfer.  On the CPU it is a plain loop.  The spans
+`stream.stage` (a batch's pinning and copy issued) and `stream.copy_wait`
+(the host waiting for a copy) mark the card's path.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Iterable, Iterator
 
 import torch
 
+from ..utils.profiling import span
 from .detector import host_tensor
 from .results import BatchResults
 
@@ -46,11 +49,12 @@ def detect_stream(detector, batches: Iterable,
             batch = next(it)
         except StopIteration:
             return False
-        host = host_tensor(batch).pin_memory()
-        with torch.cuda.stream(copy_stream):
-            dev = host.to(device, non_blocking=True)
-            copied = torch.cuda.Event()
-            copied.record(copy_stream)
+        with span("stream.stage"):
+            host = host_tensor(batch).pin_memory()
+            with torch.cuda.stream(copy_stream):
+                dev = host.to(device, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(copy_stream)
         staged.append((dev, copied, host))
         return True
 
@@ -74,6 +78,7 @@ def detect_stream(detector, batches: Iterable,
         result, copied, host = pending.popleft()
         # the pinned source must outlive its copy: wait for the copy (not
         # the compute) before the last reference to it goes
-        copied.synchronize()
+        with span("stream.copy_wait"):
+            copied.synchronize()
         del host
         yield result

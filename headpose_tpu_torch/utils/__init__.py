@@ -8,10 +8,11 @@ _EXPORTS = {
     "resolve_device": ".device",
     "euler_to_matrix": ".geometry", "pose_axes": ".geometry",
     "FpsCounter": ".profiling", "Timer": ".profiling", "trace": ".profiling",
+    "span": ".profiling", "section": ".profiling", "TOTALS": ".profiling",
 }
 
 __all__ = ["resolve_device", "euler_to_matrix", "pose_axes", "FpsCounter",
-           "Timer", "trace"]
+           "Timer", "trace", "span", "section", "TOTALS"]
 
 
 def __getattr__(name: str):

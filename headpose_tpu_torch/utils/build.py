@@ -6,7 +6,8 @@ headers, so a build takes seconds).  The library lands in
 `build/headpose_tpu_torch/` beside the package, named by a hash of its
 sources and flags: editing a source or a flag rebuilds it, and an unchanged
 one is reused.  Nothing is built at import time; a failed build raises with
-nvcc's output.
+nvcc's output.  Each build is timed as the section `kernels.build`, each
+load (dlopen and configure) as `kernels.load` (utils.profiling.TOTALS).
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 import threading
 from typing import Callable, Sequence
+
+from .profiling import section
 
 __all__ = ["CudaLibrary", "BUILD_DIR", "NVCC_FLAGS", "NVCC_FLAGS_FMA"]
 
@@ -76,8 +79,10 @@ class CudaLibrary:
     def _build(self, path: str) -> None:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *self.flags, "-o", tmp, *self.sources],
-                              capture_output=True, text=True, timeout=600)
+        with section("kernels.build"):
+            proc = subprocess.run([_nvcc(), *self.flags, "-o", tmp,
+                                   *self.sources],
+                                  capture_output=True, text=True, timeout=600)
         self.build_log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {self.name} "
@@ -90,7 +95,8 @@ class CudaLibrary:
                 path = self.path()
                 if not os.path.exists(path):
                     self._build(path)
-                lib = ctypes.CDLL(path)
-                self._configure(lib)
+                with section("kernels.load"):
+                    lib = ctypes.CDLL(path)
+                    self._configure(lib)
                 self._lib = lib
             return self._lib

@@ -4,21 +4,28 @@ Port of headpose_tpu/utils/profiling.py: the reference's frame-rate counter
 (`FpsCounter`), a section timer (`Timer`), a device trace (`trace`, a
 `torch.profiler` context), and the repository's one sustained-throughput
 method (`staged_uint8_frames` + `sustained_seconds_per_dispatch`).
+
+The program's own spans: `span(name)` marks a stage of the hot path as a
+host event `headpose.<name>` on the profiler's clock, beside the kernels
+and copies the same profiler records, and costs one global read when no
+profiler records; `section(name)` times rare work (kernel registration,
+builds and loads, weight packs) into the process-wide `TOTALS` always, and
+is a span besides.  `trace()` writes both to its Chrome trace.
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from collections import defaultdict
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-from .device import resolve_device
-
-__all__ = ["FpsCounter", "Timer", "trace", "staged_uint8_frames",
-           "sustained_seconds_per_dispatch"]
+__all__ = ["FpsCounter", "Timer", "trace", "span", "section", "TOTALS",
+           "staged_uint8_frames", "sustained_seconds_per_dispatch"]
 
 
 def staged_uint8_frames(batch: int, size: int = 128, n_buffers: int = 8,
@@ -28,6 +35,8 @@ def staged_uint8_frames(batch: int, size: int = 128, n_buffers: int = 8,
     staged on `device` (None: the card).  Distinct buffers cycled through
     the timed loop keep a runtime from eliding same-input work, and staging
     keeps the upload out of the timed loop."""
+    from .device import resolve_device
+
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.integers(0, 256, size=(batch, size, size, 3),
@@ -79,11 +88,13 @@ class FpsCounter:
 
 
 class Timer:
-    """Accumulating section timer: with t.section('decode'): ..."""
+    """Accumulating section timer: with t.section('decode'): ...  Sections
+    may close on several threads at once."""
 
     def __init__(self):
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def section(self, name: str):
@@ -91,13 +102,40 @@ class Timer:
         try:
             yield
         finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.totals[name] += dt
+                self.counts[name] += 1
 
     def report(self) -> dict[str, dict[str, float]]:
         return {k: {"total_s": self.totals[k], "count": self.counts[k],
                     "mean_ms": 1e3 * self.totals[k] / max(self.counts[k], 1)}
                 for k in self.totals}
+
+
+TOTALS = Timer()              # the process's rare sections: seconds, counts
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context marking a stage as the host event `headpose.<name>` while a
+    profiler records; otherwise one shared no-op, so the cost is a read of
+    the profiler's global flag.  The event is a host operation only: it
+    puts nothing on the device's timeline, unlike
+    `torch.profiler.record_function`, whose device-side mark would span the
+    kernels launched inside it.  Under `torch.export` no profiler records,
+    so a span traces to nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast("headpose." + name)
+
+
+@contextlib.contextmanager
+def section(name: str):
+    """Rare work, always timed into `TOTALS` under `name` (seconds and a
+    count), and a `span` besides."""
+    with span(name), TOTALS.section(name):
+        yield
 
 
 @contextlib.contextmanager

@@ -283,7 +283,8 @@ ALLOWED = {"headpose_tpu_torch", "headpose_tpu_torch.tools",
            "headpose_tpu_torch.ops.kernels.library",
            "headpose_tpu_torch.ops.detection", "headpose_tpu_torch.runtime",
            "headpose_tpu_torch.runtime.results", "headpose_tpu_torch.utils",
-           "headpose_tpu_torch.utils.build"}
+           "headpose_tpu_torch.utils.build",
+           "headpose_tpu_torch.utils.profiling"}
 
 
 def test_loader_imports_no_model_code(detector, artifact, tmp_path):

@@ -16,7 +16,8 @@ and the SE-Transformer model's detect_fused in both head profiles;
 the tiled bf16 GEMM of the matmul probe (tiled_matmul) at each of its five
 tiles against its plain version (1e-5 of the largest |plain|) on square
 and non-square shapes;
-runtime.streaming.detect_stream against detect, the tracking and
+runtime.streaming.detect_stream against detect, and its spans off the
+device's timeline under the profiler; the tracking and
 smoothing of runtime.tracking and runtime.smoothing on CUDA tensors against
 the same on CPU tensors, and head training (train.fit) and the feature
 extractor on the card against the CPU.
@@ -884,6 +885,36 @@ def test_detect_stream_matches_detect(cuda, flagship):
         assert out.slab.device.type == "cuda"
         assert torch.equal(out.valid, want.valid)
         torch.testing.assert_close(out.slab, want.slab, rtol=0.0, atol=1e-6)
+
+
+def test_stream_spans_stay_off_the_device_timeline(cuda, flagship):
+    """A profiled detect_stream of 4 batches and their trims: each batch
+    has its `stream.stage`, `stream.copy_wait`, `detect` and
+    `results.copy` span, and no `headpose.*` event lies on the device's
+    timeline (a span there would cover the kernels launched inside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from headpose_tpu_torch.runtime.streaming import detect_stream
+
+    imgs = _corpus(64)
+    batches = [imgs[i:i + 16] for i in range(0, 64, 16)]
+    list(detect_stream(flagship, iter(batches), prefetch=2))   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for out in detect_stream(flagship, iter(batches), prefetch=2):
+            out.trim()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.name.startswith("headpose.")]
+    host = [e.name for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    for name in ("stream.stage", "stream.copy_wait", "detect",
+                 "results.copy"):
+        assert host.count("headpose." + name) == len(batches), name
+    assert [e.name for e in events
+            if e.device_type != torch.autograd.DeviceType.CPU] == []
+    assert any(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events())            # the device was traced
 
 
 def _timeline_gpu(seed, N=12, F=6, faces=8):

@@ -6,7 +6,8 @@ detector that returns one fixed set of detections makes it the wire-level
 oracle with no XLA compile: the same requests go to both servers, each in
 front of the stub of its own package, and every route, error code and fuzz
 body must give the same status and the same bytes (uptime and latencies
-masked).  Then the port's server on its CPU flagship against the JAX
+masked, and the port's queue waits, which the JAX server does not report,
+left out).  Then the port's server on its CPU flagship against the JAX
 flagship's `detect`, and `_build_detector`.
 
 The stubs here are shared with tests/test_torch_server.py and
@@ -100,6 +101,7 @@ def call(url: str, method: str, route: str, body: bytes | None = None):
 
 
 _MASKS = [
+    (re.compile(rb', "queue_wait_ms": \{[^}]*\}'), b""),
     (re.compile(rb'"uptime_s": [0-9.e+-]+'), b'"uptime_s": 0'),
     (re.compile(rb'"(p50|p99)": [0-9.e+-]+'), rb'"\1": 0'),
     (re.compile(rb"(headpose_uptime_seconds) [0-9.]+"), rb"\1 0"),

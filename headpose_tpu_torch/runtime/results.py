@@ -4,7 +4,7 @@
 postprocess produces, on the detector's device; its fields are views of it.
 `trim()` turns it into the reference's ragged per-image `Results` (numpy)
 with ONE synchronising device→host copy of the slab (the span
-`results.copy`) and a split per image (`results.split`); `from_ragged` is
+`results.copy`) and one batch-wide split (`results.split`); `from_ragged` is
 its inverse, on the CPU.
 """
 from __future__ import annotations
@@ -105,11 +105,18 @@ class BatchResults:
             with span("results.copy"):
                 host = self.slab.cpu().numpy()
             with span("results.split"):
-                B, F = host.shape[:2]
-                keypoints = host[..., 4:C_POSE].reshape(B, F, KEYPOINTS, 2)
+                # One row-major gather of the valid rows for the whole batch
+                # (any valid pattern, not only a prefix), each field copied
+                # once into its own C-contiguous array, then a slice per
+                # image: no image's arrays overlap another's or keep the slab.
                 valid = host[..., C_VALID] > 0.5
-                return [Results(boxes=host[b, valid[b], :4],
-                                keypoints=keypoints[b][valid[b]],
-                                scores=host[b, valid[b], C_LOGIT],
-                                poses=host[b, valid[b], C_POSE:C_LOGIT])
-                        for b in range(B)]
+                rows = host[valid]
+                n = len(rows)
+                boxes = rows[:, :4].copy()
+                keypoints = rows[:, 4:C_POSE].reshape(n, KEYPOINTS, 2).copy()
+                scores = rows[:, C_LOGIT].copy()
+                poses = rows[:, C_POSE:C_LOGIT].copy()
+                ends = np.count_nonzero(valid, axis=1).cumsum().tolist()
+                return [Results(boxes=boxes[s:e], keypoints=keypoints[s:e],
+                                scores=scores[s:e], poses=poses[s:e])
+                        for s, e in zip([0] + ends, ends)]

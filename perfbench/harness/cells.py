@@ -1,16 +1,36 @@
 """A cell's files, found by the names in BENCHMARK.json: its configuration
 (`perfbench/configs/<config>.json`), its traffic mix
 (`perfbench/traffic/<traffic>.json`), its correctness limits
-(`perfbench/limits/<workload>.json`) and the metrics it reports."""
+(`perfbench/limits/<workload>.json`) and the metrics it reports; and the
+modules that a configuration or a metric names (`module`)."""
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import os
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 PERFBENCH = os.path.join(ROOT, "perfbench")
+
+
+def module(folder: str, name: str, root: str = PERFBENCH):
+    """The module `<root>/<folder>/<name>.py`, loaded from its path as
+    `perfbench.<folder>.<name>`, so that its relative imports resolve in the
+    package: a head kind (`reference/heads`), a kernel of a launch plan
+    (`kernels`) or a per-layer metric's reader (`metrics`).
+    FileNotFoundError naming the path where there is no such file."""
+    path = os.path.join(root, folder, name + ".py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"perfbench: no file {path} for "
+                                f"{folder} {name!r}")
+    spec = importlib.util.spec_from_file_location(
+        ".".join(["perfbench", *folder.split("/"),
+                  name.replace(".", "_").replace("-", "_")]), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _load(path: str) -> dict:

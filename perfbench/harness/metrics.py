@@ -5,10 +5,8 @@ harness then leaves the metric out of the line."""
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
-import os
 
-from .cells import PERFBENCH
+from .cells import PERFBENCH, module
 
 
 @dataclasses.dataclass
@@ -27,12 +25,7 @@ class Context:
 
 
 def reader(name: str, root: str = PERFBENCH):
-    path = os.path.join(root, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "perfbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return module("metrics", name, root).read
 
 
 def read_all(per_layer: list, ctx: Context) -> dict:

@@ -1,5 +1,5 @@
 """Kernel #4, the MLP pose head (csrc/head_mlp.cu: `mlp_head_kernel<R>`),
-one launch a head over every cell of its map.
+one launch a head of kind "mlp" over every cell of its map.
 
 Work: every multiply-add 2, bias and activation 1 each, fp32 on the CUDA
 cores; bytes: the rows read once, the outputs written once, the weights
@@ -25,9 +25,12 @@ def map_cells(bb: dict) -> dict:
 
 
 def work(spec: dict, B: int) -> tuple[int, int]:
-    """(fp32 operations, bytes) of both heads over B frames' maps."""
+    """(fp32 operations, bytes) of the heads of kind "mlp" over B frames'
+    maps."""
     ops = nbytes = 0
     for name, cells in map_cells(spec["backbone"]).items():
+        if spec[name]["kind"] != "mlp":
+            continue
         n, cin = B * cells, spec[name]["in_features"]
         nbytes += 4 * n * (cin + spec[name]["layers"][-1][0])
         for cout, _ in spec[name]["layers"]:

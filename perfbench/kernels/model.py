@@ -1,16 +1,19 @@
 """The model's own operations a frame: the separable network as the spec
 describes it (stem, each block's depthwise and pointwise convs, the four
-SSD heads, both pose heads over every cell of their maps) and the two
-bicubic resize products where a frame is resized.  A multiply-add counts
-2; biases and activations are left out.  Not the dense composition a TPU
+SSD heads, both pose heads over every cell of their maps, each by its
+kind's `flops`, perfbench/reference/heads/<kind>.py) and the two bicubic
+resize products where a frame is resized.  A multiply-add counts 2;
+biases and activations are left out.  Not the dense composition a TPU
 runs, nor a kernel's extra passes: the work the model asks for."""
 from __future__ import annotations
 
+from ..harness.cells import PERFBENCH
 from ..reference.image import resize_flops
+from ..reference.model import HEADS, head_kind
 from .head_mlp import map_cells
 
 
-def network_flops(spec: dict) -> int:
+def network_flops(spec: dict, root: str = PERFBENCH) -> int:
     bb = spec["backbone"]
     h = bb["input_size"] // 2
     flops = 2 * h * h * 25 * 3 * bb["stem_features"]
@@ -26,11 +29,9 @@ def network_flops(spec: dict) -> int:
                                           + bb["loc_channels"][0])
     flops += 2 * cells["head96"] * c96 * (bb["cls_channels"][1]
                                           + bb["loc_channels"][1])
-    for name in ("head88", "head96"):
-        width = spec[name]["in_features"]
-        for cout, _ in spec[name]["layers"]:
-            flops += 2 * cells[name] * width * cout
-            width = cout
+    for name in HEADS:
+        flops += head_kind(spec[name]["kind"], root).flops(spec[name],
+                                                           cells[name])
     return flops
 
 

@@ -5,7 +5,14 @@ configuration's spec and the weights file, and the anchor table from the
 configuration's anchor options; `detect(frames)` runs preprocess, network
 and postprocess in blocks of rows, in float32 with TF32 off.  `tf32_mode`
 is also how the runners switch TF32 on for the control of a float32
-configuration."""
+configuration.
+
+The heads run over every cell of their maps, and each face takes the pose
+of its anchor's cell: the program's "map" head profile.  Where a head
+couples a map's cells, the program's "survivors" profile (each face's
+feature vector alone, a 1x1 map) computes something else, so a
+configuration with such a head has to state `"detector": {"head_eval":
+"map"}`; the reference refuses it otherwise."""
 from __future__ import annotations
 
 import contextlib
@@ -13,6 +20,7 @@ import contextlib
 import numpy as np
 import torch
 
+from ..harness.cells import PERFBENCH
 from . import image, model, postprocess
 
 
@@ -31,11 +39,20 @@ def tf32_mode(on: bool):
 
 
 class Reference:
-    def __init__(self, config: dict, params_path: str, device="cpu"):
+    def __init__(self, config: dict, params_path: str, device="cpu",
+                 root: str = PERFBENCH):
         self.config = config
         self.device = torch.device(device)
         self.size = config["spec"]["backbone"]["input_size"]
-        self.net = model.Network(config["spec"], params_path, self.device)
+        self.net = model.Network(config["spec"], params_path, self.device,
+                                 root)
+        profile = config.get("detector", {}).get("head_eval", "auto")
+        if self.net.coupled and profile != "map":
+            raise ValueError(
+                f"perfbench: {self.net.coupled} couple their maps' cells, "
+                "and the reference computes the 'map' head profile only; "
+                f"this configuration's head_eval is {profile!r} (state "
+                '"detector": {"head_eval": "map"})')
         self.anchors = postprocess.anchors(config["anchors"])
 
     @torch.no_grad()

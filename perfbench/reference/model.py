@@ -1,4 +1,4 @@
-"""The unified BlazeFace network and its two MLP pose heads, plain PyTorch.
+"""The unified BlazeFace network and its two pose heads, plain PyTorch.
 
 BlazeFace (arXiv:1907.05047) on its separable path: a 5x5 stride-2 stem
 with ReLU, then BlazeBlocks (depthwise 3x3, pointwise 1x1, a skip that is
@@ -6,7 +6,9 @@ max-pooled 2x2/2 on a stride-2 block and zero-padded on the channel axis
 where the block widens, ReLU), SSD 1x1 heads on the tap block's map and on
 the last map, flattened cell-major then anchor.  TensorFlow's SAME padding
 is asymmetric at stride 2 (the smaller half before), so those convs pad
-explicitly.  Each pose head is an MLP run on every cell of its map.
+explicitly.  Each pose head runs over every cell of its map, as the
+module of its kind builds it: `spec[head]["kind"]` names
+`perfbench/reference/heads/<kind>.py` (`head_kind`).
 
 The weights come from a shipped `params.npz` (JAX layout: HWIO kernels, a
 depthwise kernel (3, 3, 1, C), dense `w` as (in, out)); the sizes from the
@@ -19,13 +21,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-ACTIVATIONS = {
-    "linear": lambda x: x,
-    "relu": torch.relu,
-    "tanh": torch.tanh,
-    "sigmoid": torch.sigmoid,
-    "softsign": lambda x: x / (1.0 + x.abs()),
-}
+from ..harness.cells import PERFBENCH, module
+
+HEADS = ("head88", "head96")
+
+
+def head_kind(kind: str, root: str = PERFBENCH):
+    """The module of a head kind, `<root>/reference/heads/<kind>.py`: its
+    `build(head_spec, params, prefix, device)` gives the head over (B, H,
+    W, C) maps, `flops(head_spec, cells)` the model's own operations over
+    `cells` cells (a multiply-add 2), and `COUPLES_CELLS` whether a cell's
+    answer depends on the map's other cells."""
+    return module("reference/heads", kind, root)
 
 
 def pad_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
@@ -39,7 +46,8 @@ def pad_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
 class Network:
     """The network of one spec with its weights on `device`."""
 
-    def __init__(self, spec: dict, params_path: str, device):
+    def __init__(self, spec: dict, params_path: str, device,
+                 root: str = PERFBENCH):
         z = np.load(params_path)
 
         def t(key):
@@ -62,12 +70,11 @@ class Network:
                            t(f"backbone/{name}/bias"))
                     for name in ("cls_front", "cls_back", "loc_front",
                                  "loc_back")}
-        self.heads = {}
-        for name in ("head88", "head96"):
-            layers = spec[name]["layers"]
-            self.heads[name] = [(t(f"{name}/layers/{j}/w"),
-                                 t(f"{name}/layers/{j}/b"), act)
-                                for j, (_, act) in enumerate(layers)]
+        kinds = {name: head_kind(spec[name]["kind"], root) for name in HEADS}
+        self.heads = {name: kind.build(spec[name], z, name + "/", device)
+                      for name, kind in kinds.items()}
+        self.coupled = [name for name, kind in kinds.items()
+                        if kind.COUPLES_CELLS]
 
     def _block(self, x, dw, dw_b, pw, pw_b, stride):
         cin, cout = x.shape[1], pw.shape[0]
@@ -82,15 +89,9 @@ class Network:
             skip = F.pad(skip, (0, 0, 0, 0, 0, cout - cin))
         return torch.relu(y + skip)
 
-    def _mlp(self, name, x):
-        for w, b, act in self.heads[name]:
-            x = ACTIVATIONS[act](x @ w + b)
-        return x
-
-    def __call__(self, x: torch.Tensor) -> dict:
-        """x (B, S, S, 3) NHWC in [-1, 1] → scores (B, A) logits, loc
-        (B, A, 16), pose_front (B, 16, 16, 3), pose_back (B, 8, 8, 3)."""
-        B = x.shape[0]
+    def taps(self, x: torch.Tensor) -> tuple:
+        """x (B, S, S, 3) NHWC in [-1, 1] → the tap block's map and the
+        last map, NCHW."""
         w, b = self.stem
         y = torch.relu(F.conv2d(pad_same(x.permute(0, 3, 1, 2), 5, 2), w, b,
                                 stride=2))
@@ -100,7 +101,13 @@ class Network:
             y = self._block(y, *blk)
             if i == tap:
                 f88 = y
-        f96 = y
+        return f88, y
+
+    def __call__(self, x: torch.Tensor) -> dict:
+        """x (B, S, S, 3) NHWC in [-1, 1] → scores (B, A) logits, loc
+        (B, A, 16), pose_front (B, 16, 16, 3), pose_back (B, 8, 8, 3)."""
+        B = x.shape[0]
+        f88, f96 = self.taps(x)
 
         def head(name, f):
             return F.conv2d(f, *self.ssd[name]).permute(0, 2, 3, 1)
@@ -111,5 +118,5 @@ class Network:
                          head("loc_back", f96).reshape(B, -1, 16)], 1)
         f88, f96 = f88.permute(0, 2, 3, 1), f96.permute(0, 2, 3, 1)
         return {"scores": scores, "loc": loc,
-                "pose_front": self._mlp("head88", f88),
-                "pose_back": self._mlp("head96", f96)}
+                "pose_front": self.heads["head88"](f88),
+                "pose_back": self.heads["head96"](f96)}

@@ -10,13 +10,13 @@ import time
 import numpy as np
 
 from ..harness import check, trace
-from ..harness.cells import ROOT
-from ..kernels import all_gather, backbone2, head_mlp, postprocess
+from ..harness.cells import PERFBENCH, ROOT, module
 
-MATCHERS = {"backbone2": backbone2.matches, "head_mlp": head_mlp.matches,
-            "postprocess": postprocess.matches,
-            "all_gather": all_gather.matches}
 RETAKES = 3
+# the detector's options that the harness sets itself; a configuration's
+# "detector" object may not set them again
+HARNESS_OPTIONS = ("precision", "score_threshold", "iou_threshold",
+                   "max_faces", "device", "mesh")
 
 
 class Phases:
@@ -38,15 +38,22 @@ class Phases:
 
 def detector(config: dict, device, **kw):
     """The program's FaceDetector for `config`: its shipped model at its
-    precision and thresholds."""
+    precision and thresholds, with the keyword options of the
+    configuration's optional "detector" object (e.g. {"head_eval":
+    "map"}); ValueError where one of them is an option the harness sets."""
     from headpose_tpu_torch.runtime.detector import FaceDetector
 
+    options = config.get("detector", {})
+    clash = sorted(set(options) & set(HARNESS_OPTIONS))
+    if clash:
+        raise ValueError(f"perfbench: the configuration's \"detector\" sets "
+                         f"{clash}, which the harness sets itself")
     path = os.path.join(ROOT, os.path.dirname(config["weights"]))
     return FaceDetector.from_native(
         path, precision=config["precision"],
         score_threshold=config["score_threshold"],
         iou_threshold=config["iou_threshold"],
-        max_faces=config["max_faces"], device=device, **kw)
+        max_faces=config["max_faces"], device=device, **kw, **options)
 
 
 class Reservoir:
@@ -69,6 +76,12 @@ class Reservoir:
             self.kept[j] = (slot, results)
 
 
+def matchers(plan: dict, root: str = PERFBENCH) -> dict:
+    """{key: the `matches` of <root>/kernels/<key>.py} for each kernel of a
+    launch plan; FileNotFoundError naming the file of an unknown key."""
+    return {k: module("kernels", k, root).matches for k in plan}
+
+
 def guarded_profile(run, plan: dict, batches: int,
                     agree=lambda ok: ok) -> tuple:
     """Profile `run()` (which drives `batches` batches) and count each
@@ -77,10 +90,10 @@ def guarded_profile(run, plan: dict, batches: int,
     again, up to RETAKES times.  `agree(ok)` makes the verdict common to
     all ranks.  Returns (trace, retakes, counts)."""
     want = {k: v * batches for k, v in plan.items()}
-    matchers = {k: MATCHERS[k] for k in plan}
+    found = matchers(plan)
     for retakes in range(RETAKES + 1):
         tr = trace.profile(run)
-        counts = trace.launches(tr, matchers)
+        counts = trace.launches(tr, found)
         if agree(counts == want):
             return tr, retakes, counts
         print(f"perfbench: traced launches {counts}, the plan {want}; "

@@ -3,6 +3,7 @@ of the port's kernel table (PERF.md §6, B=128, NVIDIA H100 peaks): #3
 68.5 MB, 13.59 GFLOP on the tensor cores and 1.23 GFLOP fp32 → 0.0204 ms
 (the back model 216 MB, 15.8, 1.54 → 0.0646 ms); #4 446 MFLOP, 15.2 MB →
 0.0067 ms; #1 0.0028 ms."""
+import copy
 import json
 import os
 
@@ -44,6 +45,24 @@ def test_head_mlp_bound():
     assert nbytes / 1e6 == pytest.approx(15.2, abs=0.05)
     assert head_mlp.bound_s(_spec("flagship.fast"), 128) * 1e3 == \
         pytest.approx(0.0067, abs=5e-5)
+
+
+def test_flagship_counts_by_head_kind():
+    """The model's FLOPs a frame, with each head's by its kind's `flops`,
+    and kernel #4's work at B=256, as the counts were before heads named
+    their kind; a head of another kind is no work of kernel #4's."""
+    spec = _spec("flagship.fast")
+    assert model.network_flops(spec) == 64_968_704
+    assert head_mlp.work(spec, 256) == (892_829_696, 30_381_464)
+    alone = {}
+    for other in ("head88", "head96"):
+        s = copy.deepcopy(spec)
+        s[other]["kind"] = "se_transformer"
+        alone[other] = head_mlp.work(s, 256)
+    assert (alone["head96"][0] + alone["head88"][0],
+            alone["head96"][1] + alone["head88"][1]) == (892_829_696,
+                                                         30_381_464)
+    assert alone["head96"][0] > 0 and alone["head88"][0] > 0
 
 
 def test_postprocess_bound_is_its_bytes():

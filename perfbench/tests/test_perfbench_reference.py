@@ -51,6 +51,32 @@ def test_corpus_fields(corpus, flagship_results, field, atol):
                                    err_msg=f"image {i}")
 
 
+def test_mlp_heads_are_the_plain_chain(corpus):
+    """The flagship's pose heads, built by their kind's module, give bitwise
+    what a Dense + activation chain written here gives on the network's
+    taps, over 8 parity images."""
+    import torch
+
+    cfg = _config("flagship.fast")
+    ref = Reference(cfg, os.path.join(ROOT, cfg["weights"]))
+    frames = corpus["imgs"][:8]
+    out = ref.outputs(frames)
+    z = np.load(os.path.join(ROOT, cfg["weights"]))
+    acts = {"linear": lambda x: x, "tanh": torch.tanh,
+            "softsign": lambda x: x / (1.0 + x.abs())}
+    with torch.no_grad():
+        taps = ref.net.taps(image.preprocess(torch.from_numpy(frames),
+                                             ref.size))
+    for name, tap, key in (("head88", taps[0], "pose_front"),
+                           ("head96", taps[1], "pose_back")):
+        x = tap.permute(0, 2, 3, 1)
+        for j, (_, act) in enumerate(cfg["spec"][name]["layers"]):
+            w = torch.from_numpy(z[f"{name}/layers/{j}/w"].astype(np.float32))
+            b = torch.from_numpy(z[f"{name}/layers/{j}/b"].astype(np.float32))
+            x = acts[act](x @ w + b)
+        np.testing.assert_array_equal(out[key], x.numpy())
+
+
 @pytest.mark.parametrize("k", [0, 1, 2])
 def test_bicubic_resize_matches_tf(k):
     import torch

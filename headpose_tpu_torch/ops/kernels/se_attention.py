@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ...models.heads import SETransformerHeadNet
+from ...utils.profiling import span
 from . import library as lib
 from .packing import Packed, packed
 from .tf32 import matmul_3xtf32, split_tf32
@@ -181,7 +182,8 @@ def se_transformer_forward_cuda(net: SETransformerHeadNet,
     device, one call of the op `headpose_tpu_torch::se_transformer`
     (ops/kernels/library.py): three launches (the gates; K/V; attention
     and the tail) on the current stream, or one for 1x1 maps (T = 1: no
-    attention to compute), without synchronising.  Raises on anything the kernel does not take,
+    attention to compute), without synchronising, inside the span
+    `heads.se_transformer`.  Raises on anything the kernel does not take,
     and when a launch fails."""
     _check_domain(net)
     _check_input(net, x)
@@ -196,7 +198,8 @@ def se_transformer_forward_cuda(net: SETransformerHeadNet,
     C = spec.in_features
     dims = [C, C // spec.reduction, spec.num_heads, spec.key_dim,
             spec.ff_dim, spec.hidden, spec.out_features]
-    return lib.se_transformer(x, pack.weights, dims, list(pack.offsets))
+    with span("heads.se_transformer"):
+        return lib.se_transformer(x, pack.weights, dims, list(pack.offsets))
 
 
 def se_transformer_forward(net: SETransformerHeadNet,

@@ -60,6 +60,7 @@ from ..ops.kernels import head_mlp, se_attention
 from ..ops.kernels.head_mlp import mlp_head_forward
 from ..ops.kernels.packing import packed
 from ..ops.kernels.se_attention import se_transformer_forward
+from ..utils.profiling import span
 
 __all__ = ["fused_network", "head_forward", "head_route", "island_of",
            "PRECISIONS", "SERVED_PRECISIONS"]
@@ -165,7 +166,8 @@ def fused_network(net: UnifiedPoseNet, x: torch.Tensor,
     `UnifiedPoseNet.forward`, through the fused kernels; `precision` (one
     of `PRECISIONS`, or "high", which is "fast") chooses the backbone;
     `island` overrides the "turbo" island (`island_of`); `heads=False`
-    leaves out the pose maps.  The pose heads run in fp32 in every mode."""
+    leaves out the pose maps.  The pose heads run in fp32 in every mode,
+    both inside the span `detect.heads`."""
     if precision == "high":
         precision = "fast"
     if precision not in PRECISIONS:
@@ -185,8 +187,10 @@ def fused_network(net: UnifiedPoseNet, x: torch.Tensor,
         single_pass = bool(blocks)
     scores, loc = _ssd_outputs(bb, f88, f96, single_pass)
     out = {"feat88": f88, "feat96": f96, "scores": scores, "loc": loc}
-    if heads and net.head88 is not None:
-        out["pose_front"] = head_forward(net.head88, f88)
-    if heads and net.head96 is not None:
-        out["pose_back"] = head_forward(net.head96, f96)
+    if heads:
+        with span("detect.heads"):
+            if net.head88 is not None:
+                out["pose_front"] = head_forward(net.head88, f88)
+            if net.head96 is not None:
+                out["pose_back"] = head_forward(net.head96, f96)
     return out

@@ -3,9 +3,12 @@
 `BatchResults` holds the one fixed-size (B, F, 21) slab the detector's
 postprocess produces, on the detector's device; its fields are views of it.
 `trim()` turns it into the reference's ragged per-image `Results` (numpy)
-with ONE synchronising device→host copy of the slab (the span
-`results.copy`) and one batch-wide split (`results.split`); `from_ragged` is
-its inverse, on the CPU.
+with ONE device→host copy of the slab (the span `results.copy`) and one
+batch-wide split (`results.split`); `from_ragged` is its inverse, on the
+CPU.  The copy is either synchronous, in `trim()`, or started earlier by
+`start_download(stream)` into pinned memory on a side stream, so that
+`trim()` only waits for it; `TOTALS.counts` counts the trims of each kind
+(`trim.downloaded`, `trim.copied`).
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import torch
 
 from ..ops.detection import (C_LOGIT, C_POSE, C_VALID, KEYPOINTS,
                              MAX_FACES, SLAB)
-from ..utils.profiling import span
+from ..utils.profiling import TOTALS, span
 
 __all__ = ["Results", "BatchResults"]
 
@@ -48,6 +51,9 @@ class BatchResults:
     marking real rows."""
 
     slab: torch.Tensor
+    # (host tensor, ready event or None) once start_download() has run
+    _download: tuple | None = dataclasses.field(default=None, init=False,
+                                                repr=False)
 
     @property
     def boxes(self) -> torch.Tensor:      # (B, F, 4)
@@ -98,17 +104,52 @@ class BatchResults:
             slab[b, :n, C_VALID] = 1.0
         return cls(torch.from_numpy(slab))
 
+    def start_download(self, stream=None) -> None:
+        """Start the slab's copy to the host now, for `trim()` to use.
+
+        A CUDA slab is copied into pinned memory from PyTorch's caching host
+        allocator with `non_blocking=True` on `stream` (a CUDA stream of the
+        slab's device), after everything already queued on the current
+        stream, so after the kernels that wrote it; the copy's `ready` event
+        is recorded there.  The slab is recorded on `stream`, so that a
+        batch dropped untrimmed does not hand its memory to later work while
+        the copy reads it.  A CPU slab is copied at once, with no event and
+        no stream."""
+        slab = self.slab
+        if slab.device.type != "cuda":
+            self._download = (slab.to("cpu", copy=True), None)
+            return
+        host = torch.empty(slab.shape, dtype=slab.dtype, pin_memory=True)
+        stream.wait_stream(torch.cuda.current_stream(slab.device))
+        slab.record_stream(stream)
+        with torch.cuda.stream(stream):
+            host.copy_(slab, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        self._download = (host, ready)
+
     def trim(self) -> list[Results]:
         """Host-side conversion to the reference's ragged per-image contract:
-        the slab is copied to the host once and split there."""
+        the slab is copied to the host once (or its started download waited
+        for) and split there."""
         with span("results.trim"):
             with span("results.copy"):
-                host = self.slab.cpu().numpy()
+                if self._download is None:
+                    TOTALS.count("trim.copied")
+                    host = self.slab.cpu().numpy()
+                else:
+                    TOTALS.count("trim.downloaded")
+                    buffer, ready = self._download
+                    if ready is not None:
+                        ready.synchronize()
+                    host = buffer.numpy()
             with span("results.split"):
                 # One row-major gather of the valid rows for the whole batch
                 # (any valid pattern, not only a prefix), each field copied
                 # once into its own C-contiguous array, then a slice per
-                # image: no image's arrays overlap another's or keep the slab.
+                # image: no image's arrays overlap another's or keep the slab
+                # or the download's pinned buffer, which the caching host
+                # allocator hands to a later batch.
                 valid = host[..., C_VALID] > 0.5
                 rows = host[valid]
                 n = len(rows)

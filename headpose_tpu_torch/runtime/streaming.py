@@ -6,9 +6,14 @@ On a CUDA detector each batch is staged through pinned host memory and
 copied with `non_blocking=True` on a side stream; an event makes the compute
 stream wait for that copy before the batch's detect, so a host-fed stream
 (video decoder, RPC queue) keeps the card busy instead of serialising
-transfer → compute → transfer.  On the CPU it is a plain loop.  The spans
-`stream.stage` (a batch's pinning and copy issued) and `stream.copy_wait`
-(the host waiting for a copy) mark the card's path.
+transfer → compute → transfer.  Each batch's download to the host is started
+as soon as its detect is queued (`BatchResults.start_download`, on a second
+side stream, so an upload and a download never queue behind each other):
+the copy runs beside the next batch's kernels, and the yielded batch's
+`trim()` waits for its own copy alone, not for the next batch.  On the CPU
+it is a plain loop.  The spans `stream.stage` (a batch's pinning and copy
+issued), `results.download` (its download issued) and `stream.copy_wait`
+(the host waiting for an upload) mark the card's path.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ def detect_stream(detector, batches: Iterable,
         return
 
     copy_stream = torch.cuda.Stream(device)
+    download_stream = torch.cuda.Stream(device)
     compute_stream = torch.cuda.current_stream(device)
     staged: deque = deque()
     it = iter(batches)
@@ -73,7 +79,10 @@ def detect_stream(detector, batches: Iterable,
             # on the compute stream: keep its memory from being reused
             # before the compute stream is done with it
             dev.record_stream(compute_stream)
-            pending.append((detector.detect(dev), copied, host))
+            result = detector.detect(dev)
+            with span("results.download"):
+                result.start_download(download_stream)
+            pending.append((result, copied, host))
             stage_next()
         result, copied, host = pending.popleft()
         # the pinned source must outlive its copy: wait for the copy (not

@@ -107,13 +107,18 @@ class Timer:
                 self.totals[name] += dt
                 self.counts[name] += 1
 
+    def count(self, name: str) -> None:
+        """One more of `name`, with no time: an event, not a section."""
+        with self._lock:
+            self.counts[name] += 1
+
     def report(self) -> dict[str, dict[str, float]]:
         return {k: {"total_s": self.totals[k], "count": self.counts[k],
                     "mean_ms": 1e3 * self.totals[k] / max(self.counts[k], 1)}
                 for k in self.totals}
 
 
-TOTALS = Timer()              # the process's rare sections: seconds, counts
+TOTALS = Timer()              # rare sections (seconds, counts); event counts
 _OFF = contextlib.nullcontext()
 
 

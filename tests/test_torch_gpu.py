@@ -17,7 +17,10 @@ the tiled bf16 GEMM of the matmul probe (tiled_matmul) at each of its five
 tiles against its plain version (1e-5 of the largest |plain|) on square
 and non-square shapes;
 runtime.streaming.detect_stream against detect, and its spans off the
-device's timeline under the profiler; the tracking and
+device's timeline under the profiler; a slab's download started on a side
+stream (BatchResults.start_download): trim() waits for it alone, every
+streamed trim is served by one and equals detect's, and a batch's results
+outlive the buffers later batches reuse; the tracking and
 smoothing of runtime.tracking and runtime.smoothing on CUDA tensors against
 the same on CPU tensors, and head training (train.fit) and the feature
 extractor on the card against the CPU.
@@ -889,9 +892,10 @@ def test_detect_stream_matches_detect(cuda, flagship):
 
 def test_stream_spans_stay_off_the_device_timeline(cuda, flagship):
     """A profiled detect_stream of 4 batches and their trims: each batch
-    has its `stream.stage`, `stream.copy_wait`, `detect` and
-    `results.copy` span, and no `headpose.*` event lies on the device's
-    timeline (a span there would cover the kernels launched inside it)."""
+    has its `stream.stage`, `stream.copy_wait`, `detect`,
+    `results.download` and `results.copy` span, and no `headpose.*` event
+    lies on the device's timeline (a span there would cover the kernels
+    launched inside it)."""
     from torch.profiler import ProfilerActivity, profile
 
     from headpose_tpu_torch.runtime.streaming import detect_stream
@@ -909,12 +913,80 @@ def test_stream_spans_stay_off_the_device_timeline(cuda, flagship):
     host = [e.name for e in events
             if e.device_type == torch.autograd.DeviceType.CPU]
     for name in ("stream.stage", "stream.copy_wait", "detect",
-                 "results.copy"):
+                 "results.download", "results.copy"):
         assert host.count("headpose." + name) == len(batches), name
     assert [e.name for e in events
             if e.device_type != torch.autograd.DeviceType.CPU] == []
     assert any(e.device_type == torch.autograd.DeviceType.CUDA
                for e in prof.events())            # the device was traced
+
+
+def _assert_results_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for k in ("boxes", "keypoints", "scores", "poses"):
+            a, e = getattr(g, k), getattr(w, k)
+            assert a.shape == e.shape and a.tobytes() == e.tobytes(), k
+
+
+def _trim_counts():
+    from headpose_tpu_torch.utils.profiling import TOTALS
+
+    return TOTALS.counts["trim.downloaded"], TOTALS.counts["trim.copied"]
+
+
+def test_trim_waits_for_its_download_alone(cuda, flagship):
+    """A batch's download started on a side stream, then a long sleep
+    queued on the compute stream: trim() returns while the sleep still
+    runs, with the synchronous copy's results."""
+    imgs = _corpus(16)
+    want = flagship.detect(imgs).trim()
+    out = flagship.detect(imgs)
+    out.start_download(torch.cuda.Stream())
+    torch.cuda._sleep(2 ** 31)            # about a second of the card
+    slept = torch.cuda.Event()
+    slept.record()
+    got = out.trim()
+    assert not slept.query()
+    torch.cuda.synchronize()
+    _assert_results_equal(got, want)
+
+
+def test_detect_stream_trims_from_started_downloads(cuda, flagship):
+    """Every trim of a streamed batch is served by its started download,
+    none copies synchronously, and each equals detect(batch).trim() bit for
+    bit."""
+    from headpose_tpu_torch.runtime.streaming import detect_stream
+
+    imgs = _corpus(64)
+    batches = [imgs[i:i + 16] for i in range(0, 64, 16)]
+    before = _trim_counts()
+    got = [out.trim() for out in
+           detect_stream(flagship, iter(batches), prefetch=2)]
+    after = _trim_counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (len(batches), 0)
+    for batch, results in zip(batches, got):
+        _assert_results_equal(results, flagship.detect(batch).trim())
+
+
+def test_streamed_results_outlive_later_batches(cuda, flagship):
+    """Batch 0's results are unchanged after 8 more batches (other frames)
+    have been streamed and trimmed: no result keeps a pinned buffer the
+    caching host allocator hands to a later batch."""
+    from headpose_tpu_torch.runtime.streaming import detect_stream
+
+    imgs = _corpus(144)
+    batches = [imgs[i:i + 16] for i in range(0, 144, 16)]
+    stream = detect_stream(flagship, iter(batches), prefetch=2)
+    first = next(stream).trim()
+    kept = [{k: getattr(r, k).copy() for k in ("boxes", "keypoints",
+                                                "scores", "poses")}
+            for r in first]
+    assert len([out.trim() for out in stream]) == 8
+    assert sum(len(r) for r in first) > 0
+    for r, k in zip(first, kept):
+        for name, a in k.items():
+            assert getattr(r, name).tobytes() == a.tobytes(), name
 
 
 def _timeline_gpu(seed, N=12, F=6, faces=8):

@@ -2,7 +2,10 @@
 valid rows, then per-image slices.  Held to the per-image boolean-mask split
 it replaced (kept here as the oracle) and to the JAX package's trim() on the
 same slab, bit for bit; every array its own C-contiguous, writeable float32
-memory; from_ragged its inverse."""
+memory; from_ragged its inverse.  Each case runs on both of trim()'s paths:
+the synchronous copy, and a download started beforehand
+(`start_download`), whose buffer the results must not keep; each path's
+trims are counted."""
 import itertools
 
 import numpy as np
@@ -13,6 +16,7 @@ from headpose_tpu.runtime.results import BatchResults as JaxBatchResults
 from headpose_tpu_torch.ops.detection import (C_LOGIT, C_POSE, C_VALID,
                                               KEYPOINTS, MAX_FACES, SLAB)
 from headpose_tpu_torch.runtime.results import BatchResults, Results
+from headpose_tpu_torch.utils.profiling import TOTALS
 
 FIELDS = ("boxes", "keypoints", "scores", "poses")
 F = MAX_FACES
@@ -73,13 +77,27 @@ CASES = [(1, "none"), (1, "one"), (1, "full"), (1, "scattered"),
          (7, "prefix"), (7, "scattered"), (256, "prefix"), (256, "scattered")]
 
 
-@pytest.fixture(params=CASES, ids=[f"b{b}-{p}" for b, p in CASES])
+PATHS = ("copy", "download")
+
+
+def _batch(B: int, pattern: str, path: str) -> tuple:
+    """(slab, its BatchResults), the download started on that path."""
+    slab = _slab(B, pattern, seed=1000 * B + CASES.index((B, pattern)))
+    br = BatchResults(torch.from_numpy(slab))
+    if path == "download":
+        br.start_download()
+    return slab, br
+
+
+@pytest.fixture(params=[(c, p) for p in PATHS for c in CASES],
+                ids=[f"b{b}-{pat}" + ("" if p == "copy" else f"-{p}")
+                     for p in PATHS for b, pat in CASES])
 def case(request):
     """(slab, trim() of it): the slab stays referenced, so the test can
     check that no result is a view of it."""
-    B, pattern = request.param
-    slab = _slab(B, pattern, seed=1000 * B + CASES.index(request.param))
-    return slab, BatchResults(torch.from_numpy(slab)).trim()
+    (B, pattern), path = request.param
+    slab, br = _batch(B, pattern, path)
+    return slab, br.trim()
 
 
 def _assert_bitwise(got: list, want: list):
@@ -133,3 +151,27 @@ def test_from_ragged_inverts_trim(case):
     np.testing.assert_array_equal(back[..., C_VALID] > 0.5, np.sort(
         valid, axis=1)[:, ::-1])
     assert back[back[..., C_VALID] > 0.5].tobytes() == slab[valid].tobytes()
+
+
+@pytest.mark.parametrize("B,pattern", CASES,
+                         ids=[f"b{b}-{p}" for b, p in CASES])
+def test_trim_results_keep_nothing_of_the_download(B, pattern):
+    """The download's buffer goes back to the allocator for a later batch:
+    overwriting it after trim() changes no result."""
+    slab, br = _batch(B, pattern, "download")
+    got = br.trim()
+    br._download[0].fill_(float("nan"))
+    _assert_bitwise(got, _mask_split(slab))
+
+
+def test_trim_counts_each_path():
+    """One synchronous trim counts one `trim.copied`, one trim of a
+    started download one `trim.downloaded`."""
+    def counts():
+        return (TOTALS.counts["trim.copied"], TOTALS.counts["trim.downloaded"])
+
+    before = counts()
+    _batch(7, "prefix", "copy")[1].trim()
+    assert counts() == (before[0] + 1, before[1])
+    _batch(7, "prefix", "download")[1].trim()
+    assert counts() == (before[0] + 1, before[1] + 1)

@@ -35,18 +35,18 @@ is one JSON object, except the nvidia-smi line:
   head_routes  how runtime.fused.head_forward runs each served model's
            heads ("kernel" or "module", from the head's spec);
   kernels  per kernel: holds it against its plain PyTorch version on the
-           card over a set of cases (postprocess_nms bit for bit, from the
+           card over a set of cases (postprocess bit for bit, from the
            raw network outputs: non-finite inputs,
            thresholds 0 and 1, max_faces 0, 1, 100 and 256, the back
            model's 256 anchors; backbone_forward at rtol 1e-4 / atol 1e-5;
-           mlp_head_forward at rtol = atol = 1e-5 (both shipped MLP-head
+           mlp_head at rtol = atol = 1e-5 (both shipped MLP-head
            models, ragged N, padded widths under every activation, the
            32- and 16-row tiles, 8 layers, unaligned rows); apply_fused at
            SPLIT_TOL
            (ops/kernels/backbone2.py) on the flagship and the back model,
            and at atol 5e-4 against the fp32 backbone_forward kernel, or for
            the back model its cuDNN taps;
-           se_transformer_forward at rtol 1e-4 / atol 1e-5; dense_block,
+           se_transformer at rtol 1e-4 / atol 1e-5; dense_block,
            the island kernel of a block alone, block by block on the same
            input at 1e-5 of the map's largest value, every block of both
            models at B=128 and a spec widening to 128 channels;
@@ -58,8 +58,8 @@ is one JSON object, except the nvidia-smi line:
            (CUDA events) at the main path's shapes beside its plain version
            and a library yardstick, with each grid's device time
            (backbone_forward's 17 beside each one's byte floor;
-           apply_fused's launches; se_transformer_forward's by kernel;
-           mlp_head_forward's per head, for the flagship's heads and for
+           apply_fused's launches; se_transformer's by kernel;
+           mlp_head's per head, for the flagship's heads and for
            best_detector()'s);
   kernel_matmul  tiled_matmul, the GEMM of the matmul probe (csrc/
            tiled_matmul.cu, the port of scripts/probe_mosaic_matmul.py's
@@ -91,7 +91,7 @@ is one JSON object, except the nvidia-smi line:
            parity and stress gates, and best_detector(precision="fast")
            against its own "highest" detect on 8 corpus images; launch
            counts reset just before and read just after (apply_fused,
-           mlp_head_forward and postprocess_nms must have launched); the
+           mlp_head and postprocess must have launched); the
            B=128 network stage of the three networks and the "fast" detect
            wall time at B=1 and B=128 (best_detector()'s "fast" network
            too);
@@ -102,7 +102,7 @@ is one JSON object, except the nvidia-smi line:
            path (detect) within rtol 1e-4 / atol 1e-4, and against the
            port's CPU path on 8 frames; "fast" poses within the 0.1 deg
            budget of its "highest" detect; launch counts reset just before
-           and read just after each of the three, and se_transformer_forward
+           and read just after each of the three, and se_transformer
            must have launched in each; detect_fused wall time at B=1 and
            B=128 in both profiles;
   unified_best  'unified-best' (head_eval "auto" = "survivors") through
@@ -111,7 +111,7 @@ is one JSON object, except the nvidia-smi line:
            detector; detect wall time at B=1 and B=128;
   back     'unified-back-distilled' on the 112 corpus frames resized to
            256: the "fast" detect in its own launch window (apply_fused,
-           mlp_head_forward and postprocess_nms must launch) against the
+           mlp_head and postprocess must launch) against the
            "highest" one (one detection set, poses within 0.1 deg), each
            against the port's CPU detector on 16 frames; the B=128
            network stage and the "fast" detect wall times;
@@ -132,8 +132,8 @@ is one JSON object, except the nvidia-smi line:
            the flagship's against the corpus reference (set agreement 1.0,
            pose p99 < 0.1 deg), 224 frames served, no error, fewer
            dispatches than frames; launch counts reset just before and read
-           just after: postprocess_nms once a dispatch, and at "fast"
-           apply_fused once and mlp_head_forward twice; frames per
+           just after: postprocess once a dispatch, and at "fast"
+           apply_fused once and mlp_head twice; frames per
            dispatch, request latency p50/p99 (/v1/stats), frames/s; then
            the CLI (python -m headpose_tpu_torch.runtime.http --model
            unified-best-distilled --precision fast) in a process of its
@@ -299,7 +299,7 @@ is one JSON object, except the nvidia-smi line:
   total    the script's seconds;
   then the {"kernels": [...]} summary (launches from the fused phase;
   apply_fused's from the fast phase, and its back window's beside them;
-  se_transformer_forward's from the se phase's map window; dense_chain's
+  se_transformer's from the se phase's map window; dense_chain's
   from the turbo phase's "turbo" window and dense_block's from its "max"
   window, the other window beside each;
   the serve phase's beside them, the detector_train phase's windows
@@ -321,6 +321,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from headpose_tpu_torch.ops.kernels import library
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden")
@@ -435,25 +437,6 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def wrappers() -> dict:
-    """Each kernel's wrapper; its `launches` counts the kernel's launches
-    (for kernel #3 both apply_fused, a call that ran a segment, and
-    run_segment, a segment).  The dryrun's ranks count by the same
-    table."""
-    from headpose_tpu_torch.ops.kernels import kernel_wrappers
-
-    return kernel_wrappers()
-
-
-def reset_launches() -> None:
-    for fn in wrappers().values():
-        fn.launches = 0
-
-
-def read_launches() -> dict:
-    return {name: fn.launches for name, fn in wrappers().items()}
-
-
 def close(got: torch.Tensor, want: torch.Tensor, rtol: float,
           atol: float) -> tuple[float, float]:
     """(max abs err, max of |got - want| / (atol + rtol |want|)): the second
@@ -557,9 +540,9 @@ def phase_build() -> dict:
                                                 postprocess, se_attention,
                                                 tiled_matmul)
 
-    mods = {"postprocess_nms": postprocess, "backbone_forward": backbone,
-            "mlp_head_forward": head_mlp, "apply_fused": backbone2,
-            "se_transformer_forward": se_attention,
+    mods = {"postprocess": postprocess, "backbone_forward": backbone,
+            "mlp_head": head_mlp, "apply_fused": backbone2,
+            "se_transformer": se_attention,
             "dense_block": dense_bf16, "tiled_matmul": tiled_matmul}
 
     def build(mod):
@@ -577,12 +560,12 @@ def phase_build() -> dict:
     # the tensor-core kernels' mma instructions in their SASS: warp-level
     # HMMA (mma.sync), and tiled_matmul's warpgroup HGMMA (wgmma), which
     # must have replaced every HMMA there
-    for name in ("apply_fused", "se_transformer_forward", "dense_block",
+    for name in ("apply_fused", "se_transformer", "dense_block",
                  "tiled_matmul"):
         built[name]["sass_hmma"] = sass_count(mods[name].LIBRARY, "HMMA")
     built["tiled_matmul"]["sass_hgmma"] = sass_count(
         mods["tiled_matmul"].LIBRARY, "HGMMA")
-    for name in ("se_transformer_forward", "dense_block"):
+    for name in ("se_transformer", "dense_block"):
         if built[name]["sass_hmma"] == 0:
             raise AssertionError(f"{name}'s library has no tensor-core "
                                  "instruction (HMMA) in its SASS")
@@ -605,13 +588,13 @@ def launches_per_call(fn, reps: int = 10) -> float:
 
 
 def phase_kernels(dev, anchors, back_anchors, main_inputs, built):
-    """postprocess_nms: the kernel against the plain chain on the card, bit
+    """postprocess: the kernel against the plain chain on the card, bit
     for bit."""
     from headpose_tpu_torch.ops import detection as det
     from headpose_tpu_torch.ops.kernels import postprocess as kern
 
-    build_s = built["postprocess_nms"]["build_s"]
-    ptxas = built["postprocess_nms"]["ptxas"]
+    build_s = built["postprocess"]["build_s"]
+    ptxas = built["postprocess"]["ptxas"]
     kw = dict(score_threshold=0.4, iou_threshold=0.3, max_faces=100)
     cases = []
     for case in FUZZ:
@@ -693,7 +676,7 @@ def phase_kernels(dev, anchors, back_anchors, main_inputs, built):
     bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
     ops_ms = operations / H100_FP32_FLOPS * 1e3
     entry = {
-        "name": "postprocess_nms", "route": "cuda",
+        "name": "postprocess", "route": "cuda",
         "source": "headpose_tpu_torch/csrc/postprocess.cu",
         "replaces": "headpose_tpu/ops/pallas/postprocess.py:67",
         "launches": None,                     # filled by the parity phase
@@ -712,7 +695,7 @@ def phase_kernels(dev, anchors, back_anchors, main_inputs, built):
         "shape": {"B": B, "F": F, "survivors": survivors},
         "build_s": build_s, "ptxas": ptxas,
     }
-    emit({"phase": "kernels", "kernel": "postprocess_nms", "cases": cases,
+    emit({"phase": "kernels", "kernel": "postprocess", "cases": cases,
           **mine, "plain_ms": plain_ms,
           "bound_ms": entry["bound_ms"], "build_s": build_s,
           "ptxas": ptxas})
@@ -917,9 +900,9 @@ def time_heads(heads, rows):
     def pair():
         return [khead.mlp_head_forward_cuda(h, x) for h, x in zip(heads, rows)]
 
-    before = khead.mlp_head_forward.launches
+    before = library.launches()["mlp_head"]
     pair()
-    wrapper_launches = khead.mlp_head_forward.launches - before
+    wrapper_launches = library.launches()["mlp_head"] - before
     per_launch = grids_in_order(pair, 20, len(heads))
     ops, nbytes = head_work(heads, [x.shape[0] for x in rows])
     bound_ms, bound_by = bound(ops, nbytes)
@@ -943,7 +926,7 @@ def time_heads(heads, rows):
 
 
 def phase_kernel_head(dev, flagship, best, frames128, built):
-    """mlp_head_forward: the kernel against the plain version on the card:
+    """mlp_head: the kernel against the plain version on the card:
     both shipped models' heads on the flagship's B=128 feature maps; ragged
     N (HEAD_RAGGED) on best's head88; every activation id on a 16-wide
     hidden layer and on the padded widths 88 -> 37 -> 5 -> 3; the 32- and
@@ -998,7 +981,7 @@ def phase_kernel_head(dev, flagship, best, frames128, built):
         both = (rows[88], rows[96])
         models = {name: time_heads((d.net.head88, d.net.head96), both)
                   for name, d in (("flagship", flagship), ("best", best))}
-    emit({"phase": "kernels", "kernel": "mlp_head_forward", "cases": report,
+    emit({"phase": "kernels", "kernel": "mlp_head", "cases": report,
           "models": models})
     if worst[1] > 1.0:
         raise AssertionError(f"mlp_head_forward disagrees with its plain "
@@ -1014,7 +997,7 @@ def phase_kernel_head(dev, flagship, best, frames128, built):
                                  f"{m['launches_per_call']}), not 2")
     main = models["flagship"]
     return {
-        "name": "mlp_head_forward", "route": "cuda",
+        "name": "mlp_head", "route": "cuda",
         "source": "headpose_tpu_torch/csrc/head_mlp.cu",
         "replaces": "headpose_tpu/ops/pallas/head_mlp.py:29",
         "launches": None,                     # filled by the fused phase
@@ -1030,8 +1013,8 @@ def phase_kernel_head(dev, flagship, best, frames128, built):
         "kernel_ms": main["kernel_ms"],
         "operations": main["operations"], "bytes": main["bytes"],
         "shape": main["shape"], "models": models,
-        "build_s": built["mlp_head_forward"]["build_s"],
-        "ptxas": built["mlp_head_forward"]["ptxas"],
+        "build_s": built["mlp_head"]["build_s"],
+        "ptxas": built["mlp_head"]["ptxas"],
     }
 
 
@@ -1118,10 +1101,10 @@ def corpus_parity(per, corpus, phase):
 
 
 def phase_parity(flagship, corpus, production):
-    reset_launches()                         # the main path's window opens
+    library.reset_launches()                 # the main path's window opens
     report = check_parity(flagship.detect, corpus, production, "parity")
-    launches = read_launches()               # ... and closes
-    if launches["postprocess_nms"] < 2:
+    launches = library.launches()            # ... and closes
+    if launches["postprocess"] < 2:
         raise AssertionError(f"detect did not launch the kernel ({launches})")
     report["launches"] = launches
     emit(report)
@@ -1217,16 +1200,16 @@ def phase_fused(flagship, best, corpus, production, stress, frames128):
     both paths."""
     from headpose_tpu_torch.runtime.fused import fused_network
 
-    reset_launches()                         # the fused path's window opens
+    library.reset_launches()                 # the fused path's window opens
     parity = check_parity(flagship.detect_fused, corpus, production,
                           "fused")
     stressed = check_stress(flagship.detect_fused, flagship, stress,
                             "fused")
     imgs = corpus["imgs"][:8]
     a, b = best.detect_fused(imgs), best.detect(imgs)
-    launches = read_launches()               # ... and closes
-    if min(launches[k] for k in ("postprocess_nms", "backbone_forward",
-                                 "mlp_head_forward")) < 1:
+    launches = library.launches()            # ... and closes
+    if min(launches[k] for k in ("postprocess", "backbone_forward",
+                                 "mlp_head")) < 1:
         raise AssertionError(f"detect_fused missed a kernel: {launches}")
     if not torch.equal(a.valid, b.valid):
         raise AssertionError("best detect_fused: detection sets differ")
@@ -1512,7 +1495,7 @@ def island_library(net, i, x):
     CUDA cores); both pad 1/1 (at stride 2 the function pads 0/1: the time,
     not the edge, is the point)."""
     import torch.nn.functional as F
-    from headpose_tpu_torch.models.blazeface import bf16_round
+    from headpose_tpu_torch.core.single_pass import bf16_round
 
     blk = net.blocks[i]
     K, bias = (t.detach() for t in blk.composed())
@@ -1529,8 +1512,8 @@ def island_scale(net, i, x):
     """The sum of |terms| of island block i on NHWC x (|products| + |bias|
     + |skip|), on the card in fp32: the scale of its fp32 sum order."""
     import torch.nn.functional as F
-    from headpose_tpu_torch.models.blazeface import (_pad_same, bf16_round,
-                                                     fp32_exact)
+    from headpose_tpu_torch.core.single_pass import bf16_round, fp32_exact
+    from headpose_tpu_torch.models.blazeface import _pad_same
 
     blk = net.blocks[i]
     K, bias = (t.detach() for t in blk.composed())
@@ -1907,11 +1890,11 @@ def phase_kernel_matmul(built, card):
 
     t0 = time.perf_counter()
     reports = {}
-    reset_launches()                     # the probe's window opens
+    library.reset_launches()             # the probe's window opens
     for n in MATMUL_SIZES:
         reports[n] = probe_matmul.probe(n, device="cuda")
     non_square = matmul_non_square(ktm)
-    window = read_launches()             # ... and closes
+    window = library.launches()          # ... and closes
     expected = sum(len(ktm.TILES) * (2 + r["iters"])
                    for r in reports.values()) + len(ktm.TILES)
     seconds = time.perf_counter() - t0
@@ -2033,14 +2016,14 @@ def phase_fast(flagship, best, corpus, production, stress, frames128):
     # parity budget; "fast" moves them by about 1e-3 deg), scores and boxes
     # at the fp32 path's tolerances
     tol = {**PRODUCTION_TOL, "poses": PARITY_BUDGET_DEG}
-    reset_launches()                         # the fast path's window opens
+    library.reset_launches()                 # the fast path's window opens
     parity = check_parity(fast.detect, corpus, production, "fast", tol)
     stressed = check_stress(fast.detect, fast, stress, "fast")
     imgs = corpus["imgs"][:8]
     a = best_fast.detect(imgs)
-    launches = read_launches()               # ... and closes
-    if min(launches[k] for k in ("apply_fused", "mlp_head_forward",
-                                 "postprocess_nms")) < 1:
+    launches = library.launches()            # ... and closes
+    if min(launches[k] for k in ("apply_fused", "mlp_head",
+                                 "postprocess")) < 1:
         raise AssertionError(f"the fast detect missed a kernel: {launches}")
     b = best.detect(imgs)
     if not torch.equal(a.valid, b.valid):
@@ -2109,7 +2092,7 @@ def se_head(dev, c, seed, **fields):
     """An SETransformerHeadNet on the card with `se_head_params`."""
     from headpose_tpu_torch.models.heads import (SETransformerHead,
                                                  SETransformerHeadNet)
-    from headpose_tpu_torch.tools.convert import params_from_jax
+    from headpose_tpu_torch.models.params import params_from_jax
 
     spec = SETransformerHead(in_features=c, **fields)
     net = SETransformerHeadNet(spec, device=dev)
@@ -2219,7 +2202,7 @@ def se_library(net):
 
 
 def phase_kernel_se(dev, flagship, frames128, built):
-    """se_transformer_forward: the kernel against its plain version on the
+    """se_transformer: the kernel against its plain version on the
     card (SE_TOL): the SE model's heads on the flagship's taps of corpus
     frames at B in {1, 8, 128}, a 2 x 8 head on random 8x8x96 maps, a
     one-head spec on random 16x16x88 maps, 5x5 maps (T = 25: ragged key
@@ -2294,7 +2277,7 @@ def phase_kernel_se(dev, flagship, frames128, built):
     rows_work = se_work(h88.spec, 12800, 1)
     rows_bound_ms, rows_bound_by, rows_terms, rows_fp32_only_ms = se_bound(
         [rows_work])
-    emit({"phase": "kernels", "kernel": "se_transformer_forward",
+    emit({"phase": "kernels", "kernel": "se_transformer",
           "cases": report, "ms": ms, "plain_ms": plain_ms,
           "library_ms": library_ms, "bound_ms": bound_ms,
           "bound_terms_ms": terms, "bound_fp32_only_ms": fp32_only_ms,
@@ -2309,7 +2292,7 @@ def phase_kernel_se(dev, flagship, frames128, built):
         raise AssertionError(f"se_transformer_forward disagrees with its "
                              f"plain version beyond {SE_TOL}: {report}")
     return {
-        "name": "se_transformer_forward", "route": "cuda",
+        "name": "se_transformer", "route": "cuda",
         "source": "headpose_tpu_torch/csrc/se_attention.cu",
         "replaces": "headpose_tpu/ops/pallas/se_attention.py:39",
         "launches": None,                     # filled by the se phase
@@ -2332,8 +2315,8 @@ def phase_kernel_se(dev, flagship, frames128, built):
         "fp32_operations": sum(w["fp32"] for w in work),
         "bytes": sum(w["bytes"] for w in work),
         "shape": {"B": B, "T88": 256, "T96": 64},
-        "build_s": built["se_transformer_forward"]["build_s"],
-        "ptxas": built["se_transformer_forward"]["ptxas"],
+        "build_s": built["se_transformer"]["build_s"],
+        "ptxas": built["se_transformer"]["ptxas"],
     }
 
 
@@ -2383,11 +2366,11 @@ def phase_se(corpus):
     for name, run in (("map", dets["map"].detect_fused),
                       ("survivors", dets["survivors"].detect_fused),
                       ("fast_map", fast.detect)):
-        reset_launches()                     # this path's window opens
+        library.reset_launches()             # this path's window opens
         batch = run(imgs)
-        launches = read_launches()           # ... and closes
-        if launches["se_transformer_forward"] < 1 or \
-                launches["postprocess_nms"] < 1:
+        launches = library.launches()        # ... and closes
+        if launches["se_transformer"] < 1 or \
+                launches["postprocess"] < 1:
             raise AssertionError(f"se {name}: a kernel did not launch "
                                  f"({launches})")
         fused[name] = batch
@@ -2468,8 +2451,8 @@ def phase_back(back, corpus, frames256):
     """'unified-back-distilled' (input 256: the corpus frames resized by the
     preprocess) on the card: detect at "highest" (cuDNN) and at "fast"
     (every block through the split-bf16 kernel) on the 112 corpus frames,
-    the fast path in its own launch window (apply_fused, mlp_head_forward
-    and postprocess_nms must launch); the two give one detection set, poses
+    the fast path in its own launch window (apply_fused, mlp_head
+    and postprocess must launch); the two give one detection set, poses
     within the 0.1 deg budget of each other; each against the port's CPU
     detector at its precision on 16 frames; then the B=128 network stage
     and the "fast" detect wall times."""
@@ -2480,11 +2463,11 @@ def phase_back(back, corpus, frames256):
     fast = FaceDetector(spec, params, precision="fast")
     highest = FaceDetector(spec, params)
     imgs = corpus["imgs"]
-    reset_launches()                         # the back path's window opens
+    library.reset_launches()                 # the back path's window opens
     got = fast.detect(imgs)
-    launches = read_launches()               # ... and closes
-    if min(launches[k] for k in ("apply_fused", "mlp_head_forward",
-                                 "postprocess_nms")) < 1:
+    launches = library.launches()            # ... and closes
+    if min(launches[k] for k in ("apply_fused", "mlp_head",
+                                 "postprocess")) < 1:
         raise AssertionError(f"the back model's fast detect missed a "
                              f"kernel: {launches}")
     want = highest.detect(imgs)
@@ -2639,9 +2622,9 @@ def phase_turbo(flagship, best, back_model, corpus, stress, frames128,
     report = {"phase": "turbo", "card": card}
     windows = {}
     for mode in ("turbo", "max"):
-        reset_launches()                     # the mode's window opens
+        library.reset_launches()             # the mode's window opens
         par = certify_parity(dets[mode].detect, corpus)
-        windows[mode] = read_launches()      # ... and closes
+        windows[mode] = library.launches()   # ... and closes
         st = certify_stress(dets[mode].detect, stress)
         report[mode] = {
             "parity": par, "launches_parity_window": windows[mode],
@@ -2658,10 +2641,10 @@ def phase_turbo(flagship, best, back_model, corpus, stress, frames128,
     for mode in ("turbo", "max"):
         island = island_of(net.spec, mode)
         plan = kb2.segment_plan(net.spec, island)
-        reset_launches()
+        library.reset_launches()
         dets[mode].detect(imgs8)
         torch.cuda.synchronize()
-        counts = read_launches()
+        counts = library.launches()
         steps = kd.island_chains(net.spec, island)
         alone = sum(s[0] == "block" for s in steps)
         chained = sum(s[0] == "chain" for s in steps)
@@ -2674,9 +2657,9 @@ def phase_turbo(flagship, best, back_model, corpus, stress, frames128,
                                       "plan": plan,
                                       "island_plan": [list(s) for s in steps],
                                       "expected_grids": want}
-        expected = {"run_segment": len(plan), "dense_block": alone,
+        expected = {"backbone2_segment": len(plan), "dense_block": alone,
                     "dense_chain": chained,
-                    "mlp_head_forward": 2, "postprocess_nms": 1,
+                    "mlp_head": 2, "postprocess": 1,
                     "apply_fused": 1 if plan else 0, "backbone_forward": 0}
         bad = {k: counts[k] for k, v in expected.items() if counts[k] != v}
         bad.update({k: names.get(k, 0) for k, v in want.items()
@@ -2735,7 +2718,7 @@ def phase_turbo(flagship, best, back_model, corpus, stress, frames128,
         if report[mode]["per_detect"]["mismatch"]:
             raise AssertionError(f"{mode}: launches per detect "
                                  f"{report[mode]['per_detect']}")
-        need = ["mlp_head_forward", "postprocess_nms"] + [
+        need = ["mlp_head", "postprocess"] + [
             {"block": "dense_block", "chain": "dense_chain"}[s[0]]
             for s in kd.island_chains(net.spec, island_of(net.spec, mode))]
         if min(windows[mode][k] for k in need) < 1:
@@ -2743,7 +2726,7 @@ def phase_turbo(flagship, best, back_model, corpus, stress, frames128,
         back = report[mode]["back"]
         if back["detections"] < 1 or not back["finite"]:
             raise AssertionError(f"back model at {mode}: {back}")
-    if windows["turbo"]["run_segment"] < 1:
+    if windows["turbo"]["backbone2_segment"] < 1:
         raise AssertionError(f"turbo missed kernel #3: {windows['turbo']}")
     if not report["empty_island_bitwise_fast"]:
         raise AssertionError("turbo_island=() differs from fast")
@@ -2861,10 +2844,10 @@ def serve_one(name, det, corpus, card):
                     fut.result(timeout=600)
                 warm[w].append((time.perf_counter() - t0) * 1e3)
         served0, dispatches0 = batcher.frames_served, batcher.dispatches
-        reset_launches()                      # the serve path's window opens
+        library.reset_launches()              # the serve path's window opens
         many, batch, many_s, batch_s, stats = pool.submit(
             serve_clients, srv.url, len(frames)).result(timeout=600)
-        launches = read_launches()            # ... and closes
+        launches = library.launches()         # ... and closes
         dispatches = batcher.dispatches - dispatches0
         served = batcher.frames_served - served0
     direct = det.detect(np.stack(frames)).trim()
@@ -2886,9 +2869,9 @@ def serve_one(name, det, corpus, card):
         raise AssertionError(f"serve {name}: {served} frames served in "
                              f"{dispatches} dispatches, {stats['errors']} "
                              "errors")
-    want = {"postprocess_nms": dispatches}
+    want = {"postprocess": dispatches}
     if det.precision == "fast":
-        want.update(apply_fused=dispatches, mlp_head_forward=2 * dispatches)
+        want.update(apply_fused=dispatches, mlp_head=2 * dispatches)
     for k, n in want.items():
         if launches[k] != n:
             raise AssertionError(f"serve {name}: {k} launched "
@@ -2981,10 +2964,10 @@ def phase_stream(flagship, corpus, card):
     batches = [imgs[i:i + 16] for i in range(0, len(imgs), 16)]
     list(detect_stream(flagship, batches[:2]))          # warm
     torch.cuda.synchronize()
-    reset_launches()                          # the stream path's window opens
+    library.reset_launches()                  # the stream path's window opens
     slabs = [r.slab for r in detect_stream(flagship, batches, prefetch=2)]
     torch.cuda.synchronize()
-    launches = read_launches()                # ... and closes
+    launches = library.launches()             # ... and closes
 
     def wall(fn):
         torch.cuda.synchronize()
@@ -3014,7 +2997,7 @@ def phase_stream(flagship, corpus, card):
         worst = max(worst, float((slab - want.slab).abs().max()))
     if not worst <= 1e-6:
         raise AssertionError(f"detect_stream: {worst} from detect")
-    if launches["postprocess_nms"] != len(batches):
+    if launches["postprocess"] != len(batches):
         raise AssertionError(f"detect_stream: {launches}")
 
     cpu = flagship_detector(device="cpu")
@@ -3081,7 +3064,7 @@ def keras_replay() -> dict:
     SGD(0.01) and Adam(0.01) of a 96→8 tanh→3 head with L2(1e-3), losses
     and MAEs against tf-keras's history."""
     from headpose_tpu_torch.models import MLPHead, head_net
-    from headpose_tpu_torch.tools.convert import params_from_jax
+    from headpose_tpu_torch.models.params import params_from_jax
     from headpose_tpu_torch.train import TrainConfig, make_optimizer
     from headpose_tpu_torch.train.loop import _loss_and_metrics
 
@@ -3254,21 +3237,21 @@ def phase_train(corpus, card, seed: int, keep_rows: str | None = None):
              "fast": fast.detect}
     for fn in paths.values():
         fn(imgs[:8])                          # warm, and build
-    want = {"detect": {"postprocess_nms": 1},
-            "detect_fused": {"backbone_forward": 1, "mlp_head_forward": 2,
-                             "postprocess_nms": 1},
-            "fast": {"apply_fused": 1, "mlp_head_forward": 2,
-                     "postprocess_nms": 1}}
+    want = {"detect": {"postprocess": 1},
+            "detect_fused": {"backbone_forward": 1, "mlp_head": 2,
+                             "postprocess": 1},
+            "fast": {"apply_fused": 1, "mlp_head": 2,
+                     "postprocess": 1}}
     want_names = {"detect": {"cta_kernel": 1},
                   "detect_fused": {"stem": 1, "mlp_head": 2, "cta_kernel": 1},
                   "fast": {"mlp_head": 2, "cta_kernel": 1}}
     outs, launches, kernels = {}, {}, {}
     for name, fn in paths.items():
         torch.cuda.synchronize()
-        reset_launches()                      # this path's window opens
+        library.reset_launches()              # this path's window opens
         outs[name] = fn(imgs)
         torch.cuda.synchronize()
-        launches[name] = read_launches()      # ... and closes
+        launches[name] = library.launches()   # ... and closes
         least = dict(want_names[name], **(
             {"split_bf16": 1} if name == "fast" else {}))
         kernels[name] = kernel_names_per_call(lambda: fn(imgs), want=least)
@@ -3555,9 +3538,9 @@ def calibration_targets(model, params, x, device) -> dict:
     """calibrate_fast_params' targets of one batch x (CPU) on `device`: the
     exact fp32 forward (TF32 off) of the original params, scores
     post-sigmoid, as float64 numpy arrays."""
-    from headpose_tpu_torch.models.blazeface import fp32_exact
+    from headpose_tpu_torch.core.single_pass import fp32_exact
     from headpose_tpu_torch.models.unified import UnifiedPoseNet
-    from headpose_tpu_torch.tools.convert import params_from_jax
+    from headpose_tpu_torch.models.params import params_from_jax
 
     net = UnifiedPoseNet(model, device=device).eval()
     net.load_state_dict(params_from_jax(model, params))
@@ -3590,7 +3573,7 @@ def detector_train(report, corpus, seed: int) -> dict:
     from headpose_tpu_torch.pretrained import FLAGSHIP, load_pretrained
     from headpose_tpu_torch.runtime.detector import FaceDetector
     from headpose_tpu_torch.tools.certify_modes import certify_parity
-    from headpose_tpu_torch.tools.convert import flatten_params
+    from headpose_tpu_torch.models.params import flatten_params
     from headpose_tpu_torch.train import calibrate, detector
 
     t_phase = time.perf_counter()
@@ -3598,8 +3581,8 @@ def detector_train(report, corpus, seed: int) -> dict:
     teacher = flag_params["backbone"]
     imgs = corpus["imgs"][:DT_SERVE_FRAMES]
     windows = {}
-    fast_want = {"apply_fused": 1, "mlp_head_forward": 2,
-                 "postprocess_nms": 1}
+    fast_want = {"apply_fused": 1, "mlp_head": 2,
+                 "postprocess": 1}
 
     def serve(name, spec, params, frames, threshold, empty_ok=False):
         """The trained backbone joined to the flagship's heads, served at
@@ -3608,7 +3591,7 @@ def detector_train(report, corpus, seed: int) -> dict:
             spec, params, flag_spec.head88, flag_params["head88"],
             flag_spec.head96, flag_params["head96"])
         out = {}
-        for precision, want in (("highest", {"postprocess_nms": 1}),
+        for precision, want in (("highest", {"postprocess": 1}),
                                 ("fast", fast_want)):
             out[precision], windows[f"{name}_{precision}"], _ = \
                 served_vs_cpu(model, joined, precision, frames, want, name,
@@ -3764,8 +3747,8 @@ def detector_train(report, corpus, seed: int) -> dict:
     for name in ("head88", "head96"):
         if params_c[name] is not flag_params[name]:
             raise AssertionError(f"calibration replaced {name}")
-    turbo_want = {"apply_fused": 1, "dense_chain": 1, "mlp_head_forward": 2,
-                  "postprocess_nms": 1}
+    turbo_want = {"apply_fused": 1, "dense_chain": 1, "mlp_head": 2,
+                  "postprocess": 1}
     report["calibrate"]["serve"], windows["calibrated_turbo"], det_c = \
         served_vs_cpu(flag_spec, params_c, "turbo", corpus["imgs"],
                       turbo_want, "calibrated")
@@ -3826,17 +3809,17 @@ def launch_window(fn, imgs):
     """fn(imgs) with every launch count set to 0 just before and read just
     after: (result, counts)."""
     torch.cuda.synchronize()
-    reset_launches()
+    library.reset_launches()
     out = fn(imgs)
     torch.cuda.synchronize()
-    return out, read_launches()
+    return out, library.launches()
 
 
 def check_counts(counts: dict, want: dict, what: str) -> None:
     """The named kernels launched exactly as `want`, every other kernel
-    (but run_segment, counted inside apply_fused) not at all."""
+    (but backbone2_segment, counted beside apply_fused) not at all."""
     bad = {k: n for k, n in counts.items()
-           if k != "run_segment" and n != want.get(k, 0)}
+           if k != "backbone2_segment" and n != want.get(k, 0)}
     if bad:
         raise AssertionError(f"{what}: launches {bad}, want {want}")
 
@@ -3890,13 +3873,13 @@ def phase_h5(flagship, corpus, frames128, card):
     fast = FaceDetector.from_h5(source["flagship_joined"], precision="fast")
     ref_fast = FaceDetector(flag_spec, flag_params, precision="fast")
     paths = {"detect": (det.detect, flagship.detect,
-                        {"postprocess_nms": 1}),
+                        {"postprocess": 1}),
              "fast": (fast.detect, ref_fast.detect,
-                      {"apply_fused": 1, "mlp_head_forward": 2,
-                       "postprocess_nms": 1}),
+                      {"apply_fused": 1, "mlp_head": 2,
+                       "postprocess": 1}),
              "detect_fused": (det.detect_fused, flagship.detect_fused,
-                              {"backbone_forward": 1, "mlp_head_forward": 2,
-                               "postprocess_nms": 1})}
+                              {"backbone_forward": 1, "mlp_head": 2,
+                               "postprocess": 1})}
     native = {}
     for name, (fn, ref, want) in paths.items():
         fn(imgs[:8])                          # warm, and build
@@ -3920,7 +3903,7 @@ def phase_h5(flagship, corpus, frames128, card):
         raise AssertionError(f"from_h5_compat outputs: ratios {ratios}")
     compat.detect(imgs[:8])
     got, counts = launch_window(compat.detect, imgs)
-    check_counts(counts, {"postprocess_nms": 1}, "from_h5_compat detect")
+    check_counts(counts, {"postprocess": 1}, "from_h5_compat detect")
     windows["from_h5_compat"] = counts
     ref = flagship.detect(imgs)
     if not torch.equal(got.valid, ref.valid):
@@ -3955,8 +3938,8 @@ def phase_h5(flagship, corpus, frames128, card):
     se = FaceDetector(model, params, head_eval="map")
     se.detect_fused(imgs[:8])
     got, counts = launch_window(se.detect_fused, imgs)
-    check_counts(counts, {"backbone_forward": 1, "se_transformer_forward": 1,
-                          "mlp_head_forward": 1, "postprocess_nms": 1},
+    check_counts(counts, {"backbone_forward": 1, "se_transformer": 1,
+                          "mlp_head": 1, "postprocess": 1},
                  "SE head detect_fused")
     windows["se_head_detect_fused"] = counts
     cpu = FaceDetector(model, params, head_eval="map",
@@ -4038,12 +4021,11 @@ AOT_ALLOWED = ("headpose_tpu_torch", "headpose_tpu_torch.tools",
                "headpose_tpu_torch.ops.detection",
                "headpose_tpu_torch.runtime",
                "headpose_tpu_torch.runtime.results",
-               "headpose_tpu_torch.utils", "headpose_tpu_torch.utils.build")
-# the op that carries each counted wrapper's launches in a program
-AOT_OP_OF = {"postprocess_nms": "postprocess", "run_segment":
-             "backbone2_segment", "dense_block": "dense_block",
-             "dense_chain": "dense_chain", "mlp_head_forward": "mlp_head",
-             "se_transformer_forward": "se_transformer"}
+               "headpose_tpu_torch.utils", "headpose_tpu_torch.utils.build",
+               "headpose_tpu_torch.utils.profiling")
+# the ops a program holds, each counting its launches as on the source
+AOT_OPS = ("postprocess", "backbone2_segment", "dense_block", "dense_chain",
+           "mlp_head", "se_transformer")
 
 _AOT_LOADER = """\
 import json, sys, time
@@ -4213,7 +4195,7 @@ def phase_aot(corpus, card):
             aot = load_exported(path)
             got, counts = launch_window(aot.detect, imgs128)
             ops = meta["programs"]["128"]["ops"]
-            want_ops = {op: source_counts[k] for k, op in AOT_OP_OF.items()}
+            want_ops = {op: source_counts[op] for op in AOT_OPS}
             have_ops = {op: ops.count(op) for op in want_ops}
             staged = torch.from_numpy(imgs128).to(det.device)
             kinds, source_kinds, profiled = port_kernels_alike(
@@ -4253,7 +4235,7 @@ def phase_aot(corpus, card):
                 entry["launches_chunked"] = {
                     f"b{b}": launch_window(aot.detect, imgs128[:b])[1]
                     for b in (1, 7)}
-                if any(n["postprocess_nms"] != 1 or sum(n.values()) != 1
+                if any(n["postprocess"] != 1 or sum(n.values()) != 1
                        for n in entry["launches_chunked"].values()):
                     emit(report)
                     raise AssertionError(f"aot highest: chunked launches "
@@ -4428,7 +4410,7 @@ def phase_edge(flagship, corpus, card):
 
 # the parallel phase: the dryrun's ranks as processes
 PARALLEL_TIMEOUT_S = 300      # each spawn of ranks
-PARALLEL_KERNELS = ("postprocess_nms", "apply_fused", "mlp_head_forward")
+PARALLEL_KERNELS = ("postprocess", "apply_fused", "mlp_head")
 PARALLEL_ROWS_PER_CARD = 128  # the main path's batch, on every card
 
 
@@ -4562,7 +4544,7 @@ def single_pass_stages(card_net, cpu_net, frames) -> dict:
     depthwise and pointwise product, the four SSD heads, each head layer.
     Returns {stage: |card - cpu| max over the CPU output's largest
     |value|}."""
-    from headpose_tpu_torch.models.single_pass import linear
+    from headpose_tpu_torch.core.single_pass import linear
     from headpose_tpu_torch.ops.image import preprocess
 
     dev = card_net.backbone.stem.weight.device
@@ -4648,14 +4630,14 @@ def matmul_precision(report, back_model, corpus, production, stress,
     from headpose_tpu_torch.tools.aot import export_detector, load_exported
     from headpose_tpu_torch.tools.certify_modes import (certify_parity,
                                                         certify_stress)
-    from headpose_tpu_torch.tools.convert import flatten_params
+    from headpose_tpu_torch.models.params import flatten_params
     from headpose_tpu_torch.train import detector
 
     t_phase = time.perf_counter()
     imgs128 = np.concatenate([corpus["imgs"], corpus["imgs"][:16]])
     windows = {}
-    fast_want = {"apply_fused": 1, "mlp_head_forward": 2,
-                 "postprocess_nms": 1}
+    fast_want = {"apply_fused": 1, "mlp_head": 2,
+                 "postprocess": 1}
 
     # (a) native "high": the "fast" network, slab for slab
     flag_high = flagship_detector(precision="high")
@@ -4676,9 +4658,9 @@ def matmul_precision(report, back_model, corpus, production, stress,
         high[name] = {"launches": counts, "head_eval": det.head_eval,
                       "detections": int(got.valid.sum()),
                       "bitwise_fast": torch.equal(got.slab, want.slab)}
-        named = ({"se_transformer_forward"} if name == "se"
-                 else {"mlp_head_forward"}) | {"apply_fused",
-                                               "postprocess_nms"}
+        named = ({"se_transformer"} if name == "se"
+                 else {"mlp_head"}) | {"apply_fused",
+                                               "postprocess"}
         if name in ("flagship", "best"):
             check_counts(counts, fast_want, f"high {name}")
         if counts != want_counts or any(counts[k] < 1 for k in named):
@@ -4703,7 +4685,7 @@ def matmul_precision(report, back_model, corpus, production, stress,
     for p, det in compat.items():
         det.detect(imgs128[:2])
         slabs[p], windows[f"graph_{p}"] = launch_window(det.detect, imgs128)
-        check_counts(windows[f"graph_{p}"], {"postprocess_nms": 1},
+        check_counts(windows[f"graph_{p}"], {"postprocess": 1},
                      f"graph {p}")
     report["graph"] = {
         "high_bitwise_highest": torch.equal(slabs["high"].slab,
@@ -4716,7 +4698,7 @@ def matmul_precision(report, back_model, corpus, production, stress,
     default = flagship_detector(precision="default")
     default.detect(imgs128[:2])
     got, windows["default"] = launch_window(default.detect, imgs128)
-    check_counts(windows["default"], {"postprocess_nms": 1}, "default")
+    check_counts(windows["default"], {"postprocess": 1}, "default")
     cpu_default = flagship_detector(precision="default", device="cpu")
     par = certify_parity(default.detect, corpus)
     st = certify_stress(default.detect, stress)
@@ -4754,7 +4736,7 @@ def matmul_precision(report, back_model, corpus, production, stress,
             replay, counts = launch_window(load_exported(path).detect,
                                            imgs128)
             ops = meta["programs"]["128"]["ops"]
-            want_ops = {op: source_counts[k] for k, op in AOT_OP_OF.items()}
+            want_ops = {op: source_counts[op] for op in AOT_OPS}
             have_ops = {op: ops.count(op) for op in want_ops}
             aot[name] = {"precision": meta["config"]["precision"],
                          "ops": ops, "launches": counts,
@@ -4922,12 +4904,12 @@ def main() -> int:
 
     for entry in entries[:3]:
         entry["launches"] = fused_launches[entry["name"]]
-    entries[0]["launches_detect"] = detect_launches["postprocess_nms"]
+    entries[0]["launches_detect"] = detect_launches["postprocess"]
     entries[3]["launches"] = fast_launches["apply_fused"]
     entries[3]["launches_back_window"] = back_launches["apply_fused"]
-    entries[4]["launches"] = se_launches["se_transformer_forward"]
+    entries[4]["launches"] = se_launches["se_transformer"]
     entries[0]["launches_serve"] = {
-        name: n["postprocess_nms"] for name, n in serve_launches.items()}
+        name: n["postprocess"] for name, n in serve_launches.items()}
     for entry in entries[2:4]:
         entry["launches_serve_best_fast"] = \
             serve_launches["best_fast"][entry["name"]]
@@ -4940,7 +4922,7 @@ def main() -> int:
     entries[6]["launches"] = turbo_launches["turbo"]["dense_chain"]
     entries[6]["launches_max_window"] = turbo_launches["max"]["dense_chain"]
     entries[4]["launches_se_windows"] = {
-        name: se_report[name]["launches"]["se_transformer_forward"]
+        name: se_report[name]["launches"]["se_transformer"]
         for name in ("map", "survivors", "fast_map")}
     for entry in entries[:4]:         # the trained head's serve step
         entry["launches_train_window"] = {

@@ -1,8 +1,9 @@
-"""Core infrastructure of the port: the Keras activation table, the H5
-reader and the graph → PyTorch compiler.
+"""Core infrastructure of the port: the Keras activation table, the
+single-pass bf16 arithmetic, the H5 reader and the graph → PyTorch
+compiler.
 
 Exports resolve lazily (PEP 562): the model modules import the activation
-table, and the graph compiler imports the model modules' fp32 context."""
+table and the single-pass arithmetic, and load no H5 code for it."""
 import importlib
 
 _EXPORTS = {

@@ -23,7 +23,7 @@ Semantics kept from the JAX compiler:
     `matmul_precision` "highest" and "high" (on the TPU, "high" is three
     bf16 passes, an emulation of fp32); at "default" (one bf16 pass on the
     TPU) each one's two operands are rounded to bf16 first, the products
-    exact and the sums fp32, the bias unrounded (models/single_pass.py);
+    exact and the sums fp32, the bias unrounded (core/single_pass.py);
     a Dense layer and a 1x1 convolution at stride 1 are one GEMM each,
     nn.Linear's, so a 1x1-conv head graph computes what the native head
     module computes.
@@ -44,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.single_pass import bf16_round, fp32_exact, single_pass_of
+from .single_pass import bf16_round, fp32_exact, single_pass_of
 from ..utils.device import resolve_device
 from .activations import get_activation as _activation
 from .h5io import LayerDef, ModelDef, _as_modeldef
@@ -490,12 +490,12 @@ class GraphModel(nn.Module):
     layout).
 
     `device=None` means the card, and raises when there is none.
-    `matmul_precision` is one of `models.single_pass.MATMUL_PRECISIONS`,
+    `matmul_precision` is one of `core.single_pass.MATMUL_PRECISIONS`,
     the strings the JAX package passes to `jax.default_matmul_precision`:
     "highest" and "high" compute exact fp32 (TF32 off; the TPU's "high" is
     three bf16 passes, an emulation of fp32), "default" rounds the operands
     of every conv and product to bf16 (one pass on the TPU;
-    models/single_pass.py).  Any other string raises NotImplementedError."""
+    core/single_pass.py).  Any other string raises NotImplementedError."""
 
     def __init__(self, model_def: ModelDef, matmul_precision: str = "highest",
                  *, device: str | torch.device | None = None):
@@ -626,7 +626,7 @@ class TrainableGraphHead:
         result = fit(cfg, dataset, spec=spec, params=gm.params)
 
     `head_net(spec)` builds its module (`TrainableGraphHeadNet`), and the
-    weight bridge (`tools.convert.params_from_jax`) maps `params` onto it.
+    weight bridge (`models.params.params_from_jax`) maps `params` onto it.
     Inference semantics (dropout = identity) hold in training and
     evaluation alike; the L2 term covers every leaf whose path holds
     'kernel'."""

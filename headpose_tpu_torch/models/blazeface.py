@@ -36,7 +36,7 @@ on the CPU:
     When an island is given, the four SSD 1x1 heads run so too;
   * single_pass=True runs the whole network so, the stem too: the JAX
     function under `jax.default_matmul_precision("default")`, the
-    detector's precision "default" (models/single_pass.py);
+    detector's precision "default" (core/single_pass.py);
   * simulate_fast="weights" or "acts" rounds only that operand of the
     island's convs (JAX's error-decomposition probes); False rounds
     neither, the fp32 function JAX computes for an island on its CPU;
@@ -68,13 +68,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.single_pass import bf16_round, fp32_exact
 from ..utils.device import resolve_device
 from .heads import _uniform
-from .single_pass import bf16_round, fp32_exact
 
 __all__ = ["BlazeFace", "BlazeFaceNet", "BLAZEFACE_FRONT", "BLAZEFACE_BACK",
-           "turbo_fast_blocks", "TURBO_FAST_BLOCKS", "bf16_round",
-           "fp32_exact", "blazeface_from_h5", "blazeface_from_modeldef"]
+           "turbo_fast_blocks", "TURBO_FAST_BLOCKS", "blazeface_from_h5",
+           "blazeface_from_modeldef"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -296,7 +296,7 @@ class BlazeFaceNet(nn.Module):
 
         `single_pass=True` is the whole network at single-pass bf16, the
         JAX function under `jax.default_matmul_precision("default")`: the
-        stem too, every block and the SSD heads (models/single_pass.py);
+        stem too, every block and the SSD heads (core/single_pass.py);
         it takes no `fast_blocks` and rounds both operands."""
         if single_pass:
             if fast_blocks is not None or simulate_fast is not True:

@@ -30,7 +30,7 @@ computes another function on a map than on each cell's vector, and
 
 Dense layers are `nn.Linear` (weights (out, in)); the SE-Transformer's
 attention weights keep the JAX layout ((C, H, D), (H, D), (H, D, C)), which
-`tools.convert` carries over as they are.
+the weight bridge (models/params.py) carries over as they are.
 """
 from __future__ import annotations
 
@@ -43,8 +43,9 @@ import torch
 from torch import nn
 
 from ..core.activations import get_activation
+from ..core.single_pass import einsum, linear
 from ..utils.device import local_part, resolve_device
-from .single_pass import einsum, linear
+from ..utils.weights import stamp
 
 __all__ = ["MLPHead", "ResidualMLPHead", "SkipMLPHead", "SEMLPHead",
            "SETransformerHead", "EnsembleHead", "HEAD_REGISTRY", "MLPHeadNet",
@@ -341,7 +342,7 @@ class MLPHeadNet(nn.Module):
         """`generator` turns train-mode dropout on: after every layer, the
         linear output layer included, as JAX's `MLPHead.apply`.
         `single_pass` runs every product at single-pass bf16 (every head
-        family takes it; models/single_pass.py)."""
+        family takes it; core/single_pass.py)."""
         for layer, act in zip(self.layers, self._acts):
             x = _spatial_dropout(act(linear(layer, x, single_pass)),
                                  self.spec.dropout_rate, generator)
@@ -651,8 +652,6 @@ class EnsembleHeadNet(nn.Module):
     def _stacked(self) -> list:
         """Per group: its members' weights stacked (None for a group of
         one); kept without gradients until a parameter changes."""
-        from ..ops.kernels.packing import stamp   # ops imports this module
-
         current = stamp(self)
         if self._stacks is None or self._stacks[0] != current:
             with torch.no_grad():

@@ -4,7 +4,7 @@ Port of headpose_tpu/ops/image.py.  Layout stays NHWC.  The matmuls run in
 full fp32: the detector turns TF32 off on a CUDA device.  With
 `single_pass` (the detector's precision "default": JAX resizes inside its
 `jax.default_matmul_precision` block) each matmul takes bf16-rounded
-operands, exact products and fp32 sums (models/single_pass.py).
+operands, exact products and fp32 sums (core/single_pass.py).
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import functools
 
 import torch
 
-from ..models.single_pass import bf16_round, fp32_exact
+from ..core.single_pass import bf16_round, fp32_exact
 from .bicubic import bicubic_matrix
 
 __all__ = ["bicubic_matrix", "resize_bicubic", "preprocess"]

@@ -1,10 +1,10 @@
 """Hand-written CUDA kernels of the port, each with its wrapper.
 
 Importing a module here builds nothing: each kernel is compiled with nvcc on
-its first launch (utils.build).  Every kernel that `FaceDetector.detect`
-launches is a `torch.library` op of `library` (the `headpose_tpu_torch::`
-namespace), which imports no model code; the wrappers check, pack and plan
-on the host and launch through those ops.
+its first launch (utils.build).  Every launch is a `torch.library` op of
+`library` (the `headpose_tpu_torch::` namespace), which imports no model
+code; the wrappers check, pack and plan on the host and launch through
+those ops, which count the launches (`library.launches()`).
 
 Exports resolve lazily (PEP 562), so loading the op library (an exported
 program's replay, tools/aot.py) does not import the wrappers and the models
@@ -23,29 +23,7 @@ _EXPORTS = {
 # submodule sets the package's attribute of that name to the module, so it
 # is not a lazy export: `from .tiled_matmul import tiled_matmul`.
 
-__all__ = sorted(_EXPORTS) + ["kernel_wrappers"]
-
-
-def kernel_wrappers() -> dict:
-    """Each kernel's wrapper by the kernel's name.  A wrapper's `launches`
-    counts its kernel's launches in this process (for kernel #3 both
-    apply_fused, a call that ran a segment, and run_segment, a
-    segment)."""
-    from .backbone import backbone_forward
-    from .backbone2 import apply_fused, run_segment
-    from .dense_bf16 import dense_block, dense_chain
-    from .head_mlp import mlp_head_forward
-    from .postprocess import postprocess_kernel
-    from .se_attention import se_transformer_forward
-    from .tiled_matmul import tiled_matmul
-
-    return {"postprocess_nms": postprocess_kernel,
-            "backbone_forward": backbone_forward,
-            "mlp_head_forward": mlp_head_forward,
-            "apply_fused": apply_fused,
-            "se_transformer_forward": se_transformer_forward,
-            "dense_block": dense_block, "dense_chain": dense_chain,
-            "run_segment": run_segment, "tiled_matmul": tiled_matmul}
+__all__ = sorted(_EXPORTS)
 
 
 def __getattr__(name: str):

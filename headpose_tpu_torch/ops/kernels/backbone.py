@@ -19,14 +19,14 @@ Its domain is the JAX kernel's: a spec whose taps land at S/8 and S/16
 second, and S divisible by 16.  `BLAZEFACE_BACK` (taps at S/16 and S/32) is
 outside it and raises.
 
-`stem_forward_cuda` and `block_forward_cuda` launch the stem or one block
-alone, in fp32, through the ops `headpose_tpu_torch::backbone_stem` and
-`::backbone_block` (ops/kernels/library.py): the split-bf16 backbone
-(`backbone2.apply_fused`) runs its stem and block 11 through them, and an
-exported program (tools/aot.py) holds them as nodes.  They count no launch
-of their own; the caller's wrapper counts.  `backbone_forward_cuda` (kernel
-#2) is on no exported program's path (`detect` at "highest" runs the cuDNN
-network, `detect_fused` is not exported): it stays a direct ctypes launch.
+`backbone_forward_cuda` (kernel #2) launches through the op
+`headpose_tpu_torch::backbone_forward` (ops/kernels/library.py), which
+counts its calls.  `stem_forward_cuda` and `block_forward_cuda` launch the
+stem or one block alone, in fp32, through the ops `::backbone_stem` and
+`::backbone_block`: the split-bf16 backbone (`backbone2.apply_fused`) runs
+its stem and block 11 through them, and an exported program (tools/aot.py)
+holds them as nodes.  They count no launch of their own; the caller's op
+counts.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from ...models.blazeface import BlazeFace, BlazeFaceNet
 from . import library as lib
-from .packing import Packed, c_ints, packed
+from .packing import Packed, packed
 
 __all__ = ["backbone_forward", "backbone_forward_plain",
            "backbone_forward_cuda", "backbone_pack", "stem_forward_cuda",
@@ -193,50 +193,22 @@ def _check_cuda(net: BlazeFaceNet, x: torch.Tensor) -> None:
         raise ValueError("x must be contiguous")
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           f"{'a layer too wide' if err < 0 else 'CUDA error'}"
-                           f" ({err})")
-
-
 @torch.no_grad()
 def backbone_forward_cuda(net: BlazeFaceNet, x: torch.Tensor):
     """The kernels: what `backbone_forward_plain` computes, on a CUDA device.
 
-    One call launches the stem and one fused kernel per block on the current
-    stream, without synchronising.  Raises on anything the kernels do not
-    take, and when a launch fails."""
-    sizes = _check_input(net, x)
+    One call of the op launches the stem and one fused kernel per block on
+    the current stream, without synchronising.  Raises on anything the
+    kernels do not take, and when a launch fails."""
+    _check_input(net, x)
     _check_cuda(net, x)
     spec = net.spec
-    B, S = x.shape[0], spec.input_size
-    c88 = spec.block_channels[spec.tap88_block]
-    c96 = spec.block_channels[-1]
-    out88 = x.new_empty((B, S // 8, S // 8, c88))
-    out96 = x.new_empty((B, S // 16, S // 16, c96))
-    if B == 0:
-        return out88, out96
-    scratch = B * max([(S // 2) ** 2 * spec.stem_features]
-                      + [h * h * c for h, c in zip(sizes,
-                                                   spec.block_channels)])
-    buf_a, buf_b = x.new_empty(scratch), x.new_empty(scratch)
     pack = backbone_pack(net)
     n = len(spec.block_channels)
-    if x.data_ptr() % 16:
-        raise ValueError("x must start 16-byte aligned (the kernels stage "
-                         "its rows with 16-byte copies)")
-    with torch.cuda.device(x.device):
-        err = lib.library("backbone").headpose_backbone_forward(
-            x.data_ptr(), pack.weights.data_ptr(), c_ints(pack.offsets),
-            c_ints(spec.block_channels),
-            c_ints(2 if i in spec.downsample_blocks else 1 for i in range(n)),
-            n, spec.stem_features, S, spec.tap88_block, buf_a.data_ptr(),
-            buf_b.data_ptr(), out88.data_ptr(), out96.data_ptr(), B,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "backbone kernel")
-    backbone_forward.launches += 1
-    return out88, out96
+    return lib.backbone_forward(
+        x, pack.weights, list(pack.offsets), list(spec.block_channels),
+        [2 if i in spec.downsample_blocks else 1 for i in range(n)],
+        spec.stem_features, spec.tap88_block)
 
 
 @torch.no_grad()
@@ -275,13 +247,7 @@ def block_forward_cuda(net: BlazeFaceNet, i: int, x: torch.Tensor,
 
 def backbone_forward(net: BlazeFaceNet, x: torch.Tensor):
     """(feat88, feat96) NHWC of x (B, S, S, 3): the CUDA kernels for a tensor
-    on a CUDA device, the plain version for a tensor on the CPU.
-
-    `backbone_forward.launches` counts the calls that launched the kernels
-    (one per call: the stem and one launch per block)."""
+    on a CUDA device, the plain version for a tensor on the CPU."""
     if x.device.type == "cpu":
         return backbone_forward_plain(net, x)
     return backbone_forward_cuda(net, x)
-
-
-backbone_forward.launches = 0

@@ -65,7 +65,8 @@ from ...models.blazeface import BlazeFace, BlazeFaceNet
 from . import backbone as kbb
 from . import dense_bf16 as kd
 from . import library as lib
-from .packing import Packed, c_ints, packed, stamp
+from ...utils.weights import stamp
+from .packing import Packed, packed
 
 __all__ = ["SEGMENTS", "SPLIT_TOL", "segment_plan", "split_bf16",
            "pack_backbone", "SegmentPack", "run_segment", "run_segment_plain",
@@ -273,7 +274,8 @@ def pack_backbone(net: BlazeFaceNet,
                   current: tuple | None = None) -> SegmentPack:
     """`net`'s weights for the split-bf16 backbone, each pack built once per
     module (re-packed when a parameter changes; `packing.packed`).
-    `current` is `packing.stamp(net)` when the caller has just taken it."""
+    `current` is `utils.weights.stamp(net)` when the caller has just taken
+    it."""
     chans = _channels(net.spec)
     blocks = tuple(range(len(net.blocks)))
     shapes = tuple((_round_up(chans[i + 1], 8), _round_up(chans[i], 16))
@@ -402,7 +404,8 @@ def segment_launches(net: BlazeFaceNet, seg: str, island=()) -> list[int]:
     _, channels, strides, h, cin = _segment_args(net, seg, island)
     sizes = (ctypes.c_int * len(channels))()
     n = lib.library("backbone2").headpose_backbone2_groups(
-        c_ints(channels), c_ints(strides), len(channels), h, cin, sizes)
+        lib._ints(channels), lib._ints(strides), len(channels), h, cin,
+        sizes)
     return list(sizes[:n])
 
 
@@ -488,8 +491,7 @@ def run_segment(net: BlazeFaceNet, x: torch.Tensor, seg: str,
                 island=()) -> torch.Tensor:
     """Segment `seg` (of the plan with `island`) of the backbone over its
     NHWC input: the CUDA kernel for a tensor on a CUDA device, the plain
-    version for a tensor on the CPU.  `run_segment.launches` counts the
-    segments launched."""
+    version for a tensor on the CPU."""
     if x.device.type == "cpu":
         return run_segment_plain(net, x, seg, island)
     return run_segment_cuda(net, x, seg, island=island)
@@ -502,14 +504,10 @@ def apply_fused(net: BlazeFaceNet, x: torch.Tensor, island=()):
     island kernels (`dense_bf16.dense_block`, `dense_bf16.dense_chain`, as
     `dense_bf16.island_chains` groups them) instead of the plan.
 
-    `apply_fused.launches` counts the calls that launched the split-bf16
-    kernel (one per call whose plan has a segment: the stem, every segment
-    and every fp32 block); the island's launches count on
-    `dense_bf16.dense_block.launches` and `dense_bf16.dense_chain.launches`."""
+    The ops count (`library.launches()`): "apply_fused" the calls that
+    launched the split-bf16 kernel (one per call whose plan has a
+    segment), "backbone2_segment" each segment, "dense_block" and
+    "dense_chain" the island's launches."""
     if x.device.type == "cpu":
         return apply_fused_plain(net, x, island)
     return apply_fused_cuda(net, x, island)
-
-
-run_segment = lib.Counted(run_segment, "backbone2_segment")
-apply_fused = lib.Counted(apply_fused, "apply_fused")

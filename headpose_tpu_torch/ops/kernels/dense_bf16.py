@@ -47,7 +47,8 @@ import torch
 from ...models.blazeface import BlazeFace, BlazeFaceNet
 from . import backbone as kbb
 from . import library as lib
-from .packing import Packed, packed, stamp
+from ...utils.weights import stamp
+from .packing import Packed, packed
 
 __all__ = ["dense_block", "dense_block_plain", "dense_block_cuda",
            "dense_chain", "dense_chain_plain", "dense_chain_cuda",
@@ -275,7 +276,7 @@ class DensePack:
 def dense_pack(net: BlazeFaceNet, current: tuple | None = None) -> DensePack:
     """`net`'s composed island weights, built once per module (re-packed
     when a parameter changes; `packing.packed`).  `current` is
-    `packing.stamp(net)` when the caller has just taken it."""
+    `utils.weights.stamp(net)` when the caller has just taken it."""
     current = stamp(net) if current is None else current
     shapes = tuple((_round_up(b.pw.weight.shape[0], 8),
                     _round_up(b.dw.weight.shape[0], 16)) for b in net.blocks)
@@ -336,13 +337,10 @@ def dense_block_cuda(net: BlazeFaceNet, i: int, x: torch.Tensor,
 def dense_block(net: BlazeFaceNet, i: int, x: torch.Tensor) -> torch.Tensor:
     """Block i of `net` as a single-pass bf16 island over NHWC x: the CUDA
     kernel for a tensor on a CUDA device, the plain version for a tensor on
-    the CPU.  `dense_block.launches` counts the kernel's launches."""
+    the CPU."""
     if x.device.type == "cpu":
         return dense_block_plain(net, i, x)
     return dense_block_cuda(net, i, x)
-
-
-dense_block = lib.Counted(dense_block, "dense_block")
 
 
 # ------------------------------------------------------------------ chains
@@ -414,11 +412,7 @@ def dense_chain(net: BlazeFaceNet, first: int, last: int, x: torch.Tensor):
     """Blocks first..last of `net` (a chain of `island_chains`) as
     single-pass bf16 islands over NHWC x, in one launch: the CUDA kernel
     for a tensor on a CUDA device, the plain version for a tensor on the
-    CPU.  Returns (last map, tap map or None).  `dense_chain.launches`
-    counts the kernel's launches."""
+    CPU.  Returns (last map, tap map or None)."""
     if x.device.type == "cpu":
         return dense_chain_plain(net, first, last, x)
     return dense_chain_cuda(net, first, last, x)
-
-
-dense_chain = lib.Counted(dense_chain, "dense_chain")

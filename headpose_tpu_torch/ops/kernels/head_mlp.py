@@ -113,12 +113,7 @@ def mlp_head_forward_cuda(net: MLPHeadNet, x: torch.Tensor) -> torch.Tensor:
 
 def mlp_head_forward(net: MLPHeadNet, x: torch.Tensor) -> torch.Tensor:
     """`net` over rows x (N, C): the CUDA kernel for a tensor on a CUDA
-    device, the plain version for a tensor on the CPU.
-
-    `mlp_head_forward.launches` counts the kernel's launches."""
+    device, the plain version for a tensor on the CPU."""
     if x.device.type == "cpu":
         return mlp_head_forward_plain(net, x)
     return mlp_head_forward_cuda(net, x)
-
-
-mlp_head_forward = lib.Counted(mlp_head_forward, "mlp_head")

@@ -1,6 +1,6 @@
 """The port's kernel launches as `torch.library` custom ops.
 
-Every kernel that `FaceDetector.detect` launches is one op in the
+Every launch of a hand-written kernel is one op in the
 `headpose_tpu_torch::` namespace, so that a program traced by
 `torch.export` (tools/aot.py) holds the launch as a node and replays it with
 no model code on the import path:
@@ -8,6 +8,8 @@ no model code on the import path:
   postprocess        csrc/postprocess.cu, kernel #1; on the CPU the plain
                      chain of ops.detection (prepare_postprocess ->
                      nms_slab_plain -> finish_postprocess)
+  backbone_forward   csrc/backbone.cu, kernel #2: the whole fp32 backbone,
+                     one call; returns (feat88, feat96)
   backbone_stem      csrc/backbone.cu: the fp32 stem alone
   backbone_block     csrc/backbone.cu: one fp32 block alone
   backbone2_segment  csrc/backbone2.cu, kernel #3: one segment of the
@@ -19,19 +21,21 @@ no model code on the import path:
                      tensor)
   mlp_head           csrc/head_mlp.cu, kernel #4
   se_transformer     csrc/se_attention.cu, kernel #5
-
-`LIBRARIES` also holds csrc/tiled_matmul.cu, the GEMM of the matmul probe
-(tools/probe_matmul.py): ops/kernels/tiled_matmul.py launches it directly,
-since no exported program runs it.
+  tiled_matmul       csrc/tiled_matmul.cu, kernel #6: the GEMM of the
+                     matmul probe (tools/probe_matmul.py)
 
 An op takes tensors, ints, floats and lists of ints only: the packs and the
-plans as the wrappers in this package (postprocess.py, backbone2.py,
-dense_bf16.py, head_mlp.py, se_attention.py) compute them on the host.  The
-wrappers check the inputs, pack the weights and plan the launches; the op
-launches on the current stream, raises when a launch fails and counts its
-launches in `LAUNCHES`, so a replayed program counts as `detect` does.  Each
-op has a fake implementation (its output shapes) for tracing.  Only
-`postprocess` runs on the CPU; the others are registered for CUDA alone.
+plans as the wrappers in this package (postprocess.py, backbone.py,
+backbone2.py, dense_bf16.py, head_mlp.py, se_attention.py,
+tiled_matmul.py) compute them on the host.  The wrappers check the inputs,
+pack the weights and plan the launches; the op launches on the current
+stream, raises when a launch fails and counts its launches in `LAUNCHES`,
+so a replayed program counts as `detect` does.  `launches()` reads the
+counts, `reset_launches()` zeroes them; nothing else counts.  Each op has a
+fake implementation (its output shapes) for tracing.  Only `postprocess`
+runs on the CPU; the others are registered for CUDA alone.  The host-side
+plan queries (`headpose_backbone2_groups`, `headpose_dense_bf16_*_plan`)
+launch nothing and are called through `library(name)` by their wrappers.
 
 This module imports torch, numpy, `utils.build`, `utils.profiling` and
 `ops.detection`, and nothing else of the package: loading an exported
@@ -53,7 +57,8 @@ from ..detection import (MAX_LOGIT, SLAB, _decode_matrix, _f32,
                          finish_postprocess, nms_slab_plain,
                          prepare_postprocess, score_threshold_to_logit)
 
-__all__ = ["NAMESPACE", "LIBRARIES", "LAUNCHES", "Counted", "library"]
+__all__ = ["NAMESPACE", "LIBRARIES", "LAUNCHES", "launches",
+           "reset_launches", "library"]
 
 NAMESPACE = "headpose_tpu_torch"
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -111,35 +116,28 @@ LIBRARIES = {lib.name: lib for lib in (
 )}
 
 # launches counted by the ops' CUDA implementations; "apply_fused" counts
-# the split-bf16 backbone calls (its first segment's launch)
-LAUNCHES = dict.fromkeys(("postprocess", "backbone2_segment", "apply_fused",
-                          "dense_block", "dense_chain", "mlp_head",
-                          "se_transformer"), 0)
+# the split-bf16 backbone calls (its first segment's launch),
+# "backbone_forward" and "se_transformer" a call each
+LAUNCHES = dict.fromkeys(("postprocess", "backbone_forward",
+                          "backbone2_segment", "apply_fused", "dense_block",
+                          "dense_chain", "mlp_head", "se_transformer",
+                          "tiled_matmul"), 0)
+
+
+def launches() -> dict[str, int]:
+    """A copy of the launch counts of this process, by op (`LAUNCHES`)."""
+    return dict(LAUNCHES)
+
+
+def reset_launches() -> None:
+    """Zero every launch count."""
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library `name` (built with nvcc on first use)."""
     return LIBRARIES[name].load()
-
-
-class Counted:
-    """A kernel's wrapper function whose `launches` attribute reads and sets
-    the count its op keeps in `LAUNCHES[key]`."""
-
-    def __init__(self, fn, key: str):
-        functools.update_wrapper(self, fn)
-        self._key = key
-
-    def __call__(self, *args, **kwargs):
-        return self.__wrapped__(*args, **kwargs)
-
-    @property
-    def launches(self) -> int:
-        return LAUNCHES[self._key]
-
-    @launches.setter
-    def launches(self, n: int) -> None:
-        LAUNCHES[self._key] = n
 
 
 def _stream() -> int:
@@ -237,6 +235,57 @@ def _(scores, loc, pose_front, pose_back, anchors, score_threshold,
     return scores.new_empty((scores.shape[0], max_faces, SLAB))
 
 
+# ---------------------------------------------------------------- kernel #2
+def _sides(h: int, strides) -> list[int]:
+    out = []
+    for s in strides:
+        h //= s
+        out.append(h)
+    return out
+
+
+def _backbone_shapes(x, channels, strides, tap):
+    sides = _sides(x.shape[1] // 2, strides)
+    return ((x.shape[0], sides[tap], sides[tap], channels[tap]),
+            (x.shape[0], sides[-1], sides[-1], channels[-1]))
+
+
+@_op("backbone_forward", "cuda")
+def backbone_forward(x: torch.Tensor, weights: torch.Tensor,
+                     offsets: list[int], channels: list[int],
+                     strides: list[int], stem_features: int,
+                     tap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The whole fp32 backbone over x (B, S, S, 3) in one call: the stem
+    (`stem_features` wide) and blocks of `channels` (their outputs) and
+    `strides`, their leaves at `offsets` (floats) in the fp32 pack
+    `weights`.  Returns (the map of block `tap`, the last block's map)."""
+    B, s = x.shape[0], x.shape[1]
+    shape88, shape96 = _backbone_shapes(x, channels, strides, tap)
+    out88, out96 = x.new_empty(shape88), x.new_empty(shape96)
+    if B == 0:
+        return out88, out96
+    sides = _sides(s // 2, strides)
+    scratch = B * max([(s // 2) ** 2 * stem_features]
+                      + [h * h * c for h, c in zip(sides, channels)])
+    buf_a, buf_b = x.new_empty(scratch), x.new_empty(scratch)
+    _aligned("backbone", x)
+    with torch.cuda.device(x.device):
+        err = library("backbone").headpose_backbone_forward(
+            x.data_ptr(), weights.data_ptr(), _ints(offsets), _ints(channels),
+            _ints(strides), len(channels), stem_features, s, tap,
+            buf_a.data_ptr(), buf_b.data_ptr(), out88.data_ptr(),
+            out96.data_ptr(), B, _stream())
+    _check(err, "backbone kernel")
+    LAUNCHES["backbone_forward"] += 1
+    return out88, out96
+
+
+@backbone_forward.register_fake
+def _(x, weights, offsets, channels, strides, stem_features, tap):
+    shape88, shape96 = _backbone_shapes(x, channels, strides, tap)
+    return x.new_empty(shape88), x.new_empty(shape96)
+
+
 # --------------------------------------------------- fp32 stem and block
 @_op("backbone_stem", "cuda")
 def backbone_stem(x: torch.Tensor, weights: torch.Tensor, w_offset: int,
@@ -288,14 +337,6 @@ def _(x, weights, offsets, cout, stride):
 
 
 # ---------------------------------------------------------------- kernel #3
-def _sides(h: int, strides) -> list[int]:
-    out = []
-    for s in strides:
-        h //= s
-        out.append(h)
-    return out
-
-
 @_op("backbone2_segment", "cuda")
 def backbone2_segment(x: torch.Tensor, f32: torch.Tensor,
                       f32_offsets: list[int], bf16: torch.Tensor,
@@ -456,3 +497,27 @@ def se_transformer(x: torch.Tensor, weights: torch.Tensor, dims: list[int],
 @se_transformer.register_fake
 def _(x, weights, dims, offsets):
     return x.new_empty((*x.shape[:3], dims[6]))
+
+
+# ---------------------------------------------------------------- kernel #6
+@_op("tiled_matmul", "cuda")
+def tiled_matmul(a: torch.Tensor, b: torch.Tensor, tile: list[int],
+                 plan: list[int]) -> torch.Tensor:
+    """a (M, K) bf16 @ b (K, N) bf16 -> (M, N) float32 in one launch at
+    tile = (bm, bn, bk), by the launch plan (stages, passes, grid, group)
+    (ops/kernels/tiled_matmul.py)."""
+    (m, k), n = a.shape, b.shape[1]
+    c = a.new_empty((m, n), dtype=torch.float32)
+    _aligned("tiled_matmul", a, b)
+    with torch.cuda.device(a.device):
+        err = library("tiled_matmul").headpose_tiled_matmul(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, *tile, *plan,
+            _stream())
+    _check(err, "tiled_matmul kernel")
+    LAUNCHES["tiled_matmul"] += 1
+    return c
+
+
+@tiled_matmul.register_fake
+def _(a, b, tile, plan):
+    return a.new_empty((a.shape[0], b.shape[1]), dtype=torch.float32)

@@ -7,12 +7,12 @@ layout: the pack is cached beside the module, keyed by `leaves` and the
 element type, and rebuilt only when a parameter changes (another storage,
 or an in-place write such as `load_state_dict`).  A kernel whose launch
 takes a table built from the module and the offsets gets it built once,
-with the pack (`table`).  A stamp is the span `pack.stamp`; a pack built
-(a cache miss) is the section `pack.build` (utils.profiling).
+with the pack (`table`).  A pack is checked against `utils.weights.stamp`
+(the span `pack.stamp`); a pack built (a cache miss) is the section
+`pack.build` (utils.profiling).
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import weakref
 from typing import Any, Callable, Iterable
@@ -20,9 +20,10 @@ from typing import Any, Callable, Iterable
 import torch
 from torch import nn
 
-from ...utils.profiling import section, span
+from ...utils.profiling import section
+from ...utils.weights import stamp
 
-__all__ = ["Packed", "packed", "stamp", "c_ints"]
+__all__ = ["Packed", "packed"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,18 +36,6 @@ class Packed:
 
 _CACHE: "weakref.WeakKeyDictionary[nn.Module, dict]" = \
     weakref.WeakKeyDictionary()
-
-
-def stamp(module: nn.Module) -> tuple:
-    """What `packed` checks a cached pack against: each parameter's storage
-    and version.  Walking a backbone's parameters is the costliest host step
-    of a launch, so a caller that packs one module in several layouts takes
-    the stamp once and passes it to each `packed` call."""
-    # inference tensors keep no version counter (and cannot be written to
-    # outside inference mode)
-    with span("pack.stamp"):
-        return tuple((p.data_ptr(), 0 if p.is_inference() else p._version)
-                     for p in module.parameters())
 
 
 def packed(module: nn.Module,
@@ -77,8 +66,3 @@ def packed(module: nn.Module,
     packs[(leaves, dtype)] = (current, pack)
     return pack
 
-
-def c_ints(values: Iterable[int]) -> ctypes.Array:
-    """A host int array for a kernel's C entry point."""
-    values = [int(v) for v in values]
-    return (ctypes.c_int * len(values))(*values)

@@ -95,13 +95,8 @@ def postprocess_kernel(scores_logits: torch.Tensor, loc: torch.Tensor,
                        iou_threshold: float = 0.3, input_size: int = 128,
                        max_faces: int = MAX_FACES) -> dict[str, torch.Tensor]:
     """Drop-in for `ops.detection.postprocess`: `postprocess_slab`'s slab
-    split into its fields.
-
-    `postprocess_kernel.launches` counts the kernel's launches."""
+    split into its fields."""
     return split_slab(postprocess_slab(
         scores_logits, loc, pose_front, pose_back, anchors,
         score_threshold=score_threshold, iou_threshold=iou_threshold,
         input_size=input_size, max_faces=max_faces))
-
-
-postprocess_kernel = lib.Counted(postprocess_kernel, "postprocess")

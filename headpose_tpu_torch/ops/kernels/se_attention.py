@@ -205,14 +205,7 @@ def se_transformer_forward_cuda(net: SETransformerHeadNet,
 def se_transformer_forward(net: SETransformerHeadNet,
                            x: torch.Tensor) -> torch.Tensor:
     """`net` over maps x (B, H, W, C): the CUDA kernel for a tensor on a
-    CUDA device, the plain version for a tensor on the CPU.
-
-    `se_transformer_forward.launches` counts the calls that launched the
-    kernel (one per call: its three launches, or the one for T = 1)."""
+    CUDA device, the plain version for a tensor on the CPU."""
     if x.device.type == "cpu":
         return se_transformer_forward_plain(net, x)
     return se_transformer_forward_cuda(net, x)
-
-
-se_transformer_forward = lib.Counted(se_transformer_forward,
-                                     "se_transformer")

@@ -14,7 +14,8 @@ The kernel's launch plan is computed here (`plan`) and passed to it as
 ints: the stages of its TMA ring, the passes in which it stages C for its
 TMA stores, its persistent grid and the group width of its tile order
 (`tile_order`, the kernel's map from a CTA's t-th tile to a tile-row and
-tile-col).
+tile-col).  The launch is the op `headpose_tpu_torch::tiled_matmul`
+(ops/kernels/library.py), which counts it.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import functools
 
 import torch
 
-from ...models.single_pass import fp32_exact
+from ...core.single_pass import fp32_exact
 from . import library as lib
 
 __all__ = ["TILES", "tiled_matmul", "tiled_matmul_plain",
@@ -154,15 +155,8 @@ def _sms(device: torch.device) -> int:
 def _launch(a: torch.Tensor, b: torch.Tensor, tile, p: dict) -> torch.Tensor:
     """One launch of the kernel at `tile` with the launch plan `p` on
     checked CUDA operands; raises when it fails."""
-    (m, k), n = a.shape, b.shape[1]
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        err = lib.library("tiled_matmul").headpose_tiled_matmul(
-            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, *tile,
-            p["stages"], p["passes"], p["grid"], p["group"],
-            torch.cuda.current_stream().cuda_stream)
-    lib._check(err, "tiled_matmul kernel")
-    return c
+    return lib.tiled_matmul(a, b, list(tile), [p["stages"], p["passes"],
+                                               p["grid"], p["group"]])
 
 
 @torch.no_grad()
@@ -178,21 +172,13 @@ def tiled_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
     if tile not in TILES.values():
         raise ValueError(f"the kernel takes the tiles {sorted(TILES.values())}"
                          f", got {tile}")
-    lib._aligned("tiled_matmul", a, b)
-    c = _launch(a, b, tile, plan(m, n, k, tile, _sms(a.device)))
-    tiled_matmul.launches += 1
-    return c
+    return _launch(a, b, tile, plan(m, n, k, tile, _sms(a.device)))
 
 
 def tiled_matmul(a: torch.Tensor, b: torch.Tensor, tile) -> torch.Tensor:
     """a (M, K) bf16 @ b (K, N) bf16 -> (M, N) float32 over output tiles of
     tile = (bm, bn, bk): the CUDA kernel for tensors on a CUDA device, the
-    plain version for tensors on the CPU.
-
-    `tiled_matmul.launches` counts the kernel's launches."""
+    plain version for tensors on the CPU."""
     if a.device.type == "cpu":
         return tiled_matmul_plain(a, b, tile)
     return tiled_matmul_cuda(a, b, tile)
-
-
-tiled_matmul.launches = 0

@@ -441,8 +441,8 @@ def part_train(rank: _Rank) -> None:
 
 def _train_on(rank: _Rank, mp: int, suffix: str) -> dict:
     from ..models.heads import head_net
-    from ..tools.convert import params_from_jax, params_to_jax, \
-        flatten_params
+    from ..models.params import (flatten_params, params_from_jax,
+                                 params_to_jax)
     from .mesh import MODEL_AXIS, axis_size, shard_head_params, shard_rows
 
     n = rank.args.nproc
@@ -526,19 +526,6 @@ def dryrun_frames(kind: str, batch: int | None, n: int) -> np.ndarray:
     return frames[:batch] if batch else frames
 
 
-def _launches() -> dict:
-    from ..ops.kernels import kernel_wrappers
-
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
-
-
-def _reset_launches() -> None:
-    from ..ops.kernels import kernel_wrappers
-
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
-
-
 def _wall(rank: _Rank, fn, reps: int = 3) -> float:
     """Median wall seconds of fn() (synchronised) on this rank."""
     walls = []
@@ -575,6 +562,7 @@ def _collective_ms(rank: _Rank, fn, reps: int = 10) -> float:
 def part_detect(rank: _Rank) -> None:
     import warnings
 
+    from ..ops.kernels import library
     from ..pretrained import load_pretrained
     from ..runtime.detector import FaceDetector
     from . import host_local_batch
@@ -610,14 +598,14 @@ def part_detect(rank: _Rank) -> None:
         run(frames[:n])                     # warm (builds, plans)
         run_plain(frames[:n])
         rank.sync()
-        _reset_launches()
+        library.reset_launches()
         got = run(staged)
         rank.sync()
-        launches = _launches()
-        _reset_launches()
+        launches = library.launches()
+        library.reset_launches()
         want = run_plain(staged)
         rank.sync()
-        launches_plain = _launches()
+        launches_plain = library.launches()
         g = {f: getattr(got, f).cpu().numpy() for f in
              ("valid", "poses", "boxes", "scores")}
         w = {f: getattr(want, f).cpu().numpy() for f in

@@ -236,15 +236,15 @@ def head_param_specs(spec: Any, params: Any, tp: int) -> Any:
 
     Returns `params`' tree (JAX layout, as `spec.init` gives it) whose
     leaves are the placements, on a (data, model) mesh, of the PORT's
-    tensor of that leaf (`tools.convert.params_from_jax`'s layout: a dense
+    tensor of that leaf (`models.params.params_from_jax`'s layout: a dense
     kernel (out, in)): `(Replicate(), Shard(d))` or `(Replicate(),
     Replicate())`."""
     from torch.distributed.tensor import Replicate, Shard
 
-    from ..tools.convert import DENSE, _pairs
+    from ..models.params import DENSE, leaf_layouts
 
     jax_specs = _jax_layout_specs(spec, params, tp)
-    layouts = {path: layout for _, path, layout in _pairs(spec)}
+    layouts = {path: layout for _, path, layout in leaf_layouts(spec)}
 
     def walk(node, path):
         if isinstance(node, dict):
@@ -268,12 +268,12 @@ def shard_head_params(spec: Any, params: Any, mesh):
     from torch import nn
 
     from ..models.heads import head_net
-    from ..tools.convert import _pairs, params_from_jax
+    from ..models.params import leaf_layouts, params_from_jax
 
     specs = head_param_specs(spec, params, axis_size(mesh, MODEL_AXIS))
     net = head_net(spec, device=mesh_device(mesh))
     net.load_state_dict(params_from_jax(spec, params))
-    for key, path, _ in _pairs(spec):
+    for key, path, _ in leaf_layouts(spec):
         leaf = specs
         for p in path:
             leaf = leaf[p]

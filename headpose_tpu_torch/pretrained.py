@@ -1,7 +1,7 @@
 """Pretrained models shipped with the port.
 
 `pretrained_models/<name>/` holds `spec.json` and `params.npz` (JAX-layout
-leaves keyed by path; tools.convert).  They are copies of the JAX package's
+leaves keyed by path; models.params).  They are copies of the JAX package's
 Orbax checkpoints of the same name, converted leaf for leaf, so loading them
 needs neither Orbax nor JAX.
 
@@ -39,7 +39,7 @@ import json
 import os
 import warnings
 
-from .tools.convert import load_native
+from .models.params import load_native
 
 __all__ = ["PRETRAINED_DIR", "FLAGSHIP", "BEST", "UNIFIED_BEST", "HEADS",
            "load_pretrained", "pretrained_quality", "resolve_model_path",

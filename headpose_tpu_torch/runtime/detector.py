@@ -40,6 +40,7 @@ from torch import nn
 
 from ..models.anchors import (BACK_CONFIG, FRONT_CONFIG, AnchorConfig,
                               generate_anchors)
+from ..models.params import load_native, params_from_jax
 from ..models.unified import UnifiedPoseModel, UnifiedPoseNet, unified_from_h5
 from ..ops.detection import (C_LOGIT, C_POSE, C_VALID, MAX_FACES,
                              cell_index_maps, gather_survivor_features)
@@ -48,7 +49,6 @@ from ..ops.kernels.backbone2 import island_blocks
 from ..ops.kernels.postprocess import postprocess_slab
 from ..parallel.distributed import all_gather_rows
 from ..parallel.mesh import axis_index, axis_size, mesh_device
-from ..tools.convert import load_native, params_from_jax
 from ..utils.device import resolve_device
 from ..utils.profiling import span
 from .fused import SERVED_PRECISIONS, fused_network, head_forward, island_of
@@ -62,7 +62,7 @@ class FaceDetector:
 
     `model` is a `UnifiedPoseModel` spec with both pose heads and `params`
     its parameters in JAX layout (nested dicts/lists of arrays, as
-    `tools.convert.load_npz` returns them).
+    `models.params.load_npz` returns them).
 
     `device=None` means the CUDA device, and raises when there is none; pass
     `device="cpu"` for the plain PyTorch path.  On a CUDA device the
@@ -115,7 +115,7 @@ class FaceDetector:
                  and product JAX evaluates inside its
                  `default_matmul_precision` block takes bf16-rounded
                  operands (to nearest even), exact products and fp32 sums,
-                 the bias unrounded (`models.single_pass`): the bicubic
+                 the bias unrounded (`core.single_pass`): the bicubic
                  resize GEMMs when frames are resized, the stem, each
                  block's depthwise and pointwise convs, the four SSD heads
                  and every pose-head product (the survivors' rows too).

@@ -50,8 +50,8 @@ from __future__ import annotations
 
 import torch
 
-from ..models.blazeface import (BlazeFace, bf16_round, fp32_exact,
-                                turbo_fast_blocks)
+from ..core.single_pass import bf16_round, fp32_exact
+from ..models.blazeface import BlazeFace, turbo_fast_blocks
 from ..models.heads import MLPHeadNet, SETransformerHeadNet
 from ..models.unified import UnifiedPoseNet
 from ..ops.kernels.backbone import backbone_forward
@@ -73,7 +73,7 @@ PRECISIONS = ("highest", "fast", "turbo", "max")
 # every string FaceDetector serves: the modes, and the two strings JAX's
 # detector passes through to jax.default_matmul_precision, "high" (the
 # TPU's 3 bf16 passes: the "fast" network) and "default" (one pass: every
-# conv and product of bf16-rounded operands, models/single_pass.py)
+# conv and product of bf16-rounded operands, core/single_pass.py)
 SERVED_PRECISIONS = ("highest", "high", "fast", "turbo", "max", "default")
 
 

@@ -13,11 +13,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core.single_pass import fp32_exact
 from ..data.datasets import Dataset, load_dataset
-from ..models.blazeface import fp32_exact
 from ..models.heads import head_from_h5, head_net
+from ..models.params import load_native, params_from_jax
 from ..utils.device import resolve_device
-from .convert import load_native, params_from_jax
 
 __all__ = ["evaluate_head_pose_model", "pose_metrics", "predict"]
 

@@ -5,8 +5,8 @@ holds
     spec.json   — {"spec": ..., "metadata": ...}, the JAX package's spec
                   format (frozen dataclass fields, recursive)
     params.npz  — the parameter leaves in JAX layout, keyed by path
-                  (`tools.convert.save_npz`)
-`FaceDetector.from_native`, `tools.convert.load_native` and `load_model`
+                  (`models.params.save_npz`)
+`FaceDetector.from_native`, `models.params.load_native` and `load_model`
 read it.  The JAX package's own directories hold Orbax params instead,
 which the port reaches only through the weight bridge.
 """
@@ -17,14 +17,15 @@ import json
 import os
 from typing import Any
 
-from .convert import _SPEC_CLASSES, load_native, save_npz, spec_from_dict
+from ..models.params import (SPEC_CLASSES, load_native, save_npz,
+                             spec_from_dict)
 
 __all__ = ["save_model", "load_model", "spec_to_dict", "spec_from_dict"]
 
 
 def _encode(value: Any) -> Any:
     if dataclasses.is_dataclass(value) and not isinstance(value, type):
-        if type(value).__name__ not in _SPEC_CLASSES:
+        if type(value).__name__ not in SPEC_CLASSES:
             raise ValueError(f"unknown spec type {type(value).__name__}")
         return {"__spec__": type(value).__name__,
                 "fields": {f.name: _encode(getattr(value, f.name))

@@ -24,12 +24,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..models.single_pass import fp32_exact, single_pass_of
+from ..core.single_pass import fp32_exact, single_pass_of
+from ..models.params import params_from_jax
 from ..models.unified import UnifiedPoseNet
 from ..ops.detection import _f32, anchor_cells, score_threshold_to_logit
 from ..ops.image import preprocess
 from ..runtime.detector import host_tensor
-from ..tools.convert import params_from_jax
 from ..utils.device import resolve_device
 
 __all__ = ["FeatureExtractor", "ExtractionResult", "extract_dataset",
@@ -79,7 +79,7 @@ class FeatureExtractor:
     The options follow JAX's positional order.  `iou_threshold` is kept,
     as JAX keeps it, and changes nothing: the best face is NMS's first
     pick, which no IoU threshold can suppress.  `precision` is one of
-    `models.single_pass.MATMUL_PRECISIONS` (JAX passes it to
+    `core.single_pass.MATMUL_PRECISIONS` (JAX passes it to
     `jax.default_matmul_precision`): "highest" and "high" extract from the
     fp32 network, "default" from the single-pass bf16 one.  The
     thresholds and `precision` are read on every call."""

@@ -22,9 +22,9 @@ import torch
 
 from ..models.blazeface import blazeface_from_h5
 from ..models.heads import head_from_h5
+from ..models.params import params_from_jax
 from ..models.unified import UnifiedPoseNet, join_models
 from ..utils.device import resolve_device
-from .convert import params_from_jax
 from .export import load_model, save_model
 
 __all__ = ["extract_id_from_path", "join_and_save"]

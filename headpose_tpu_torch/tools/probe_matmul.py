@@ -53,7 +53,7 @@ import time
 import numpy as np
 import torch
 
-from ..models.single_pass import fp32_exact
+from ..core.single_pass import fp32_exact
 from ..ops.kernels import tiled_matmul as ktm
 from ..ops.kernels.tiled_matmul import TILES, tiled_matmul, tiled_matmul_plain
 from ..utils.device import resolve_device

@@ -23,9 +23,9 @@ import numpy as np
 import torch
 
 from ..models.heads import SETransformerHead
+from ..models.params import flatten_params, unflatten_params
 from ..models.unified import UnifiedPoseModel
 from ..pretrained import FLAGSHIP, load_pretrained
-from .convert import flatten_params, unflatten_params
 from .export import save_model
 
 __all__ = ["NOISE", "seeded_head", "seeded_model"]

@@ -146,7 +146,7 @@ def _head_forward(spec, params, x: np.ndarray) -> np.ndarray:
     import torch
 
     from ..models.heads import head_net
-    from .convert import params_from_jax
+    from ..models.params import params_from_jax
 
     net = head_net(spec, device="cpu").eval()
     net.load_state_dict(params_from_jax(spec, params))
@@ -159,8 +159,8 @@ def _unified_outputs(model, params, x: np.ndarray) -> list[np.ndarray]:
     (`UnifiedPoseNet.reference_outputs`) of the preprocessed images x."""
     import torch
 
+    from ..models.params import params_from_jax
     from ..models.unified import UnifiedPoseNet
-    from .convert import params_from_jax
 
     net = UnifiedPoseNet(model, device="cpu").eval()
     net.load_state_dict(params_from_jax(model, params))

@@ -32,9 +32,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models.blazeface import fp32_exact
+from ..core.single_pass import fp32_exact
+from ..models.params import params_from_jax, params_to_jax
 from ..models.unified import UnifiedPoseModel, UnifiedPoseNet
-from ..tools.convert import params_from_jax, params_to_jax
 from ..utils.device import resolve_device
 from .optim import Adam, cosine_decay_schedule, freeze
 

@@ -2,11 +2,11 @@
 
 JAX's checkpoints are Orbax pytrees, which cannot be read without jax, so
 the port writes its own format: a checkpoint is a directory holding
-`tree.npz` (the leaves, keyed by path as `tools.convert.flatten_params`
+`tree.npz` (the leaves, keyed by path as `models.params.flatten_params`
 names them, dtypes kept) and `meta.json`.  Training checkpoints carry the
 params (JAX layout), the optimizer state, the epoch and the early-stop
 bookkeeping, so an interrupted run resumes exactly.  JAX checkpoints reach
-the port only through the weight bridge (`tools.convert`); this module
+the port only through the weight bridge (`models.params`); this module
 reads none.
 
 Under a process group of more than one rank every rank calls the savers
@@ -28,8 +28,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..models.params import flatten_params, unflatten_params
 from ..parallel.distributed import barrier, is_distributed
-from ..tools.convert import flatten_params, unflatten_params
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "save_pytree", "restore_pytree"]

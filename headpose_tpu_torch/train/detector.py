@@ -38,7 +38,7 @@ The device loop, the port's form of JAX's scanned blocks:
     TF32; the TPU's "high" is three bf16 passes, an emulation of fp32);
     "default" is the TPU's single bf16 pass: the forward's resize GEMMs,
     stem, blocks and SSD heads (and distill_prefix's teacher taps) take
-    bf16-rounded operands (models/single_pass.py), and the backward runs
+    bf16-rounded operands (core/single_pass.py), and the backward runs
     through autograd of the roundings, which rounds each rounded operand's
     cotangent to bf16 as JAX's transpose of `astype` does, its products in
     fp32 (JAX's `simulate_fast` convention).
@@ -56,10 +56,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models.blazeface import BlazeFace, BlazeFaceNet, fp32_exact
-from ..models.single_pass import single_pass_of
+from ..core.single_pass import fp32_exact, single_pass_of
+from ..models.blazeface import BlazeFace, BlazeFaceNet
+from ..models.params import params_from_jax, params_to_jax
 from ..ops.image import preprocess
-from ..tools.convert import params_from_jax, params_to_jax
 from ..utils.device import resolve_device
 from .optim import Adam, freeze, warmup_cosine_decay_schedule
 
@@ -89,7 +89,7 @@ class DetectorDistillConfig:
     loc_weight: float = 1.0
     steps_per_sync: int = 250        # steps per host read of the metrics
     seed: int = 0
-    precision: str = "highest"       # models.single_pass.MATMUL_PRECISIONS
+    precision: str = "highest"       # core.single_pass.MATMUL_PRECISIONS
     # logits are compared through a smooth bounded squash s·tanh(x/s), so
     # saturated background anchors cannot dominate the MSE
     logit_squash: float = 8.0

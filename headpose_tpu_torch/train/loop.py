@@ -53,11 +53,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core.single_pass import fp32_exact
 from ..data.datasets import Dataset
-from ..models.blazeface import fp32_exact
 from ..models.heads import HEAD_REGISTRY, MLPHead, RowWindow, head_net
+from ..models.params import params_from_jax, params_to_jax
 from ..parallel.distributed import all_reduce_
-from ..tools.convert import params_from_jax, params_to_jax
 from ..utils.device import resolve_device
 from .checkpoints import restore_checkpoint, save_checkpoint, save_pytree
 from .config import TrainConfig

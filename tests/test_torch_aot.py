@@ -439,3 +439,47 @@ class TestValidation:
         json.dump(m, open(os.path.join(path, "aot.json"), "w"))
         with pytest.raises(ValueError, match="no CUDA device"):
             ExportedDetector(path)
+
+
+def test_op_library_launches_and_counts_every_kernel():
+    """Kernels #2 and #6 launch through ops of the `headpose_tpu_torch::`
+    namespace whose fake implementations give their outputs' shapes (here on
+    fake CUDA tensors, as torch.export traces them); `launches()` holds
+    every op's count by its key, and `reset_launches()` zeroes them all."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from headpose_tpu_torch.models import BLAZEFACE_FRONT as spec
+    from headpose_tpu_torch.ops.kernels import library
+
+    for name in ("backbone_forward", "tiled_matmul"):
+        assert callable(getattr(torch.ops.headpose_tpu_torch, name)), name
+    n = len(spec.block_channels)
+    with FakeTensorMode():
+        x = torch.empty((2, 128, 128, 3), device="cuda")
+        f88, f96 = library.backbone_forward(
+            x, torch.empty(4 * n + 2, device="cuda"), [0] * (4 * n + 2),
+            list(spec.block_channels),
+            [2 if i in spec.downsample_blocks else 1 for i in range(n)],
+            spec.stem_features, spec.tap88_block)
+        c = library.tiled_matmul(
+            torch.empty((256, 512), dtype=torch.bfloat16, device="cuda"),
+            torch.empty((512, 128), dtype=torch.bfloat16, device="cuda"),
+            [128, 128, 32], [6, 1, 2, 8])
+    assert (tuple(f88.shape), tuple(f96.shape)) == ((2, 16, 16, 88),
+                                                    (2, 8, 8, 96))
+    assert (tuple(c.shape), c.dtype) == ((256, 128), torch.float32)
+
+    keys = {"postprocess", "backbone_forward", "backbone2_segment",
+            "apply_fused", "dense_block", "dense_chain", "mlp_head",
+            "se_transformer", "tiled_matmul"}
+    counts = library.launches()
+    assert set(counts) == keys
+    counts["postprocess"] += 1                 # a copy: LAUNCHES unchanged
+    assert library.launches()["postprocess"] == counts["postprocess"] - 1
+    saved = dict(library.LAUNCHES)
+    try:
+        library.LAUNCHES.update(dict.fromkeys(keys, 3))
+        library.reset_launches()
+        assert library.launches() == dict.fromkeys(keys, 0)
+    finally:
+        library.LAUNCHES.update(saved)

@@ -15,12 +15,13 @@ import torch
 from headpose_tpu.models.blazeface import BlazeFace as JaxBlazeFace
 from headpose_tpu.ops.pallas import backbone2 as jb2
 from headpose_tpu_torch.models import BLAZEFACE_BACK, BlazeFace, BlazeFaceNet
+from headpose_tpu_torch.models.params import params_from_jax, params_to_jax
 from headpose_tpu_torch.ops.kernels import backbone as kbb
 from headpose_tpu_torch.ops.kernels import backbone2 as kb2
+from headpose_tpu_torch.ops.kernels import library
 from headpose_tpu_torch.pretrained import (FLAGSHIP, best_detector,
                                            flagship_detector, load_pretrained)
 from headpose_tpu_torch.runtime.fused import fused_network
-from headpose_tpu_torch.tools.convert import params_from_jax, params_to_jax
 from headpose_tpu_torch.utils.build import NVCC_FLAGS_FMA
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -329,7 +330,7 @@ def test_cpu_tensors_go_to_the_plain_version(monkeypatch):
     net = _net(spec, params)
     x = torch.from_numpy(np.random.default_rng(1).uniform(
         -1, 1, (2, 128, 128, 3)).astype(np.float32))
-    before = (kb2.apply_fused.launches, kb2.run_segment.launches)
+    before = library.launches()
     got = kb2.apply_fused(net, x)
     want = kb2.apply_fused_plain(net, x)
     for g, w in zip(got, want):
@@ -338,7 +339,7 @@ def test_cpu_tensors_go_to_the_plain_version(monkeypatch):
         0, 1, (2, 8, 8, 96)).astype(np.float32)))
     assert torch.equal(kb2.run_segment(net, seg_in, "D"),
                        kb2.run_segment_plain(net, seg_in, "D"))
-    assert (kb2.apply_fused.launches, kb2.run_segment.launches) == before
+    assert library.launches() == before       # no kernel on the CPU
 
 
 def test_cuda_entry_points_refuse_cpu_tensors():

@@ -37,9 +37,9 @@ from headpose_tpu.models.unified import UnifiedPoseModel as JUnified
 from headpose_tpu.train import calibrate as jcal
 from headpose_tpu_torch.models.blazeface import BlazeFace
 from headpose_tpu_torch.models.heads import MLPHead
-from headpose_tpu_torch.models.unified import UnifiedPoseModel, UnifiedPoseNet
-from headpose_tpu_torch.tools.convert import (flatten_params, params_from_jax,
+from headpose_tpu_torch.models.params import (flatten_params, params_from_jax,
                                               params_to_jax)
+from headpose_tpu_torch.models.unified import UnifiedPoseModel, UnifiedPoseNet
 from headpose_tpu_torch.train import calibrate as tcal
 
 FORWARD_TOL = dict(rtol=1e-5, atol=1e-5)

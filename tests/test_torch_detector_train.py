@@ -4,7 +4,7 @@ package's on the CPU.
 
 Inputs come from seeds with numpy; params are drawn once and handed to
 both sides in JAX layout (the port converts them through
-tools/convert.params_from_jax).  JAX's random stream cannot be reproduced
+models/params.params_from_jax).  JAX's random stream cannot be reproduced
 without jax, so the trajectories run on GIVEN batch indices: the port's
 trainers take them through their private twins (`_fit_detector(...,
 indices=)`), and the JAX side is a composition of JAX's own loss functions
@@ -36,9 +36,9 @@ from headpose_tpu.train import detector as jdet
 from headpose_tpu_torch.models.blazeface import (BLAZEFACE_BACK,
                                                  BLAZEFACE_FRONT, BlazeFace,
                                                  BlazeFaceNet)
-from headpose_tpu_torch.ops.image import preprocess
-from headpose_tpu_torch.tools.convert import (flatten_params, params_from_jax,
+from headpose_tpu_torch.models.params import (flatten_params, params_from_jax,
                                               params_to_jax)
+from headpose_tpu_torch.ops.image import preprocess
 from headpose_tpu_torch.train import detector as tdet
 from headpose_tpu_torch.train import optim
 

@@ -20,11 +20,11 @@ from headpose_tpu.tools.evaluate import (
 from headpose_tpu.tools.export import spec_to_dict as jax_spec_to_dict
 from headpose_tpu_torch.data import Dataset
 from headpose_tpu_torch.models import MLPHead, join_models
+from headpose_tpu_torch.models.params import flatten_params, load_native
 from headpose_tpu_torch.pretrained import (FLAGSHIP, HEADS, PRETRAINED_DIR,
                                            load_pretrained)
 from headpose_tpu_torch.runtime.detector import FaceDetector
 from headpose_tpu_torch.tools import backfill, train_cli
-from headpose_tpu_torch.tools.convert import flatten_params, load_native
 from headpose_tpu_torch.tools.evaluate import (evaluate_head_pose_model,
                                                pose_metrics)
 from headpose_tpu_torch.tools.export import (load_model, save_model,

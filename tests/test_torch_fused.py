@@ -20,13 +20,14 @@ from headpose_tpu_torch.core.activations import (ACTIVATION_IDS, ACTIVATIONS,
 from headpose_tpu_torch.models import (BLAZEFACE_BACK, BlazeFace,
                                        BlazeFaceNet, MLPHead, MLPHeadNet,
                                        UnifiedPoseNet)
+from headpose_tpu_torch.models.params import params_from_jax, params_to_jax
 from headpose_tpu_torch.ops.kernels import backbone as kbb
 from headpose_tpu_torch.ops.kernels import head_mlp as khead
+from headpose_tpu_torch.ops.kernels import library
 from headpose_tpu_torch.ops.kernels import postprocess as kpost
 from headpose_tpu_torch.pretrained import (BEST, FLAGSHIP, best_detector,
                                            flagship_detector, load_pretrained)
 from headpose_tpu_torch.runtime.fused import fused_network
-from headpose_tpu_torch.tools.convert import params_from_jax, params_to_jax
 from headpose_tpu_torch.utils.build import NVCC_FLAGS, NVCC_FLAGS_FMA
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -259,7 +260,7 @@ def test_cpu_tensors_go_to_the_plain_versions(monkeypatch):
     net = _net(spec, params)
     x = torch.from_numpy(np.random.default_rng(1).uniform(
         -1, 1, (2, 32, 32, 3)).astype(np.float32))
-    before = (kbb.backbone_forward.launches, khead.mlp_head_forward.launches)
+    before = library.launches()
     got = kbb.backbone_forward(net, x)
     want = kbb.backbone_forward_plain(net, x)
     for g, w in zip(got, want):
@@ -268,8 +269,7 @@ def test_cpu_tensors_go_to_the_plain_versions(monkeypatch):
     rows = got[1].reshape(-1, 20)
     assert torch.equal(khead.mlp_head_forward(head, rows),
                        khead.mlp_head_forward_plain(head, rows))
-    assert (kbb.backbone_forward.launches,
-            khead.mlp_head_forward.launches) == before
+    assert library.launches() == before       # no kernel on the CPU
 
 
 def test_cuda_entry_points_refuse_cpu_tensors():

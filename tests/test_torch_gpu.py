@@ -49,6 +49,7 @@ from headpose_tpu_torch.ops.image import preprocess
 from headpose_tpu_torch.ops.kernels import backbone as kbb
 from headpose_tpu_torch.ops.kernels import backbone2 as kb2
 from headpose_tpu_torch.ops.kernels import head_mlp as khead
+from headpose_tpu_torch.ops.kernels import library
 from headpose_tpu_torch.ops.kernels import postprocess as kern
 from headpose_tpu_torch.ops.kernels import se_attention as kse
 from headpose_tpu_torch.ops.kernels import tiled_matmul as ktm
@@ -114,11 +115,11 @@ def test_kernel_matches_twin(cuda, case):
     anchors = torch.tensor(generate_anchors(
         BACK_CONFIG if size == 256 else FRONT_CONFIG).astype(np.float32),
         device=cuda)
-    before = kern.postprocess_kernel.launches
+    before = library.launches()["postprocess"]
     got = kern.postprocess_kernel(*args, anchors, **kw)
     want = det.postprocess(*args, anchors, **kw)
     torch.cuda.synchronize()
-    assert kern.postprocess_kernel.launches == before + 1
+    assert library.launches()["postprocess"] == before + 1
     _assert_equal(got, want)
 
 
@@ -129,9 +130,9 @@ def test_detect_through_kernel_equals_twin(cuda):
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
     imgs = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"][:16]
-    before = kern.postprocess_kernel.launches
+    before = library.launches()["postprocess"]
     batch = flagship.detect(imgs)
-    assert kern.postprocess_kernel.launches == before + 1
+    assert library.launches()["postprocess"] == before + 1
     with torch.inference_mode():
         out = flagship.net(preprocess(torch.from_numpy(imgs).to(cuda)))
         want = det.postprocess(out["scores"], out["loc"], out["pose_front"],
@@ -164,10 +165,10 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 def test_empty_batch_launches_nothing(cuda):
     args = [torch.from_numpy(x).to(cuda)[:0] for x in _inputs(1, 0)]
     anchors = torch.tensor(generate_anchors().astype(np.float32), device=cuda)
-    before = kern.postprocess_kernel.launches
+    before = library.launches()["postprocess"]
     out = kern.postprocess_kernel(*args, anchors)
     assert out["valid"].shape == (0, 100)
-    assert kern.postprocess_kernel.launches == before
+    assert library.launches()["postprocess"] == before
 
 
 # ------------------------------------------------ fused backbone and heads
@@ -234,11 +235,11 @@ def test_backbone_kernel_matches_plain(cuda, flagship, case):
         net = _random_init(BlazeFaceNet(NARROW, device=cuda), 5)
         x = torch.from_numpy(np.random.default_rng(0).uniform(
             -1, 1, (4, 32, 32, 3)).astype(np.float32)).to(cuda)
-    before = kbb.backbone_forward.launches
+    before = library.launches()["backbone_forward"]
     got = kbb.backbone_forward(net, x)
     want = kbb.backbone_forward_plain(net, x)
     torch.cuda.synchronize()
-    assert kbb.backbone_forward.launches == before + 1
+    assert library.launches()["backbone_forward"] == before + 1
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
 
@@ -278,7 +279,7 @@ def test_stem_and_block_kernels_match_plain(cuda, flagship, layer):
                                   "selu", "softplus", "ragged_513"])
 def test_head_kernel_matches_plain(cuda, case):
     from headpose_tpu_torch.pretrained import BEST, FLAGSHIP, load_pretrained
-    from headpose_tpu_torch.tools.convert import params_from_jax
+    from headpose_tpu_torch.models.params import params_from_jax
 
     if "." in case:
         model, head = case.split(".")
@@ -297,11 +298,11 @@ def test_head_kernel_matches_plain(cuda, case):
         x = np.random.default_rng(1).normal(
             0, 2, (513 if case == "ragged_513" else 64, 88)).astype(np.float32)
     x = torch.from_numpy(x).to(cuda)
-    before = khead.mlp_head_forward.launches
+    before = library.launches()["mlp_head"]
     got = khead.mlp_head_forward(net, x)
     want = khead.mlp_head_forward_plain(net, x)
     torch.cuda.synchronize()
-    assert khead.mlp_head_forward.launches == before + 1
+    assert library.launches()["mlp_head"] == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
@@ -311,7 +312,7 @@ def _edge_head(case, cuda, flagship):
     are not multiples of 4 under each activation, the 32- and 16-row tiles
     of wide layers, 8 layers, C % 4 != 0 and rows not 16-byte aligned."""
     from headpose_tpu_torch.pretrained import BEST, load_pretrained
-    from headpose_tpu_torch.tools.convert import params_from_jax
+    from headpose_tpu_torch.models.params import params_from_jax
 
     rng = np.random.default_rng(len(case))
     if case.startswith("best") or case.startswith("n"):
@@ -355,11 +356,11 @@ EDGE_CASES = (["best.head88_b128", "best.head96_b128", "n1", "n15", "n63",
 def test_head_kernel_edges_match_plain(cuda, flagship, case):
     """One launch each, within rtol = atol = 1e-5 of the plain version."""
     net, x = _edge_head(case, cuda, flagship)
-    before = khead.mlp_head_forward.launches
+    before = library.launches()["mlp_head"]
     got = khead.mlp_head_forward(net, x)
     want = khead.mlp_head_forward_plain(net, x)
     torch.cuda.synchronize()
-    assert khead.mlp_head_forward.launches == before + 1
+    assert library.launches()["mlp_head"] == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
@@ -371,10 +372,11 @@ def test_detect_fused_matches_detect(cuda, flagship, images):
         imgs = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"][:16]
     else:
         imgs = np.load(os.path.join(GOLDEN, "e2e_production.npz"))["img"]
-    before = (kbb.backbone_forward.launches, khead.mlp_head_forward.launches)
+    before = library.launches()
     got = flagship.detect_fused(imgs)
-    assert (kbb.backbone_forward.launches,
-            khead.mlp_head_forward.launches) == (before[0] + 1, before[1] + 2)
+    after = library.launches()
+    assert (after["backbone_forward"] - before["backbone_forward"],
+            after["mlp_head"] - before["mlp_head"]) == (1, 2)
     want = flagship.detect(imgs)
     assert torch.equal(got.valid, want.valid)
     assert int(want.valid.sum()) >= 1
@@ -433,7 +435,7 @@ def test_apply_fused_kernel_matches_plain(cuda, flagship, case):
         net = _random_init(BlazeFaceNet(WIDE_D, device=cuda), 7)
     x = preprocess(torch.from_numpy(imgs).to(cuda),
                    net.spec.input_size).contiguous()   # the resize's view
-    before = (kb2.apply_fused.launches, kb2.run_segment.launches)
+    before = library.launches()
     got = kb2.apply_fused(net, x)
     want = kb2.apply_fused_plain(net, x)
     if case.startswith("back"):
@@ -443,8 +445,9 @@ def test_apply_fused_kernel_matches_plain(cuda, flagship, case):
     else:
         fp32 = kbb.backbone_forward_cuda(net, x)
     torch.cuda.synchronize()
-    assert (kb2.apply_fused.launches,
-            kb2.run_segment.launches) == (before[0] + 1, before[1] + 4)
+    after = library.launches()
+    assert (after["apply_fused"] - before["apply_fused"],
+            after["backbone2_segment"] - before["backbone2_segment"]) == (1, 4)
     for g, w, f in zip(got, want, fp32):
         torch.testing.assert_close(g, w, **kb2.SPLIT_TOL)
         torch.testing.assert_close(g, f, rtol=0, atol=5e-4)
@@ -457,9 +460,9 @@ def test_fast_detect_matches_highest(cuda, flagship):
 
     fast = flagship_detector(precision="fast")
     img = np.load(os.path.join(GOLDEN, "e2e_production.npz"))["img"]
-    before = kb2.apply_fused.launches
+    before = library.launches()["apply_fused"]
     got = fast.detect(img)
-    assert kb2.apply_fused.launches == before + 1
+    assert library.launches()["apply_fused"] == before + 1
     want = flagship.detect(img)
     assert torch.equal(got.valid, want.valid)
     assert int(want.valid.sum()) >= 1
@@ -479,9 +482,9 @@ def test_back_fast_detect_matches_highest(cuda):
         warnings.simplefilter("ignore")
         spec, params = load_pretrained("unified-back-distilled")
     imgs = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"][:16]
-    before = kb2.apply_fused.launches
+    before = library.launches()["apply_fused"]
     got = FaceDetector(spec, params, precision="fast").detect(imgs)
-    assert kb2.apply_fused.launches == before + 1
+    assert library.launches()["apply_fused"] == before + 1
     want = FaceDetector(spec, params).detect(imgs)
     assert torch.equal(got.valid, want.valid)
     assert int(want.valid.sum()) >= 1
@@ -518,9 +521,9 @@ def test_island_kernel_matches_plain(cuda, flagship, case):
     island = tuple(range(len(net.blocks)))
     inputs = kb2.segment_inputs(net, x, kb2.pack_backbone(net), island)
     for i in island:
-        before = kd.dense_block.launches
+        before = library.launches()["dense_block"]
         got = kd.dense_block(net, i, inputs[i])
-        assert kd.dense_block.launches == before + 1
+        assert library.launches()["dense_block"] == before + 1
         want = kd.dense_block_plain(net, i, inputs[i])
         torch.cuda.synchronize()
         torch.testing.assert_close(
@@ -558,13 +561,13 @@ def test_turbo_and_max_detect_launch_the_island_kernel(cuda, flagship, mode):
     island = island_of(spec, mode)
     steps = kd.island_chains(spec, island)
     img = np.load(os.path.join(GOLDEN, "e2e_production.npz"))["img"]
-    before = (kd.dense_block.launches, kd.dense_chain.launches,
-              kb2.run_segment.launches)
+    before = library.launches()
     got = det.detect(img)
     torch.cuda.synchronize()
-    assert (kd.dense_block.launches - before[0],
-            kd.dense_chain.launches - before[1],
-            kb2.run_segment.launches - before[2]) == (
+    after = library.launches()
+    assert (after["dense_block"] - before["dense_block"],
+            after["dense_chain"] - before["dense_chain"],
+            after["backbone2_segment"] - before["backbone2_segment"]) == (
         sum(s[0] == "block" for s in steps),
         sum(s[0] == "chain" for s in steps),
         len(kb2.segment_plan(spec, island)))
@@ -630,9 +633,9 @@ def test_island_chain_matches_plain(cuda, flagship, case):
     tap = net.spec.tap88_block
     for _, first, last in sorted(chains):
         y0 = inputs[first]
-        before = kd.dense_chain.launches
+        before = library.launches()["dense_chain"]
         got, got_tap = kd.dense_chain(net, first, last, y0)
-        assert kd.dense_chain.launches == before + 1
+        assert library.launches()["dense_chain"] == before + 1
         prev = y0
         for k in range(first, last + 1):                          # (a)
             cur, t = kd.dense_chain_cuda(net, first, k, y0)
@@ -704,7 +707,7 @@ def test_island_chain_rejects_what_it_does_not_take(cuda, flagship):
     from headpose_tpu_torch.ops.kernels import dense_bf16 as kd
 
     net = flagship.net.backbone
-    before = kd.dense_chain.launches
+    before = library.launches()["dense_chain"]
     with pytest.raises(ValueError, match="float32"):
         kd.dense_chain(net, 12, 15, torch.zeros(
             (1, 8, 8, 96), device=cuda, dtype=torch.float16))
@@ -717,7 +720,7 @@ def test_island_chain_rejects_what_it_does_not_take(cuda, flagship):
                                                    device=cuda))
     assert tuple(y.shape) == (0, 8, 8, 96) and tuple(t.shape) == (
         0, 16, 16, 88)
-    assert kd.dense_chain.launches == before
+    assert library.launches()["dense_chain"] == before
 
 
 def test_island_plans_match_the_kernel(cuda):
@@ -731,7 +734,6 @@ def test_island_plans_match_the_kernel(cuda):
     import ctypes
 
     from headpose_tpu_torch.ops.kernels import dense_bf16 as kd
-    from headpose_tpu_torch.ops.kernels.packing import c_ints
 
     lib = kd.LIBRARY.load()
     too_wide = BlazeFace(input_size=32, stem_features=128,
@@ -750,7 +752,8 @@ def test_island_plans_match_the_kernel(cuda):
             channels, strides, h = kd._chain_args(spec, first, last)
             out = (ctypes.c_int * 4)()
             rc = lib.headpose_dense_bf16_chain_plan(
-                c_ints(channels), c_ints(strides), len(strides), h, out)
+                library._ints(channels), library._ints(strides), len(strides),
+                h, out)
             want = kd.chain_plan(channels, strides, h)
             assert (rc == 0) == (want is not None)
             if want is not None:
@@ -822,11 +825,11 @@ def test_se_kernel_matches_plain(cuda, flagship, case):
                  else (3, 8, 8, c) if c == 96 else (2, 16, 16, c))
         x = torch.from_numpy(np.random.default_rng(4).normal(
             0, 1, shape).astype(np.float32)).to(cuda)
-    before = kse.se_transformer_forward.launches
+    before = library.launches()["se_transformer"]
     got = kse.se_transformer_forward(net, x)
     want = kse.se_transformer_forward_plain(net, x)
     torch.cuda.synchronize()
-    assert kse.se_transformer_forward.launches == before + 1
+    assert library.launches()["se_transformer"] == before + 1
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
@@ -849,7 +852,7 @@ def test_se_model_detect_fused_launches_the_kernel(cuda, flagship,
     and gives detect's detections and poses."""
     from headpose_tpu_torch.models.unified import UnifiedPoseModel
     from headpose_tpu_torch.runtime.detector import FaceDetector
-    from headpose_tpu_torch.tools.convert import params_to_jax
+    from headpose_tpu_torch.models.params import params_to_jax
 
     spec = UnifiedPoseModel(backbone=flagship.model.backbone,
                             head88=SETransformerHead(88),
@@ -861,9 +864,9 @@ def test_se_model_detect_fused_launches_the_kernel(cuda, flagship,
         params[name] = params_to_jax(head.spec, head.state_dict())
     det = FaceDetector(spec, params, head_eval=head_eval)
     imgs = np.load(os.path.join(GOLDEN, "parity_corpus.npz"))["imgs"][:8]
-    before = kse.se_transformer_forward.launches
+    before = library.launches()["se_transformer"]
     got = det.detect_fused(imgs)
-    assert kse.se_transformer_forward.launches == before + 2
+    assert library.launches()["se_transformer"] == before + 2
     want = det.detect(imgs)
     assert torch.equal(got.valid, want.valid)
     assert int(want.valid.sum()) >= 8
@@ -1202,7 +1205,7 @@ def test_trainer_first_steps_on_the_card_match_the_cpu(cuda, trainer, width):
     the CPU's, and the params within TRAIN_PARAM_ATOL, with TF32 switched
     ON around the call: the trainers turn it off for the whole step
     (forward and backward) and restore it after."""
-    from headpose_tpu_torch.tools.convert import flatten_params
+    from headpose_tpu_torch.models.params import flatten_params
 
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
@@ -1268,9 +1271,9 @@ def _assert_calibration_targets_agree(width):
     original params on the first batch, which no island rounds: card
     against CPU within TRAIN_RTOL["calibrate"] of each output's largest
     value."""
-    from headpose_tpu_torch.models.blazeface import fp32_exact
+    from headpose_tpu_torch.core.single_pass import fp32_exact
     from headpose_tpu_torch.models.unified import UnifiedPoseNet
-    from headpose_tpu_torch.tools.convert import params_from_jax
+    from headpose_tpu_torch.models.params import params_from_jax
 
     model, params, _ = _calibration_model(width)
     x = _calibration_images(model)[0]
@@ -1317,7 +1320,7 @@ def test_distill_prefix_on_the_card_keeps_frozen_leaves(cuda):
     """distill_prefix on the card (front→back, stem + block 0 trained):
     every other leaf comes back bit for bit, the trained ones move."""
     from headpose_tpu_torch.models import BLAZEFACE_FRONT
-    from headpose_tpu_torch.tools.convert import flatten_params
+    from headpose_tpu_torch.models.params import flatten_params
     from headpose_tpu_torch.train import detector
 
     t = BLAZEFACE_FRONT.init(torch.Generator().manual_seed(0))
@@ -1372,11 +1375,10 @@ def test_aot_replay_runs_the_source_kernels(cuda, flagship, tmp_path, mode):
     name, and returns the source's slab bit for bit at the exported width;
     B=3 (chunked over 8, padded) gives the source's detection sets."""
     from headpose_tpu_torch.models.unified import UnifiedPoseModel
-    from headpose_tpu_torch.ops.kernels import library
     from headpose_tpu_torch.pretrained import flagship_detector
     from headpose_tpu_torch.runtime.detector import FaceDetector
     from headpose_tpu_torch.tools.aot import export_detector, load_exported
-    from headpose_tpu_torch.tools.convert import params_to_jax
+    from headpose_tpu_torch.models.params import params_to_jax
 
     if mode == "se_fast":
         spec = UnifiedPoseModel(backbone=flagship.model.backbone,
@@ -1436,7 +1438,7 @@ def test_one_rank_nccl_mesh_detect_is_bitwise(cuda, tmp_path):
     for name, v in paths.items():
         assert v["bitwise"], name
         assert v["launches_window"] == v["launches_unsharded"], name
-        assert v["launches_window"]["postprocess_nms"] == 1, name
+        assert v["launches_window"]["postprocess"] == 1, name
 
 
 def test_two_gloo_ranks_on_one_card_detect_within_1e5(cuda, tmp_path):
@@ -1446,10 +1448,10 @@ def test_two_gloo_ranks_on_one_card_detect_within_1e5(cuda, tmp_path):
     ranks = _dryrun_detect(tmp_path, 2, backend="gloo", same_device=True)
     for rank in ranks:
         fast = rank["detect"]["flagship_fast"]
-        assert fast["launches_window"] == {"postprocess_nms": 1,
-                                           "mlp_head_forward": 2,
+        assert fast["launches_window"] == {"postprocess": 1,
+                                           "mlp_head": 2,
                                            "apply_fused": 1,
-                                           "run_segment": 4}
+                                           "backbone2_segment": 4}
         assert rank["detect"]["batch_granularity"] == 2
         for name, v in rank["detect"].items():
             if isinstance(v, dict):            # DETECT_TOL, valid equal
@@ -1475,10 +1477,10 @@ def test_tiled_matmul_kernel_matches_plain(cuda, tile):
         a, b = a.to(cuda), b.to(cuda)
         want = ktm.tiled_matmul_plain(a, b, ktm.TILES[tile])
         torch.full((m, n), float("nan"), device=cuda)   # freed, then reused
-        before = ktm.tiled_matmul.launches
+        before = library.launches()["tiled_matmul"]
         got = ktm.tiled_matmul(a, b, ktm.TILES[tile])
         torch.cuda.synchronize()
-        assert ktm.tiled_matmul.launches == before + 1
+        assert library.launches()["tiled_matmul"] == before + 1
         assert bool(torch.isfinite(got).all()), (m, n, k)
         err = float((got - want).abs().max())
         assert err <= 1e-5 * float(want.abs().max()), (m, n, k, err)

@@ -232,7 +232,7 @@ def test_flagship_fixture_matches_jax():
     for i, (o, t) in enumerate(zip(ours, theirs)):
         np.testing.assert_allclose(o, t, rtol=1e-5, atol=1e-4, err_msg=i)
     assert gm.param_count == jgm.param_count == 110964
-    from headpose_tpu_torch.tools.convert import flatten_params
+    from headpose_tpu_torch.models.params import flatten_params
 
     mine = flatten_params(gm.params)
     want = flatten_params(jgm.params)

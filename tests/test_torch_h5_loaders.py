@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from headpose_tpu_torch.models.params import flatten_params
 from headpose_tpu_torch.pretrained import FLAGSHIP, load_pretrained
-from headpose_tpu_torch.tools.convert import flatten_params
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "golden_torch")
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")

@@ -20,7 +20,7 @@ import torch
 from headpose_tpu.models import heads as jheads
 from headpose_tpu.tools import h5export as jexport
 from headpose_tpu_torch.models import heads as theads
-from headpose_tpu_torch.tools.convert import params_from_jax
+from headpose_tpu_torch.models.params import params_from_jax
 from headpose_tpu_torch.tools.h5export import (keras3_custom_objects,
                                                save_head_h5, save_unified_h5)
 

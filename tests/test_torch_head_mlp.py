@@ -14,10 +14,10 @@ import torch
 from headpose_tpu_torch.core.activations import (ACTIVATIONS, activation_id,
                                                  get_activation)
 from headpose_tpu_torch.models import MLPHead, MLPHeadNet
+from headpose_tpu_torch.models.params import params_from_jax
 from headpose_tpu_torch.ops.kernels import head_mlp as khead
 from headpose_tpu_torch.ops.kernels.tf32 import matmul_3xtf32
 from headpose_tpu_torch.pretrained import BEST, FLAGSHIP, load_pretrained
-from headpose_tpu_torch.tools.convert import params_from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")

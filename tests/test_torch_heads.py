@@ -19,11 +19,11 @@ from headpose_tpu.pretrained import load_pretrained as jax_load_pretrained
 from headpose_tpu.runtime.detector import FaceDetector as JaxFaceDetector
 from headpose_tpu.tools.export import spec_from_dict as jax_spec_from_dict
 from headpose_tpu_torch.models import heads as theads
+from headpose_tpu_torch.models.params import (flatten_params, params_from_jax,
+                                              params_to_jax, spec_from_dict)
 from headpose_tpu_torch.pretrained import (BEST, FLAGSHIP, UNIFIED_BEST,
                                            load_pretrained)
 from headpose_tpu_torch.runtime.detector import FaceDetector
-from headpose_tpu_torch.tools.convert import (flatten_params, params_from_jax,
-                                              params_to_jax, spec_from_dict)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")

@@ -30,19 +30,19 @@ from headpose_tpu.models.blazeface import BlazeFace as JaxBlazeFace
 from headpose_tpu.train import detector as jdet
 from headpose_tpu_torch.core import graph as tgraph
 from headpose_tpu_torch.core.graph import GraphModel, load_graph_model
+from headpose_tpu_torch.core.single_pass import bf16_round
 from headpose_tpu_torch.models import heads as theads
 from headpose_tpu_torch.models.heads import (EnsembleHead, MLPHead,
                                              ResidualMLPHead, SEMLPHead,
                                              SETransformerHead, SkipMLPHead,
                                              head_net)
-from headpose_tpu_torch.models.single_pass import bf16_round
+from headpose_tpu_torch.models.params import flatten_params, params_from_jax
 from headpose_tpu_torch.ops.image import preprocess
 from headpose_tpu_torch.ops.kernels import packing
 from headpose_tpu_torch.pretrained import (FLAGSHIP, flagship_detector,
                                            load_pretrained)
 from headpose_tpu_torch.runtime.detector import FaceDetector
 from headpose_tpu_torch.runtime.fused import SERVED_PRECISIONS
-from headpose_tpu_torch.tools.convert import flatten_params, params_from_jax
 from headpose_tpu_torch.tools.extract_features import FeatureExtractor
 from headpose_tpu_torch.train import detector as tdet
 from test_torch_detector_train import (STEP_TOL, TINY_STUDENT, TINY_TEACHER,

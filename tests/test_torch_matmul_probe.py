@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from headpose_tpu_torch.models import BLAZEFACE_FRONT
-from headpose_tpu_torch.ops.kernels import kernel_wrappers
+from headpose_tpu_torch.ops.kernels import library
 from headpose_tpu_torch.ops.kernels import tiled_matmul as ktm
 from headpose_tpu_torch.tools import flops_accounting, probe_matmul
 
@@ -77,11 +77,11 @@ def test_plain_matches_the_pallas_kernel_in_interpret_mode(jax_probe, block):
 @pytest.mark.parametrize("tile", sorted(ktm.TILES))
 def test_wrapper_on_the_cpu_is_the_plain_version(tile):
     a, b = probe_matmul.operands(N, "cpu")
-    before = ktm.tiled_matmul.launches
+    before = library.launches()["tiled_matmul"]
     got = ktm.tiled_matmul(a, b, ktm.TILES[tile])
     assert torch.equal(got, ktm.tiled_matmul_plain(a, b, ktm.TILES[tile]))
     assert got.dtype == torch.float32 and got.shape == (N, N)
-    assert ktm.tiled_matmul.launches == before     # no kernel on the CPU
+    assert library.launches()["tiled_matmul"] == before   # none on the CPU
 
 
 def _bad(case):
@@ -124,7 +124,7 @@ def test_tiles_and_kernel_table():
         tm, tn, tk = probe_matmul.TPU_TILES[name]
         assert (tm // bm, tk // bk) == (4, 16)
         assert tn // bn == (8 if name == "large" else 4)
-    assert kernel_wrappers()["tiled_matmul"] is ktm.tiled_matmul
+    assert "tiled_matmul" in library.launches()
     assert 2048 % max(t[0] for t in ktm.TILES.values()) == 0
 
 

@@ -14,8 +14,8 @@ from headpose_tpu.models.heads import MLPHead as JaxMLPHead
 from headpose_tpu_torch.core.activations import ACTIVATIONS
 from headpose_tpu_torch.models import (BLAZEFACE_BACK, BlazeFaceNet, MLPHead,
                                        MLPHeadNet, UnifiedPoseNet)
+from headpose_tpu_torch.models.params import params_from_jax, params_to_jax
 from headpose_tpu_torch.pretrained import FLAGSHIP, load_pretrained
-from headpose_tpu_torch.tools.convert import params_from_jax, params_to_jax
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 

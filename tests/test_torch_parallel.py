@@ -19,8 +19,9 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from headpose_tpu.parallel import create_mesh as jax_create_mesh
 from headpose_tpu.parallel import head_param_specs as jax_head_param_specs
 from headpose_tpu.parallel import shard_head_params as jax_shard_head_params
+from headpose_tpu_torch.models.params import (DENSE, flatten_params,
+                                              leaf_layouts)
 from headpose_tpu_torch.parallel import dryrun
-from headpose_tpu_torch.tools.convert import DENSE, _pairs, flatten_params
 from test_torch_train import jax_spec
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
@@ -125,7 +126,7 @@ def test_head_param_specs_match_jax(i, tp):
     mine = head_param_specs(spec, params, tp)
     theirs = jax_head_param_specs(jax_spec(spec), params, tp)
     jax_shards = False
-    for _, path, layout in _pairs(spec):
+    for _, path, layout in leaf_layouts(spec):
         got, want = mine, theirs
         for p in path:
             got, want = got[p], want[p]

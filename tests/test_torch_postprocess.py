@@ -20,7 +20,7 @@ from headpose_tpu.models.anchors import BACK_CONFIG, generate_anchors
 from headpose_tpu.ops import detection as jdet
 from headpose_tpu.ops.pallas.postprocess import postprocess_pallas
 from headpose_tpu_torch.ops import detection as tdet
-from headpose_tpu_torch.ops.kernels import postprocess_kernel
+from headpose_tpu_torch.ops.kernels import library, postprocess_kernel
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 FIELDS = ("boxes", "keypoints", "scores", "poses", "valid")
@@ -159,13 +159,13 @@ def test_kernel_wrapper_on_cpu_is_the_twin():
     """On CPU tensors the wrapper runs the plain selection loop and launches
     nothing."""
     (logits, loc, pf, pb), thr, iou, mf = _split(CASES[0])
-    before = postprocess_kernel.launches
+    before = library.launches()["postprocess"]
     got = _torch(logits, loc, pf, pb, ANCHORS, thr, iou, mf,
                  fn=postprocess_kernel)
     want = _torch(logits, loc, pf, pb, ANCHORS, thr, iou, mf)
     for k in FIELDS:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    assert postprocess_kernel.launches == before
+    assert library.launches()["postprocess"] == before
 
 
 def test_threshold_zero_drops_sigmoid_underflow():

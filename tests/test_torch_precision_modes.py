@@ -22,20 +22,21 @@ import torch
 
 from headpose_tpu.models.blazeface import BlazeFace as JaxBlazeFace
 from headpose_tpu.models.blazeface import turbo_fast_blocks as jax_turbo
+from headpose_tpu_torch.core.single_pass import bf16_round
 from headpose_tpu_torch.models import (BLAZEFACE_BACK, BLAZEFACE_FRONT,
                                        TURBO_FAST_BLOCKS, BlazeFace,
                                        BlazeFaceNet, UnifiedPoseNet,
                                        turbo_fast_blocks)
-from headpose_tpu_torch.models.blazeface import bf16_round
+from headpose_tpu_torch.models.params import params_from_jax
 from headpose_tpu_torch.ops.kernels import backbone as kbb
 from headpose_tpu_torch.ops.kernels import backbone2 as kb2
 from headpose_tpu_torch.ops.kernels import dense_bf16 as kd
+from headpose_tpu_torch.ops.kernels import library
 from headpose_tpu_torch.pretrained import (FLAGSHIP, best_detector,
                                            flagship_detector, load_pretrained)
 from headpose_tpu_torch.runtime.detector import FaceDetector
 from headpose_tpu_torch.runtime.fused import (PRECISIONS, fused_network,
                                               island_of)
-from headpose_tpu_torch.tools.convert import params_from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")
@@ -255,12 +256,12 @@ def test_island_block_is_the_module_island_step(models):
     no launch."""
     net = models["flagship"][3].backbone
     x = torch.from_numpy(_island_input(np.random.default_rng(3), 2, 8, 96))
-    before = kd.dense_block.launches
+    before = library.launches()["dense_block"]
     got = kd.dense_block(net, 13, x)
     with torch.no_grad():
         want = net.blocks[13](x.permute(0, 3, 1, 2), dense=True, fast=True)
     assert torch.equal(got, want.permute(0, 2, 3, 1))
-    assert kd.dense_block.launches == before
+    assert library.launches()["dense_block"] == before
 
 
 def test_dense_pack_is_the_rounded_composition(models):

@@ -22,13 +22,14 @@ from headpose_tpu.pretrained import load_pretrained as jax_load_pretrained
 from headpose_tpu.runtime.detector import FaceDetector as JaxFaceDetector
 from headpose_tpu_torch.models.heads import (SETransformerHead,
                                              SETransformerHeadNet)
+from headpose_tpu_torch.models.params import flatten_params, params_from_jax
 from headpose_tpu_torch.models.unified import UnifiedPoseModel
 from headpose_tpu_torch.ops.image import preprocess
+from headpose_tpu_torch.ops.kernels import library
 from headpose_tpu_torch.ops.kernels import se_attention as kse
 from headpose_tpu_torch.pretrained import (FLAGSHIP, flagship_detector,
                                            load_pretrained)
 from headpose_tpu_torch.runtime.detector import FaceDetector
-from headpose_tpu_torch.tools.convert import flatten_params, params_from_jax
 from headpose_tpu_torch.utils.build import NVCC_FLAGS_FMA
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -212,10 +213,10 @@ def test_cpu_tensors_go_to_the_plain_version(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         kse.se_transformer_forward_cuda(net, x)
     monkeypatch.setattr(kse, "se_transformer_forward_cuda", boom)
-    before = kse.se_transformer_forward.launches
+    before = library.launches()["se_transformer"]
     assert torch.equal(kse.se_transformer_forward(net, x),
                        kse.se_transformer_forward_plain(net, x))
-    assert kse.se_transformer_forward.launches == before
+    assert library.launches()["se_transformer"] == before
 
 
 def test_build_flags():
@@ -295,7 +296,7 @@ def _seeded(spec, seed):
     """JAX-layout params of a head spec: the port's shapes, normal(0, 0.2)
     leaves from the seed (numpy)."""
     from headpose_tpu_torch.models.heads import head_net
-    from headpose_tpu_torch.tools.convert import params_to_jax
+    from headpose_tpu_torch.models.params import params_to_jax
 
     shapes = params_to_jax(spec, head_net(spec, device="cpu").state_dict())
     rng = np.random.default_rng(seed)

@@ -21,13 +21,14 @@ import torch
 
 from headpose_tpu_torch.models.heads import (SETransformerHead,
                                              SETransformerHeadNet)
+from headpose_tpu_torch.models.params import (flatten_params, load_native,
+                                              params_from_jax,
+                                              unflatten_params)
+from headpose_tpu_torch.ops.kernels import library
 from headpose_tpu_torch.ops.kernels import se_attention as kse
 from headpose_tpu_torch.ops.kernels.tf32 import split_tf32
 from headpose_tpu_torch.runtime.detector import FaceDetector
 from headpose_tpu_torch.tools import seed_se_model
-from headpose_tpu_torch.tools.convert import (flatten_params, load_native,
-                                              params_from_jax,
-                                              unflatten_params)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
@@ -313,13 +314,13 @@ def test_stream_launches_meet_the_plan(cuda, cell, corpus):
     batches = [torch.from_numpy(frames).pin_memory() for _ in range(3)]
     for br in detect_stream(det, batches[:1]):
         br.trim()
-    before = kse.se_transformer_forward.launches
+    before = library.launches()["se_transformer"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for br in detect_stream(det, batches):
             br.trim()
         torch.cuda.synchronize()
-    assert kse.se_transformer_forward.launches - before == 2 * 3
+    assert library.launches()["se_transformer"] - before == 2 * 3
     grids = [e for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and se_transformer.matches(e.name)]

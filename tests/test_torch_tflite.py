@@ -17,7 +17,7 @@ pytest.importorskip("tf_keras")
 
 from headpose_tpu.models import heads as jheads
 from headpose_tpu_torch.models import heads as theads
-from headpose_tpu_torch.tools.convert import params_from_jax
+from headpose_tpu_torch.models.params import params_from_jax
 from headpose_tpu_torch.tools.tflite import (UNIFIED_OUTPUT_NAMES,
                                              TFLiteModel, export_h5_tflite,
                                              export_head_tflite,

@@ -34,7 +34,7 @@ from headpose_tpu.train import run_sweep as jax_run_sweep
 from headpose_tpu.train.loop import _loss_and_metrics as jax_loss_and_metrics
 from headpose_tpu_torch.data import Dataset, train_val_split
 from headpose_tpu_torch.models import heads as theads
-from headpose_tpu_torch.tools.convert import (flatten_params, params_from_jax,
+from headpose_tpu_torch.models.params import (flatten_params, params_from_jax,
                                               params_to_jax)
 from headpose_tpu_torch.tools.export import spec_to_dict
 from headpose_tpu_torch.train import (JsonlLogger, SweepConfig, TrainConfig,

@@ -25,10 +25,10 @@ from headpose_tpu.pretrained import PRETRAINED_DIR as JAX_PRETRAINED_DIR
 from headpose_tpu.pretrained import load_pretrained as jax_load_pretrained
 from headpose_tpu_torch.models import (BLAZEFACE_BACK, BlazeFaceNet, MLPHead,
                                        MLPHeadNet, UnifiedPoseNet)
-from headpose_tpu_torch.pretrained import HEADS, load_pretrained
-from headpose_tpu_torch.tools.convert import (flatten_params, load_npz,
+from headpose_tpu_torch.models.params import (flatten_params, load_npz,
                                               params_from_jax, params_to_jax,
                                               save_npz, spec_from_dict)
+from headpose_tpu_torch.pretrained import HEADS, load_pretrained
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "headpose_tpu_torch")
@@ -156,6 +156,65 @@ def test_ast_scan_finds_no_jax_or_headpose_tpu_import():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "headpose_tpu"), \
                 f"{os.path.relpath(path, REPO)} imports {mod}"
+
+
+# The package's layers, lowest first: a module imports only from its own
+# layer and the layers below it.
+LAYERS = {"utils": 0, "core": 1, "data": 1, "models": 2, "ops": 3,
+          "parallel": 4, "runtime": 5, "train": 5, "tools": 6,
+          "pretrained": 6, "compat": 6}
+# entry points that mirror the JAX package's, each with what it may reach
+# above its layer
+LAYER_EXCEPTIONS = {"runtime/http.py": {"tools", "pretrained"},
+                    "runtime/edge.py": {"tools"},
+                    "runtime/demo.py": {"pretrained"},
+                    "parallel/dryrun.py": {"pretrained", "runtime", "train",
+                                           "tools"}}
+
+
+def _port_imports(path):
+    """The port's modules that `path` imports, as dotted names within the
+    package (relative imports resolved), each with its line."""
+    rel = os.path.relpath(path, PORT)[:-3].split(os.sep)
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.ImportFrom) and node.level:
+            base = rel[:len(rel) - node.level]
+            if node.module:
+                yield ".".join(base + [node.module]), node.lineno
+            else:
+                for a in node.names:
+                    yield ".".join(base + [a.name]), node.lineno
+        elif isinstance(node, ast.ImportFrom):
+            if (node.module or "").startswith("headpose_tpu_torch."):
+                yield node.module.split(".", 1)[1], node.lineno
+        elif isinstance(node, ast.Import):
+            for a in node.names:
+                if a.name.startswith("headpose_tpu_torch."):
+                    yield a.name.split(".", 1)[1], node.lineno
+
+
+@pytest.mark.parametrize("package", ["utils", "core", "data", "models",
+                                     "ops", "parallel", "runtime", "train",
+                                     "tools"])
+def test_imports_point_down_the_layers(package):
+    """No module of `package` imports from a layer above its own (utils <
+    core, data < models < ops < parallel < runtime, train < tools,
+    pretrained), but the entry points of LAYER_EXCEPTIONS."""
+    root = os.path.join(PORT, package)
+    files = [os.path.join(d, n) for d, _, names in os.walk(root)
+             for n in names if n.endswith(".py")]
+    assert files
+    bad = []
+    for path in files:
+        rel = os.path.relpath(path, PORT).replace(os.sep, "/")
+        allowed = LAYER_EXCEPTIONS.get(rel, set())
+        for mod, line in _port_imports(path):
+            layer = mod.split(".")[0]
+            assert layer in LAYERS, f"{rel}:{line} imports {mod}"
+            if (LAYERS[layer] > LAYERS[package]
+                    and layer not in allowed):
+                bad.append(f"{rel}:{line} -> {mod}")
+    assert not bad, bad
 
 
 _BLOCKED_SCRIPT = """\

@@ -8,17 +8,16 @@ operands, exact products and fp32 sums (core/single_pass.py).
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from ..core.single_pass import bf16_round, fp32_exact
+from ..utils.constants import device_constant
 from .bicubic import bicubic_matrix
 
 __all__ = ["bicubic_matrix", "resize_bicubic", "preprocess"]
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(maxsize=64)
 def _matrix_on(src: int, dst: int, device: torch.device) -> torch.Tensor:
     # cached per device: a host→device copy per call would synchronise
     return torch.tensor(bicubic_matrix(src, dst), device=device)

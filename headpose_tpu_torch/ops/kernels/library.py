@@ -31,7 +31,9 @@ tiled_matmul.py) compute them on the host.  The wrappers check the inputs,
 pack the weights and plan the launches; the op launches on the current
 stream, raises when a launch fails and counts its launches in `LAUNCHES`,
 so a replayed program counts as `detect` does.  `launches()` reads the
-counts, `reset_launches()` zeroes them; nothing else counts.  Each op has a
+counts, `reset_launches()` zeroes them, and `add_launches()` adds the
+launches of a replayed CUDA graph, which its capture counted
+(runtime/replay.py); nothing else counts.  Each op has a
 fake implementation (its output shapes) for tracing.  Only `postprocess`
 runs on the CPU; the others are registered for CUDA alone.  The host-side
 plan queries (`headpose_backbone2_groups`, `headpose_dense_bf16_*_plan`)
@@ -58,7 +60,7 @@ from ..detection import (MAX_LOGIT, SLAB, _decode_matrix, _f32,
                          prepare_postprocess, score_threshold_to_logit)
 
 __all__ = ["NAMESPACE", "LIBRARIES", "LAUNCHES", "launches",
-           "reset_launches", "library"]
+           "reset_launches", "add_launches", "library"]
 
 NAMESPACE = "headpose_tpu_torch"
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -133,6 +135,13 @@ def reset_launches() -> None:
     """Zero every launch count."""
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Count `counts` more launches, by op key: a replayed CUDA graph's,
+    which ran no op."""
+    for key, n in counts.items():
+        LAUNCHES[key] += n
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -50,8 +50,10 @@ from ..ops.kernels.postprocess import postprocess_slab
 from ..parallel.distributed import all_gather_rows
 from ..parallel.mesh import axis_index, axis_size, mesh_device
 from ..utils.device import resolve_device
-from ..utils.profiling import span
+from ..utils.profiling import TOTALS, span
+from ..utils.weights import stamp
 from .fused import SERVED_PRECISIONS, fused_network, head_forward, island_of
+from .replay import PipelineGraphs, graph_key
 from .results import BatchResults, Results
 
 __all__ = ["FaceDetector"]
@@ -282,6 +284,7 @@ class FaceDetector:
         self.postprocess = postprocess
         self.anchors = torch.tensor(
             generate_anchors(config).astype(np.float32), device=self.device)
+        self._graphs = PipelineGraphs()
 
     @classmethod
     def from_h5(cls, path, **kwargs) -> "FaceDetector":
@@ -356,7 +359,10 @@ class FaceDetector:
 
     def _detect(self, images, fused: bool) -> BatchResults:
         """A batch's dispatch, the span `detect`: the checks and the upload
-        (`detect.checks`), then `_pipeline`'s stages."""
+        (`detect.checks`), then `_pipeline`: on one CUDA device through
+        `runtime.replay.PipelineGraphs` (eager at a key's first call,
+        captured at its second, a CUDA graph replayed from then on), on the
+        CPU and over a mesh eager."""
         with span("detect"):
             if self.mesh is not None:
                 return self._detect_sharded(images, fused)
@@ -369,6 +375,11 @@ class FaceDetector:
                         raise ValueError(f"images must be (B, H, W, 3) or "
                                          f"(H, W, 3), got {tuple(x.shape)}")
                     x = x.to(self.device)
+                if self.device.type == "cuda" and x.shape[0]:
+                    return BatchResults(self._graphs(
+                        lambda t: self._pipeline(t, fused), x,
+                        graph_key(self, x, fused), stamp(self.net)))
+                TOTALS.count("detect.eager")
                 return BatchResults(self._pipeline(x, fused))
 
     def _detect_sharded(self, images, fused: bool) -> BatchResults:
@@ -422,11 +433,12 @@ class FaceDetector:
         at 'high', 'fast', 'turbo' and 'max'), True `detect_fused`'s.  At
         'default' the modules run with `single_pass`, the resize too.
 
-        A plain tensor function: `detect` calls it under inference mode,
-        and tools/aot.py traces it with `torch.export` (after one call
-        has made the weight packs, which the trace takes as constants).
-        Every kernel it reaches launches through an op of
-        ops/kernels/library.py."""
+        A plain tensor function with no host sync: `detect` calls it under
+        inference mode and, on one CUDA device, captures it as a CUDA
+        graph (`runtime.replay`); tools/aot.py traces it with
+        `torch.export` (after one call has made the weight packs, which
+        the trace takes as constants).  Every kernel it reaches launches
+        through an op of ops/kernels/library.py on the current stream."""
         precision = self.precision
         graph = isinstance(self.model, GraphUnifiedModel)
         _check_precision(precision, graph)

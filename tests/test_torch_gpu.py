@@ -992,6 +992,246 @@ def test_streamed_results_outlive_later_batches(cuda, flagship):
             assert getattr(r, name).tobytes() == a.tobytes(), name
 
 
+
+# ------------------------------------------- detect replayed as a CUDA graph
+SE_SEEDED = os.path.join(os.path.dirname(__file__), os.pardir, "perfbench",
+                         "models", "unified-se-seeded")
+REPLAY_COUNTS = ("detect.eager", "detect.capture", "detect.capture_failed",
+                 "detect.replay")
+
+
+def _replay_counts() -> dict:
+    from headpose_tpu_torch.utils.profiling import TOTALS
+
+    return {k: TOTALS.counts[k] for k in REPLAY_COUNTS}
+
+
+def _counted(before: dict) -> tuple:
+    """(eager, captured, failed captures, replayed) calls since `before`."""
+    now = _replay_counts()
+    return tuple(now[k] - before[k] for k in REPLAY_COUNTS)
+
+
+def _frames(b, seed):
+    """b corpus frames drawn by the seed, about half of them mirrored."""
+    imgs = _corpus(112)
+    rng = np.random.default_rng(seed)
+    out = imgs[rng.integers(0, len(imgs), b)]
+    flip = rng.random(b) < 0.5
+    out[flip] = out[flip, :, ::-1]
+    return np.ascontiguousarray(out)
+
+
+def _eager_slab(detector, x, fused=None):
+    """`_pipeline` called op by op, as `detect` runs a key's first call."""
+    with torch.inference_mode():
+        return detector._pipeline(torch.as_tensor(x).to(detector.device),
+                                  fused)
+
+
+def _replay_detector(model="flagship"):
+    from headpose_tpu_torch.pretrained import flagship_detector
+    from headpose_tpu_torch.runtime.detector import FaceDetector
+
+    if model == "se":
+        return FaceDetector.from_native(SE_SEEDED, precision="fast",
+                                        head_eval="map")
+    return flagship_detector(precision="fast")
+
+
+@pytest.mark.parametrize("model,b", [("flagship", 256), ("se", 64)])
+def test_replayed_detect_is_eager_bitwise(cuda, model, b):
+    """Six detects over three batches at one shape: the first eager, the
+    second captured (and replayed once), four replays; each slab bitwise
+    the eager `_pipeline`'s of its own batch, the flagship at "fast" and
+    the seeded SE-Transformer model under "map"."""
+    detector = _replay_detector(model)
+    xs = [torch.from_numpy(_frames(b, seed)).to(cuda) for seed in range(3)]
+    before = _replay_counts()
+    got = [detector.detect(xs[i % 3]).slab for i in range(6)]
+    assert _counted(before) == (1, 1, 0, 4)
+    for i, slab in enumerate(got):
+        assert torch.equal(slab, _eager_slab(detector, xs[i % 3])), i
+    assert int(got[0][..., det.C_VALID].sum()) >= b // 2
+
+
+def test_two_batches_in_flight_replay_as_eager(cuda):
+    """detect_stream with prefetch=2 over 8 batches (two replays in
+    flight, each slab downloaded on a side stream): every slab and every
+    trim bitwise the eager `_pipeline`'s of the same batch, one at a
+    time."""
+    from headpose_tpu_torch.runtime.results import BatchResults
+    from headpose_tpu_torch.runtime.streaming import detect_stream
+
+    detector = _replay_detector()
+    batches = [_frames(64, seed) for seed in range(8)]
+    before = _replay_counts()
+    got = [(out.slab, out.trim())
+           for out in detect_stream(detector, iter(batches), prefetch=2)]
+    assert _counted(before) == (1, 1, 0, 6)
+    for batch, (slab, results) in zip(batches, got):
+        want = _eager_slab(detector, batch)
+        assert torch.equal(slab, want)
+        _assert_results_equal(results, BatchResults(want).trim())
+
+
+@pytest.mark.parametrize("change", ["weights", "score_threshold", "shape"])
+def test_a_changed_state_is_captured_anew(cuda, change):
+    """After a key replays: weights loaded with `load_state_dict`, another
+    score threshold, or another batch size make the next detect eager on
+    the new state, the one after it a capture, then a replay; each equals
+    the eager `_pipeline` on the new state, which differs from the old."""
+    detector = _replay_detector()
+    x = torch.from_numpy(_frames(32, 0)).to(cuda)
+    for _ in range(3):
+        detector.detect(x)
+    old = _eager_slab(detector, x)
+    if change == "weights":
+        rng = np.random.default_rng(5)
+        detector.net.load_state_dict({
+            k: v * (1 + 1e-3 * torch.from_numpy(rng.standard_normal(
+                tuple(v.shape)).astype(np.float32)).to(cuda))
+            if v.is_floating_point() else v
+            for k, v in detector.net.state_dict().items()})
+    elif change == "score_threshold":
+        detector.score_threshold = 0.6
+    else:
+        x = x[:16].clone()
+    before = _replay_counts()
+    got = [detector.detect(x).slab for _ in range(3)]
+    assert _counted(before) == (1, 1, 0, 1)
+    want = _eager_slab(detector, x)
+    if change != "shape":                   # 16 of the same frames
+        assert not torch.equal(want, old)
+    for slab in got:
+        assert torch.equal(slab, want)
+
+
+def test_replay_counts_the_launches_of_an_eager_call(cuda):
+    """`library.launches()` advances alike on an eager, a capturing and a
+    replayed detect: #3's segments, one `apply_fused`, #4 twice, #1
+    once."""
+    detector = _replay_detector()
+    x = torch.from_numpy(_frames(32, 1)).to(cuda)
+    deltas = []
+    for _ in range(4):
+        before = library.launches()
+        detector.detect(x)
+        after = library.launches()
+        deltas.append({k: after[k] - before[k] for k in after})
+    assert deltas[0] == deltas[1] == deltas[2] == deltas[3]
+    spec = detector.net.backbone.spec
+    assert (deltas[0]["backbone2_segment"], deltas[0]["apply_fused"],
+            deltas[0]["mlp_head"], deltas[0]["postprocess"]) == (
+        len(kb2.segment_plan(spec)), 1, 2, 1)
+
+
+def test_replayed_kernels_show_in_the_profiler(cuda):
+    """A graph captured before the profiler starts: a replayed batch under
+    torch.profiler shows each kernel of the launch plan by name, #3's
+    `block_kernel`/`chain_kernel` 8 times, #4's 2, #1's once (the profiler
+    drops a launch now and then: up to three windows), and the span
+    `detect.replay`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    detector = _replay_detector()
+    x = torch.from_numpy(_frames(64, 2)).to(cuda)
+    detector.detect(x)
+    detector.detect(x)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            detector.detect(x)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts = (sum("chain_kernel" in n or ("block_kernel" in n
+                                              and "bfloat16" in n)
+                      for n in names),
+                  sum("mlp_head_kernel" in n for n in names),
+                  sum("cta_kernel" in n for n in names))
+        if counts == (8, 2, 1):
+            break
+    assert counts == (8, 2, 1), sorted(set(names))
+    assert "headpose.detect.replay" in {e.name for e in prof.events()}
+
+
+def test_a_capture_that_raises_leaves_the_key_eager(cuda):
+    """A pipeline with a host sync in it cannot be captured: the capture
+    raises inside, is counted, adds no launches, and that call and every
+    later one at the key run eager and give eager's slab; random draws on
+    the card work after it (a failed capture leaves PyTorch's CUDA
+    generator in capture mode unless it is ended)."""
+    detector = _replay_detector()
+    pipeline = detector._pipeline
+
+    def syncing(x, fused=None):
+        slab = pipeline(x, fused)
+        float(slab[0, 0, 0])                 # a copy to the host and a wait
+        return slab
+
+    detector._pipeline = syncing
+    x = torch.from_numpy(_frames(16, 3)).to(cuda)
+    before, launched = _replay_counts(), library.launches()["postprocess"]
+    got = [detector.detect(x).slab for _ in range(4)]
+    assert _counted(before) == (4, 0, 1, 0)
+    assert library.launches()["postprocess"] == launched + 4
+    want = _eager_slab(detector, x)
+    for slab in got:
+        assert torch.equal(slab, want)
+    assert torch.rand(4, device=cuda).shape == (4,)
+
+
+def test_replay_on_a_worker_thread(cuda):
+    """DynamicBatcher calls detect from its own thread: after a first call
+    on the main thread, the worker's first call runs eager again (its
+    thread's cuBLAS handle is made outside a capture), its second captures
+    (thread-local capture mode), and the replays give eager's slab."""
+    import threading
+
+    detector = _replay_detector()
+    x = torch.from_numpy(_frames(32, 4)).to(cuda)
+    before = _replay_counts()
+    got = [detector.detect(x).slab]
+    worker = threading.Thread(target=lambda: got.extend(
+        detector.detect(x).slab for _ in range(4)))
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    assert _counted(before) == (2, 1, 0, 2)
+    want = _eager_slab(detector, x)
+    for slab in got:
+        assert torch.equal(slab, want)
+
+
+def test_replay_outlives_the_eviction_of_its_resize_matrices(cuda):
+    """A key of 480×640 frames replays after 70 other frame sizes have
+    passed through eager calls (the resize-matrix cache holds 64 pairs, so
+    the key's pair is evicted) and freed memory of the matrices' sizes has
+    been filled with NaN: the graph kept its matrices, and its slab is
+    still eager's."""
+    detector = _replay_detector()
+    rows = np.where(np.arange(128) % 4 == 0, 3, 4)        # 128 rows → 480
+    x = torch.from_numpy(np.ascontiguousarray(np.repeat(np.repeat(
+        _frames(8, 6), rows, axis=1), 5, axis=2))).to(cuda)
+    assert tuple(x.shape) == (8, 480, 640, 3)
+    want = _eager_slab(detector, x)
+    detector.detect(x)
+    detector.detect(x)
+    for k in range(70):
+        _eager_slab(detector, x[:1, :200 + k, :300 + k])
+    fill = [torch.full((128, n), float("nan"), device=cuda)
+            for n in (480, 640) for _ in range(64)]
+    before = _replay_counts()
+    got = detector.detect(x).slab
+    torch.cuda.synchronize()
+    assert _counted(before) == (0, 0, 0, 1)
+    assert torch.equal(got, want)
+    assert int(want[..., det.C_VALID].sum()) >= 4
+    del fill
+
+
 def _timeline_gpu(seed, N=12, F=6, faces=8):
     """Seeded boxes, validity and poses with duplicate boxes (IoU ties) and
     more faces than slots when tracked with 5 slots."""
